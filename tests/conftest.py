@@ -22,6 +22,7 @@ def pytest_configure(config):
     config.addinivalue_line("markers", "multichip: exercises the multi-device sharded path")
     config.addinivalue_line("markers", "slow: heavy test (excluded from the smoke tier)")
     config.addinivalue_line("markers", "smoke: fast tier — `pytest -m smoke` runs in <2 min")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips elsewhere")
 
 
 def pytest_collection_modifyitems(config, items):

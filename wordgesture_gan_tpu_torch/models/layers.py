@@ -1,0 +1,141 @@
+"""Building blocks of the generator: dense, LeakyReLU, LSTM cells and the
+plain stacked BiLSTM (the port of the JAX package's ``models/layers.py``).
+
+Weights keep the JAX package's layout — ``dense`` weights are (in, out) and
+applied as ``x @ w + b``; LSTM ``w_ih`` is (in, 4H), ``w_hh`` is (H, 4H),
+gate order i, f, g, o — so a JAX parameter tree maps onto the modules
+without transposes (``interop/from_jax.py``). Initializers are PyTorch's
+defaults (U(±1/sqrt(fan)) for linear and LSTM weights), drawn from an
+explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return torch.nn.functional.leaky_relu(x, slope)
+
+
+def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator, dtype=torch.float32) * 2.0 - 1.0) * bound
+
+
+def dense_init(in_dim: int, out_dim: int,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """``nn.Linear`` default init, U(±1/sqrt(in_dim)) for weight and bias,
+    in the (in, out) layout."""
+    bound = 1.0 / in_dim ** 0.5
+    return {"w": _uniform((in_dim, out_dim), bound, generator),
+            "b": _uniform((out_dim,), bound, generator)}
+
+
+def lstm_cell_init(in_dim: int, hidden: int,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """``nn.LSTM`` default init: every tensor U(±1/sqrt(hidden))."""
+    bound = 1.0 / hidden ** 0.5
+    return {
+        "w_ih": _uniform((in_dim, 4 * hidden), bound, generator),
+        "w_hh": _uniform((hidden, 4 * hidden), bound, generator),
+        "b_ih": _uniform((4 * hidden,), bound, generator),
+        "b_hh": _uniform((4 * hidden,), bound, generator),
+    }
+
+
+class Dense(nn.Module):
+    """Linear layer with the JAX layout: ``w`` is (in, out), ``x @ w + b``."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        p = dense_init(in_dim, out_dim, generator)
+        self.w = nn.Parameter(p["w"])
+        self.b = nn.Parameter(p["b"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
+
+
+class LSTMCell(nn.Module):
+    """One direction of one LSTM layer: w_ih (in, 4H), w_hh (H, 4H), b_ih, b_hh."""
+
+    def __init__(self, in_dim: int, hidden: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for name, value in lstm_cell_init(in_dim, hidden, generator).items():
+            setattr(self, name, nn.Parameter(value))
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {"w_ih": self.w_ih, "w_hh": self.w_hh, "b_ih": self.b_ih, "b_hh": self.b_hh}
+
+
+class BiLSTM(nn.ModuleList):
+    """Stacked bidirectional LSTM weights: ``[k]["fwd" | "bwd"]`` cells; the
+    first layer takes ``in_dim`` inputs, later ones the 2H of the layer below."""
+
+    def __init__(self, in_dim: int, hidden: int, num_layers: int,
+                 generator: Optional[torch.Generator] = None):
+        layers = []
+        d = in_dim
+        for _ in range(num_layers):
+            layers.append(nn.ModuleDict({"fwd": LSTMCell(d, hidden, generator),
+                                         "bwd": LSTMCell(d, hidden, generator)}))
+            d = 2 * hidden
+        super().__init__(layers)
+        self.hidden = hidden
+
+    def params(self) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+        """The weights as the list-of-dicts tree the apply functions take."""
+        return [{d: layer[d].params() for d in ("fwd", "bwd")} for layer in self]
+
+
+def _bilstm_layer(layer: Dict, x: torch.Tensor, hidden: int,
+                  static: Optional[torch.Tensor]) -> torch.Tensor:
+    """Both directions of one layer, advancing together: (B, L, D) → (B, L, 2H).
+
+    ``static`` (B, D_static) is a time-constant input occupying the LAST
+    D_static rows of w_ih, projected once into the gate base. The state
+    (h, c) is carried in x's dtype, as the JAX scan carries it."""
+    D = x.shape[-1]
+    B, L = x.shape[0], x.shape[1]
+    w_seq = torch.stack([layer["fwd"]["w_ih"][:D], layer["bwd"]["w_ih"][:D]])    # (2, D, 4H)
+    w_hh = torch.stack([layer["fwd"]["w_hh"], layer["bwd"]["w_hh"]])             # (2, H, 4H)
+    bias = torch.stack([layer["fwd"]["b_ih"] + layer["fwd"]["b_hh"],
+                        layer["bwd"]["b_ih"] + layer["bwd"]["b_hh"]])            # (2, 4H)
+    if static is not None:
+        w_st = torch.stack([layer["fwd"]["w_ih"][D:], layer["bwd"]["w_ih"][D:]])
+        base = torch.einsum("bi,dig->dbg", static, w_st) + bias[:, None, :]      # (2, B, 4H)
+    else:
+        base = bias[:, None, :].expand(2, B, -1)
+    xs = torch.stack([x, x.flip(1)])                                             # (2, B, L, D)
+    gx = torch.einsum("dblk,dkg->dblg", xs, w_seq)                               # (2, B, L, 4H)
+    h = x.new_zeros((2, B, hidden))
+    c = x.new_zeros((2, B, hidden))
+    outs = []
+    for t in range(L):
+        gates = base + gx[:, :, t] + torch.bmm(h, w_hh)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        outs.append(h)
+    hs = torch.stack(outs, dim=2)                                                # (2, B, L, H)
+    return torch.cat([hs[0], hs[1].flip(1)], dim=-1)
+
+
+def bilstm_apply(layers: List[Dict], x: torch.Tensor, hidden: int,
+                 static: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain stacked BiLSTM: (B, L, D) → (B, L, 2H), the port of the JAX
+    package's ``bilstm_apply`` (gate order i, f, g, o; zero initial state).
+
+    ``static``: optional (B, D_static) time-constant input to the FIRST layer,
+    appended feature-wise after the sequence input — the same as
+    concatenating it broadcast along L. The CPU reference of the recurrence;
+    the generator's serving path goes through ``ops.bilstm_fused``."""
+    h = x
+    for i, layer in enumerate(layers):
+        h = _bilstm_layer(layer, h, hidden, static if i == 0 else None)
+    return h
