@@ -6,26 +6,44 @@
 Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the serving path from ``wordgesture_gan_tpu_torch/csrc``
+2. build every CUDA kernel of the port from ``wordgesture_gan_tpu_torch/csrc``
    (one nvcc per source, started together) and print ptxas' register report;
 3. hold each kernel against its plain PyTorch version on the card at the
    flagship generator's full width (4 layers, H=48, L=128, Z=32) for
-   B in {1, 131, 512, 2048}: float32 with TF32 off, tolerance 1e-4 abs;
-   bfloat16 against the plain bfloat16 version, tolerance 2e-2 abs;
+   B in {1, 131, 512, 2048}, float32 with TF32 off and bfloat16:
+   kernel 1 (inference forward): 1e-4 / 2e-2 abs;
+   kernels 2 and 3 (training forward with residuals, backward through
+   time): the output, every residual plane and every gradient (dW_ih,
+   dW_hh, db, dz, dx), each as max |err| / max |want|, 1e-4 / 2e-2; kernel
+   3 and its plain version read kernel 2's residuals; kernel 2's output
+   must equal kernel 1's;
 4. serve gestures through the entry point a user calls,
    ``wordgesture_gan_tpu_torch.generate.main``: seeded random full-width
    weights written as a JAX-layout npz, 8192 gestures over a word list at
    --batch 512, bfloat16, monotone time head. The output must be (N, 128, 3),
-   finite, |x|, |y| <= 1, t monotone from 0 to 1, and the kernel's launch
+   finite, |x|, |y| <= 1, t monotone from 0 to 1, and kernel 1's launch
    count (set to 0 just before) must show the run went through it. A small
-   batch with injected noise is then compared with the CPU's plain path;
-5. time the kernel, its plain version and one cuDNN ``torch.nn.LSTM`` call on
-   the same weights (a yardstick the port never calls) at B=512 in bfloat16
-   and float32 with CUDA events, and the entry point's gestures/s.
+   batch with injected noise is then compared with the CPU's plain path,
+   and one sampling call is profiled;
+5. train through ``train.gan_loop.train_gan(..., device="cuda")``: the
+   flagship recipe (bf16, batch 512, n_critic 5, λ_speed 2, λ_div 0.3,
+   λ_dtc 4) on 4096 smoke gestures made in numpy from keyboard prototypes,
+   2 epochs of 8 steps with a checkpoint each, then a resumed third epoch
+   with every launch count set to 0 just before: 5 kernel-1, 3 kernel-2 and
+   3 kernel-3 launches per step; losses finite; one steady step profiled;
+6. one step on the card against the CPU's plain path from the same state,
+   batch and injected noise (B=32, full width, float32, n_critic 5), for
+   the reference recipe and the flagship one: losses, the gradients (Adam
+   moments after a step at lr=0) and the parameters after a step at
+   lr=2e-4, with the tolerances stated at STEP_RECIPES;
+7. time kernel 1, kernels 2 and 3, their plain versions and cuDNN
+   ``torch.nn.LSTM`` on the same weights (a yardstick the port never calls;
+   the training yardstick is its float32 forward and backward) at B=512 in
+   bfloat16 and float32 with CUDA events, beside each kernel's bound.
 
-Output: timing lines as JSON, then the kernel table as one JSON line
-({"kernels": [...]}), then the nvidia-smi line, then as the last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Output: check, timing and profile lines as JSON, then the kernel table as
+one JSON line ({"kernels": [...]}), then the nvidia-smi line, then as the
+last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -44,20 +62,47 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from wordgesture_gan_tpu_torch import generate
-from wordgesture_gan_tpu_torch.configs import ModelConfig
+from wordgesture_gan_tpu_torch.configs import ModelConfig, TrainingConfig
+from wordgesture_gan_tpu_torch.data.pipeline import GestureArrays
 from wordgesture_gan_tpu_torch.interop.from_jax import write_generator_npz
 from wordgesture_gan_tpu_torch.keyboard import QWERTYKeyboard
 from wordgesture_gan_tpu_torch.ops import build as kernel_build
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import fused_bilstm_fwd, fused_bilstm_fwd_plain
-from wordgesture_gan_tpu_torch.train.checkpoint import load_generator
-from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures
+from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_bwd, bilstm_train_bwd_plain,
+                                                        bilstm_train_fwd, bilstm_train_fwd_plain)
+from wordgesture_gan_tpu_torch.train.checkpoint import latest_epoch, load_generator
+from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures, train_gan
+from wordgesture_gan_tpu_torch.train.gan_step import gan_train_step
+from wordgesture_gan_tpu_torch.train.state import MODELS, init_gan_state
 from wordgesture_gan_tpu_torch.utils.chunking import chunk_layout
+from wordgesture_gan_tpu_torch.utils.tree import tree_leaves
 
 HIDDEN, SEQ, LAYERS, LATENT = 48, 128, 4, 32
 CHECK_BATCHES = (1, 131, 512, 2048)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 SERVE_N, SERVE_BATCH = 8192, 512
 TIME_BATCH = 512
+# Training phase: the flagship recipe on smoke data (see smoke_dataset).
+TRAIN_N = 4096
+FLAGSHIP_TRAIN = dict(batch_size=512, n_critic=5, lambda_speed=2.0, lambda_div=0.3,
+                      lambda_dtc=4.0)
+# Launches per train step: kernel 1 once per critic iteration (both fakes in
+# one 2B call); kernels 2 and 3 once per differentiated generator application
+# (cycle 1, the second prior draw, cycle 2).
+PER_STEP = {"bilstm_fused": 5, "bilstm_train_fwd": 3, "bilstm_train_bwd": 3}
+# The step against the CPU: batch, learning rate, and tolerances. Losses
+# 1e-4 relative to max(1, |loss|) and parameters within 2·lr per Adam step
+# taken, as in the CPU parity test (tests/test_torch_train_step.py).
+# Gradients (Adam's moments after a step at lr=0) relative to each leaf's
+# largest: 1e-3 for the reference recipe (measured up to 1.2e-4 on an H100:
+# the critics' float32 convolutions sum in another order on the card, and the
+# WGAN loss is a difference of near-equal means); 1e-2 with the flagship
+# auxiliaries, whose speed-profile and Pearson terms amplify float32
+# rounding in G's gradient (measured up to 1.7e-3).
+STEP_BATCH, STEP_LR = 32, 2e-4
+STEP_LOSS_TOL = 1e-4
+STEP_RECIPES = {"reference": ({}, 1e-3), "flagship": (FLAGSHIP_TRAIN, 1e-2)}
+PLANES = ("h", "c", "i", "f", "g", "o")
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, 700 W): HBM bytes/s,
 # and FLOP/s by operand type (bf16 on the tensor cores, fp32 on the CUDA cores).
 PEAK_BYTES_PER_S = 3.35e12
@@ -222,15 +267,12 @@ def serve(device, workdir: Path, n=SERVE_N, batch=SERVE_BATCH, hidden=HIDDEN, ru
     return {"launches": launches, "chunks": expected, "runs": stats}
 
 
-def profile_serving(model, protos: np.ndarray, batch: int, device) -> None:
-    """Where the serving path's time goes: one steady ``generate_gestures``
-    call under torch.profiler, device time summed by kernel name against the
-    call's wall time."""
-
-    generate_gestures(model, protos, model.config, batch=batch, device=device)   # warm
+def device_profile(run, label: str, **extra) -> dict:
+    """``run()`` once under torch.profiler: device time summed by kernel name
+    against the call's wall time. Prints and returns the profile line."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate_gestures(model, protos, model.config, batch=batch, device=device)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -242,24 +284,27 @@ def profile_serving(model, protos: np.ndarray, batch: int, device) -> None:
                          "device_ms": evt.self_device_time_total / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
-    print(json.dumps({"profile": "generate_gestures", "n": len(protos), "batch": batch,
-                      "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                      "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-                      "top": rows[:8]}), flush=True)
+    line = {"profile": label, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "device_events": sum(r["count"] for r in rows), "top": rows[:10]}
+    print(json.dumps(line), flush=True)
+    return line
 
 
-def time_kernel(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ,
-                layers=LAYERS, latent=LATENT) -> dict:
-    """Phase 5: kernel, plain version and cuDNN LSTM at one shape."""
-    dtype = getattr(torch, dtype_name)
-    tree = random_generator_tree(hidden, layers, latent, seed=2)
-    stack = stack_on(tree, device)
-    x, z = random_inputs(batch, seq, latent, seed=3, device=device)
-    ms = time_ms(lambda: fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype), iters=20)
-    plain_ms = time_ms(lambda: fused_bilstm_fwd_plain(stack, x, hidden, z, dtype=dtype),
-                       iters=2, warmup=1)
+def profile_serving(model, protos: np.ndarray, batch: int, device) -> None:
+    """Where the serving path's time goes: one steady ``generate_gestures``
+    call under torch.profiler."""
+    generate_gestures(model, protos, model.config, batch=batch, device=device)   # warm
+    device_profile(lambda: generate_gestures(model, protos, model.config, batch=batch,
+                                             device=device),
+                   "generate_gestures", n=len(protos), batch=batch)
 
-    lstm = torch.nn.LSTM(2 + latent, hidden, num_layers=layers, bidirectional=True,
+
+def cudnn_lstm(tree: dict, latent: int, dtype: torch.dtype, device) -> torch.nn.LSTM:
+    """``torch.nn.LSTM`` holding the stack's weights (the timed yardstick;
+    the port never calls it)."""
+    hidden = tree["lstm"][0]["fwd"]["w_hh"].shape[0]
+    lstm = torch.nn.LSTM(2 + latent, hidden, num_layers=len(tree["lstm"]), bidirectional=True,
                          batch_first=True)
     with torch.no_grad():
         for k, layer in enumerate(tree["lstm"]):
@@ -271,6 +316,20 @@ def time_kernel(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SE
                 getattr(lstm, f"bias_hh_l{k}{suffix}").copy_(torch.from_numpy(p["b_hh"]))
     lstm = lstm.to(device=device, dtype=dtype)
     lstm.flatten_parameters()
+    return lstm
+
+
+def time_kernel(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ,
+                layers=LAYERS, latent=LATENT) -> dict:
+    """Phase 7: kernel 1, its plain version and cuDNN LSTM at one shape."""
+    dtype = getattr(torch, dtype_name)
+    tree = random_generator_tree(hidden, layers, latent, seed=2)
+    stack = stack_on(tree, device)
+    x, z = random_inputs(batch, seq, latent, seed=3, device=device)
+    ms = time_ms(lambda: fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype), iters=20)
+    plain_ms = time_ms(lambda: fused_bilstm_fwd_plain(stack, x, hidden, z, dtype=dtype),
+                       iters=2, warmup=1)
+    lstm = cudnn_lstm(tree, latent, dtype, device)
     seq_in = torch.cat([x, z[:, None, :].expand(-1, seq, -1)], dim=-1).to(dtype)
     with torch.no_grad():
         library_ms = time_ms(lambda: lstm(seq_in), iters=20)
@@ -282,6 +341,279 @@ def time_kernel(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SE
            "bound_ms": bound_ms, "bound_by": bound_by}
     print(json.dumps({"timing": "bilstm_fused", **row}), flush=True)
     return row
+
+
+# -- kernels 2 and 3: the training pair ---------------------------------------------------
+
+
+def _bound(nbytes: float, flops: float, peak_flops: float) -> tuple:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def train_bounds_ms(batch: int, seq: int, hidden: int, layers: int, latent: int,
+                    dtype: str) -> dict:
+    """Least times of kernels 2 and 3 on an H100: {"fwd": (ms, by), "bwd":
+    (ms, by)}.
+
+    Kernel 2: kernel 1's gate products (on the tensor cores in bf16); bytes:
+    the inputs once, the residuals (layers, 2, L, B, 6H) and the output once.
+    Kernel 3: the products every backward step needs per sample and
+    direction — dh through W_hh^T (H·4H), the input gradient (2H·4H above
+    layer 1, 2·4H at it) and the weight gradients ([x | h_prev]^T·dgates,
+    (din + H)·4H) — plus dW_z and dz (2·Z·4H per sample), all float32 by the
+    casting contract, so against the float32 peak in both dtypes; bytes:
+    residuals, dy, prototype, z and weights read once, dW, dz and dx written
+    once."""
+    item = 2 if dtype == "bfloat16" else 4
+    H, g = hidden, 4 * hidden
+    fwd_flops = batch * 2 * (seq * 2 * g * (H + 2) + (layers - 1) * seq * 2 * g * 3 * H
+                             + 2 * g * latent)
+    weights = (2 * 2 * g + layers * 2 * H * g + (layers - 1) * 2 * 2 * H * g) * item
+    res = layers * 2 * seq * batch * 6 * H * item
+    proto_z = batch * seq * 2 * item + batch * latent * 4
+    fwd_bytes = proto_z + weights + (2 * latent * g + layers * 2 * g) * 4 + res \
+        + batch * seq * 2 * H * item
+    macs_first = H * g + 2 * g + (2 + H) * g
+    macs_rest = H * g + 2 * H * g + (2 * H + H) * g
+    bwd_flops = batch * 2 * (2 * seq * (macs_first + (layers - 1) * macs_rest)
+                             + 2 * 2 * latent * g)
+    dw = 2 * ((2 + latent + H + 1) + (layers - 1) * (3 * H + 1)) * g * 4
+    bwd_bytes = res + batch * seq * 2 * H * item + proto_z + weights + latent * 2 * g * item \
+        + dw + batch * latent * 4 + batch * seq * 2 * 4
+    return {"fwd": _bound(fwd_bytes, fwd_flops, PEAK_FLOPS[dtype]),
+            "bwd": _bound(bwd_bytes, bwd_flops, PEAK_FLOPS["float32"])}
+
+
+def _rel_err(got, want) -> tuple:
+    """(max |err| / max |want|, max |err|)."""
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    return err / max(want.abs().max().item(), 1e-30), err
+
+
+def check_train_kernels(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LATENT,
+                        batches=CHECK_BATCHES) -> list:
+    """Phase 3, kernels 2 and 3: each against its plain version on the same
+    inputs (kernel 3 and its plain version both read kernel 2's residuals),
+    and kernel 2's output against kernel 1's."""
+    stack = stack_on(random_generator_tree(hidden, layers, latent, seed=4), device)
+    results = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tol = TOLERANCE[dtype_name]
+        for batch in batches:
+            x, z = random_inputs(batch, seq, latent, seed=batch + 1, device=device)
+            dy = torch.from_numpy(np.random.default_rng(batch).normal(
+                size=(batch, seq, 2 * hidden)).astype(np.float32)).to(device)
+            y, res = bilstm_train_fwd(stack, x, z, hidden, dtype)
+            grads, dx, dz = bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)
+            y_inference = fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            y_p, res_p = bilstm_train_fwd_plain(stack, x, z, hidden, dtype)
+            grads_p, dx_p, dz_p = bilstm_train_bwd_plain(stack, x, z, res, dy, hidden, dtype)
+            if y.shape != (batch, seq, 2 * hidden) or y.dtype != dtype or res.dtype != dtype:
+                raise AssertionError(f"kernel 2 output {tuple(y.shape)} {y.dtype}")
+            fwd = {"y": _rel_err(y, y_p)}
+            for p, name in enumerate(PLANES):
+                rows = slice(p * hidden, (p + 1) * hidden)
+                fwd[f"res_{name}"] = _rel_err(res[..., rows], res_p[..., rows])
+            bwd = {"dx": _rel_err(dx, dx_p), "dz": _rel_err(dz, dz_p)}
+            for leaf, key in (("w_ih", "dW_ih"), ("w_hh", "dW_hh"), ("b_ih", "db")):
+                errs = [_rel_err(grads[k][d][leaf], grads_p[k][d][leaf])
+                        for k in range(layers) for d in ("fwd", "bwd")]
+                bwd[key] = (max(e[0] for e in errs), max(e[1] for e in errs))
+            vs_kernel1 = (y.float() - y_inference.float()).abs().max().item()
+            row = {"dtype": dtype_name, "batch": batch, "tolerance_rel": tol,
+                   "fwd_rel": {k: v[0] for k, v in fwd.items()},
+                   "bwd_rel": {k: v[0] for k, v in bwd.items()},
+                   "fwd_max_abs_err": max(v[1] for v in fwd.values()),
+                   "bwd_max_abs_err": max(v[1] for v in bwd.values()),
+                   "train_fwd_vs_bilstm_fused_max_abs": vs_kernel1}
+            results.append(row)
+            print(json.dumps({"check": "bilstm_train vs plain", **row}), flush=True)
+            worst = max(list(fwd.items()) + list(bwd.items()), key=lambda kv: kv[1][0])
+            if not worst[1][0] <= tol:
+                raise AssertionError(f"bilstm_train disagrees with its plain version: "
+                                     f"{dtype_name} B={batch} {worst[0]} {worst[1][0]} > {tol}")
+            if not vs_kernel1 <= TOLERANCE[dtype_name]:
+                raise AssertionError(f"kernel 2's output differs from kernel 1's by {vs_kernel1}")
+    return results
+
+
+def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ,
+                    layers=LAYERS, latent=LATENT) -> dict:
+    """Phase 7, kernels 2 and 3: each kernel, its plain version, and cuDNN's
+    float32 LSTM forward (training mode) and backward on the same weights."""
+    dtype = getattr(torch, dtype_name)
+    tree = random_generator_tree(hidden, layers, latent, seed=2)
+    stack = stack_on(tree, device)
+    x, z = random_inputs(batch, seq, latent, seed=3, device=device)
+    dy = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(batch, seq, 2 * hidden)).astype(np.float32)).to(device)
+    fwd_ms = time_ms(lambda: bilstm_train_fwd(stack, x, z, hidden, dtype), iters=10)
+    _, res = bilstm_train_fwd(stack, x, z, hidden, dtype)
+    bwd_ms = time_ms(lambda: bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype), iters=10)
+    plain_fwd_ms = time_ms(lambda: bilstm_train_fwd_plain(stack, x, z, hidden, dtype),
+                           iters=2, warmup=1)
+    plain_bwd_ms = time_ms(lambda: bilstm_train_bwd_plain(stack, x, z, res, dy, hidden, dtype),
+                           iters=2, warmup=1)
+
+    lstm = cudnn_lstm(tree, latent, torch.float32, device)
+    seq_in = torch.cat([x, z[:, None, :].expand(-1, seq, -1)], dim=-1).requires_grad_()
+    library_fwd_ms = time_ms(lambda: lstm(seq_in), iters=10)
+    out = lstm(seq_in)[0]
+    inputs = [seq_in, *lstm.parameters()]
+    library_bwd_ms = time_ms(lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True),
+                             iters=10)
+    bounds = train_bounds_ms(batch, seq, hidden, layers, latent, dtype_name)
+    row = {"dtype": dtype_name, "batch": batch,
+           "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": plain_fwd_ms,
+           "plain_bwd_ms": plain_bwd_ms, "cudnn_fp32_fwd_ms": library_fwd_ms,
+           "cudnn_fp32_bwd_ms": library_bwd_ms,
+           "fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],
+           "bwd_bound_ms": bounds["bwd"][0], "bwd_bound_by": bounds["bwd"][1]}
+    print(json.dumps({"timing": "bilstm_train", **row}), flush=True)
+    return row
+
+
+# -- training through the entry point -----------------------------------------------------
+
+
+def smoke_dataset(n: int, seq: int = SEQ, seed: int = 0) -> GestureArrays:
+    """``n`` smoke gestures over the word list: each word's keyboard
+    prototype, displaced by a seeded smooth perturbation (three low
+    sinusoids per coordinate, amplitude <= 0.05) and timed by a warped
+    monotone clock (cumulative positive smooth increments, 0 to 1). Smoke
+    data for driving the trainer, not a corpus; its realism is not measured."""
+    rng = np.random.default_rng(seed)
+    kb = QWERTYKeyboard()
+    words = [WORDS[i % len(WORDS)] for i in range(n)]
+    protos = {w: kb.get_word_prototype(w, seq) for w in set(words)}
+    prototypes = np.stack([protos[w] for w in words]).astype(np.float32)
+    u = np.linspace(0.0, 1.0, seq)[None, :, None]                           # (1, L, 1)
+    freq = rng.uniform(0.5, 3.0, (n, 1, 3))
+    phase = rng.uniform(0.0, 2 * np.pi, (n, 1, 3))
+    amp = rng.uniform(0.0, 0.05 / 3, (n, 2, 3))
+    waves = np.sin(2 * np.pi * freq * u + phase)                            # (n, L, 3)
+    gestures = prototypes.copy()
+    gestures[..., :2] = np.clip(prototypes[..., :2] + np.einsum("nlk,nck->nlc", waves, amp),
+                                -1.0, 1.0)
+    rate = np.exp(0.5 * np.sin(2 * np.pi * rng.uniform(0.5, 2.0, (n, 1)) * u[..., 0]
+                               + rng.uniform(0, 2 * np.pi, (n, 1))))        # (n, L)
+    clock = np.concatenate([np.zeros((n, 1)), np.cumsum(rate[:, 1:], axis=1)], axis=1)
+    gestures[..., 2] = clock / clock[:, -1:]
+    return GestureArrays(gestures.astype(np.float32), prototypes, words)
+
+
+def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int = 512) -> dict:
+    """Phase 5: 2 epochs through ``train_gan``, then a resumed third epoch
+    whose kernel launches are counted from 0. ``model`` overrides fields of
+    the flagship configuration (a rehearsal on the CPU at a tiny size)."""
+    mcfg = ModelConfig(**{"time_head": "monotone", "compute_dtype": "bfloat16", **(model or {})})
+    recipe = dict(FLAGSHIP_TRAIN, batch_size=batch_size)
+    tcfg = TrainingConfig(**recipe, save_every=1)
+    ds = smoke_dataset(n, mcfg.seq_length)
+    steps = n // tcfg.batch_size
+    first = train_gan(ds, mcfg, tcfg, num_epochs=2, checkpoint_dir=str(workdir), device=device)
+    if latest_epoch(str(workdir)) != 2 or len(first.history) != 2:
+        raise AssertionError("the first two epochs were not checkpointed")
+    counters = {"bilstm_fused": fused_bilstm_fwd, "bilstm_train_fwd": bilstm_train_fwd,
+                "bilstm_train_bwd": bilstm_train_bwd}
+    for c in counters.values():
+        c.launches = 0
+    third = train_gan(ds, mcfg, tcfg, num_epochs=3, checkpoint_dir=str(workdir), device=device)
+    launches = {name: c.launches for name, c in counters.items()}
+    if len(third.history) != 1 or third.state["epoch"] != 3 or latest_epoch(str(workdir)) != 3:
+        raise AssertionError("the run did not resume for exactly one epoch")
+    for losses in first.history + third.history:
+        bad = [k for k, v in losses.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite losses {bad}")
+    expected = {name: per * steps for name, per in PER_STEP.items()}
+    if device.type == "cuda" and launches != expected:
+        raise AssertionError(f"launches in the resumed epoch {launches}, expected {expected}")
+    seconds = first.epoch_seconds + third.epoch_seconds
+    line = {"training": "train_gan", "n": n, "batch": tcfg.batch_size, "steps_per_epoch": steps,
+            "dtype": "bfloat16", "epoch_seconds": seconds,
+            "gestures_per_s": [first.gestures_per_epoch / t for t in seconds],
+            "ms_per_step": [t / steps * 1e3 for t in seconds],
+            "launches_resumed_epoch": launches, "losses_last_epoch": third.history[-1]}
+    print(json.dumps(line), flush=True)
+    if device.type == "cuda":   # where a steady step's time goes
+        batch = {"gesture": torch.from_numpy(ds.gestures[:batch_size]).to(device),
+                 "prototype": torch.from_numpy(ds.prototypes[:batch_size]).to(device)}
+        tcfg_m = TrainingConfig(**recipe, div_margin=0.25)
+        gan_train_step(third.state, batch, 1e-5, mcfg, tcfg_m)             # warm
+        line["profile"] = device_profile(
+            lambda: gan_train_step(third.state, batch, 1e-5, mcfg, tcfg_m), "gan_train_step",
+            batch=batch_size, dtype="bfloat16")
+    line["launches"] = launches
+    return line
+
+
+def _step_noise(batch: int, latent: int, n_critic: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    shapes = {"z_rand": (n_critic, batch, latent), "eps_enc": (n_critic, batch, latent),
+              "z1": (batch, latent), "eps_rec": (batch, latent), "eps2": (batch, latent),
+              "z_ms": (batch, latent)}
+    return {k: torch.from_numpy(rng.normal(size=s).astype(np.float32)) for k, s in shapes.items()}
+
+
+def step_vs_cpu(device, batch=STEP_BATCH, model: dict = None) -> list:
+    """Phase 6: one float32 step of each recipe (the reference's, without
+    the auxiliaries, and the flagship's) on the card and on the CPU from the
+    same state, batch and noise."""
+    return [step_vs_cpu_recipe(device, name, batch, model) for name in STEP_RECIPES]
+
+
+def step_vs_cpu_recipe(device, recipe: str, batch=STEP_BATCH, model: dict = None) -> dict:
+    """One recipe of phase 6: at lr=0 (the gradients, as Adam's moments) and
+    at lr=2e-4 (the parameters). ``model`` overrides configuration fields,
+    as in ``train``."""
+    lambdas, grad_tol = STEP_RECIPES[recipe]
+    mcfg = ModelConfig(**{"time_head": "monotone", **(model or {})})
+    tcfg = TrainingConfig(**dict(lambdas, batch_size=batch, n_critic=5), div_margin=0.25)
+    ds = smoke_dataset(batch, mcfg.seq_length, seed=3)
+    data = {"gesture": torch.from_numpy(ds.gestures), "prototype": torch.from_numpy(ds.prototypes)}
+    noise = _step_noise(batch, mcfg.latent_dim, tcfg.n_critic, seed=6)
+    worst = {"loss": 0.0, "grad_rel": 0.0, "param_in_lr": 0.0}
+    for lr in (0.0, STEP_LR):
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            state = init_gan_state(0, mcfg, device=dev)
+            _, metrics = gan_train_step(state, {k: v.to(dev) for k, v in data.items()}, lr, mcfg,
+                                        tcfg, noise={k: v.to(dev) for k, v in noise.items()})
+            runs.append((state, {k: v.item() for k, v in metrics.items()}))
+        (gpu, gm), (cpu, cm) = runs
+        for k, want in cm.items():
+            err = abs(gm[k] - want) / max(1.0, abs(want))
+            worst["loss"] = max(worst["loss"], err)
+            if not err <= STEP_LOSS_TOL:
+                raise AssertionError(f"step loss {k} on the card {gm[k]} vs CPU {want}")
+        for m in MODELS:
+            if lr == 0.0:
+                for part in ("mu", "nu"):
+                    for a, b in zip(tree_leaves(gpu[m]["opt"][part]), tree_leaves(cpu[m]["opt"][part])):
+                        err = _rel_err(a.cpu(), b)[0]
+                        worst["grad_rel"] = max(worst["grad_rel"], err)
+                        if not err <= grad_tol:
+                            raise AssertionError(f"{m} {part} on the card vs CPU: {err}")
+            else:
+                adam_steps = tcfg.n_critic if m in ("d1", "d2") else 1
+                for a, b in zip(tree_leaves(gpu[m]["params"]), tree_leaves(cpu[m]["params"])):
+                    err = (a.detach().cpu() - b.detach()).abs().max().item() / lr
+                    worst["param_in_lr"] = max(worst["param_in_lr"], err / adam_steps)
+                    if not err <= 2 * adam_steps:
+                        raise AssertionError(f"{m} parameters on the card vs CPU: {err} lr")
+    line = {"check": "gan_train_step on the card vs CPU plain path", "recipe": recipe,
+            "batch": batch, "dtype": "float32", "max_loss_err_rel": worst["loss"],
+            "max_grad_err_rel": worst["grad_rel"],
+            "max_param_err_in_lr_per_adam_step": worst["param_in_lr"],
+            "tolerances": {"loss": STEP_LOSS_TOL, "grad": grad_tol,
+                           "param_in_lr_per_adam_step": 2}}
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def main() -> int:
@@ -301,7 +633,7 @@ def main() -> int:
                       "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}), flush=True)
 
     t0 = time.perf_counter()
-    logs = kernel_build.build(["bilstm_fused"])
+    logs = kernel_build.build(["bilstm_fused", "bilstm_train"])
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -309,6 +641,7 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
 
     checks = check_kernel(device)
+    train_checks = check_train_kernels(device)
     with tempfile.TemporaryDirectory() as tmp:
         served = serve(device, Path(tmp))
     steady = served["runs"][-1]
@@ -318,17 +651,40 @@ def main() -> int:
                       "gestures_per_s_first_run": served["runs"][0]["gestures_per_s"],
                       "gestures_per_s": steady["gestures_per_s"],
                       "seconds": steady["seconds"]}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = train(device, Path(tmp))
+    step_vs_cpu(device)
     timings = {name: time_kernel(device, name) for name in ("bfloat16", "float32")}
+    pair = {name: time_train_pair(device, name) for name in ("bfloat16", "float32")}
 
-    main_t = timings["bfloat16"]
+    main_t, main_p = timings["bfloat16"], pair["bfloat16"]
+    launches = trained["launches"]
     kernels = [{
         "name": "bilstm_fused", "route": "cuda",
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_fused.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_fused.py:54",
-        "launches": served["launches"],
+        "launches": served["launches"] + launches["bilstm_fused"],
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"], "library_ms": main_t["library_ms"],
+    }, {
+        "name": "bilstm_train_fwd", "route": "cuda",
+        "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
+        "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:57",
+        "launches": launches["bilstm_train_fwd"],
+        "max_abs_err": max(c["fwd_max_abs_err"] for c in train_checks),
+        "ms": main_p["fwd_ms"], "plain_ms": main_p["plain_fwd_ms"],
+        "bound_ms": main_p["fwd_bound_ms"], "bound_by": main_p["fwd_bound_by"],
+        "library_ms": main_p["cudnn_fp32_fwd_ms"],
+    }, {
+        "name": "bilstm_train_bwd", "route": "cuda",
+        "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
+        "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:206",
+        "launches": launches["bilstm_train_bwd"],
+        "max_abs_err": max(c["bwd_max_abs_err"] for c in train_checks),
+        "ms": main_p["bwd_ms"], "plain_ms": main_p["plain_bwd_ms"],
+        "bound_ms": main_p["bwd_bound_ms"], "bound_by": main_p["bwd_bound_by"],
+        "library_ms": main_p["cudnn_fp32_bwd_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

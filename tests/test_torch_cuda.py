@@ -1,14 +1,16 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the GPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on the GPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
-kernel is compiled by nvcc and runs only on the card). The file imports no
+kernels are compiled by nvcc and run only on the card). The file imports no
 JAX, so on the GPU machine it runs on its own:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: float32 with TF32 off 1e-4 abs (summation order and the device's
-transcendentals); bfloat16 2e-2 abs (h rounded to bf16 every step, so a
-one-ulp flip propagates).
+Tolerances: float32 with TF32 off 1e-4 (summation order and the device's
+transcendentals); bfloat16 2e-2 (h and the residuals rounded to bf16, so a
+one-ulp flip propagates). Kernel 1's outputs are compared in absolute terms;
+kernels 2 and 3 relative to the largest magnitude of each compared tensor,
+because their gradients span orders of magnitude between leaves.
 """
 
 import numpy as np
@@ -19,20 +21,24 @@ from wordgesture_gan_tpu_torch.configs import ModelConfig
 from wordgesture_gan_tpu_torch.models.gan import Generator
 from wordgesture_gan_tpu_torch.models.layers import BiLSTM
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import fused_bilstm_fwd, fused_bilstm_fwd_plain
+from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_apply, bilstm_train_bwd,
+                                                        bilstm_train_bwd_plain, bilstm_train_fwd,
+                                                        bilstm_train_fwd_plain)
 
 pytestmark = pytest.mark.cuda
 
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+PLANES = ("h", "c", "i", "f", "g", "o")
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel is compiled and run only on the GPU")
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _case(device, batch, seq, hidden, layers, latent, seed=0):
@@ -78,6 +84,111 @@ def test_generator_on_cuda_matches_cpu(cuda_device):
     proto = torch.from_numpy(rng.uniform(-1, 1, (6, 128, 3)).astype(np.float32))
     z = torch.from_numpy(rng.normal(size=(6, 32)).astype(np.float32))
     with torch.no_grad():
-        want = model(proto, z)
-        got = model.to(cuda_device)(proto.to(cuda_device), z.to(cuda_device)).cpu()
+        want = model(proto, z, inference=True)
+        got = model.to(cuda_device)(proto.to(cuda_device), z.to(cuda_device),
+                                    inference=True).cpu()
     torch.testing.assert_close(got, want, atol=2e-2, rtol=0)
+
+
+# -- kernels 2 and 3: the training pair ------------------------------------------------
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def train_pair_errors(device, batch, seq, hidden, layers, latent, dtype, seed=0) -> dict:
+    """Kernel 2 and kernel 3 against their plain versions on the same inputs
+    (kernel 3 and its plain version both read kernel 2's residuals): max |err|
+    relative to max |want| for the output, each residual plane and each
+    gradient."""
+    stack, x, z = _case(device, batch, seq, hidden, layers, latent, seed)
+    dy = torch.randn((batch, seq, 2 * hidden), generator=torch.Generator().manual_seed(seed))
+    dy = dy.to(device)
+    launches = (bilstm_train_fwd.launches, bilstm_train_bwd.launches)
+    y, res = bilstm_train_fwd(stack, x, z, hidden, dtype)
+    grads, dx, dz = bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)
+    torch.cuda.synchronize()
+    assert (bilstm_train_fwd.launches, bilstm_train_bwd.launches) == (launches[0] + 1,
+                                                                       launches[1] + 1)
+    y_p, res_p = bilstm_train_fwd_plain(stack, x, z, hidden, dtype)
+    grads_p, dx_p, dz_p = bilstm_train_bwd_plain(stack, x, z, res, dy, hidden, dtype)
+    assert y.dtype == dtype and y.shape == (batch, seq, 2 * hidden)
+    assert res.shape == res_p.shape and res.dtype == dtype
+    errors = {"y": _rel_err(y, y_p), "dx": _rel_err(dx, dx_p), "dz": _rel_err(dz, dz_p)}
+    for p, name in enumerate(PLANES):
+        rows = slice(p * hidden, (p + 1) * hidden)
+        errors[f"res_{name}"] = _rel_err(res[..., rows], res_p[..., rows])
+    for k in range(layers):
+        for d in ("fwd", "bwd"):
+            for leaf in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                errors[f"{k}.{d}.{leaf}"] = _rel_err(grads[k][d][leaf], grads_p[k][d][leaf])
+    return errors
+
+
+@pytest.mark.parametrize("batch", [1, 131, 512, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_pair_matches_plain_full_width(cuda_device, dtype, batch):
+    errors = train_pair_errors(cuda_device, batch, 128, 48, 4, 32, dtype)
+    worst = max(errors, key=errors.get)
+    assert errors[worst] <= ATOL[dtype], (worst, errors[worst])
+
+
+@pytest.mark.parametrize("seq,hidden,layers,batch", [(1, 16, 1, 3), (7, 5, 3, 5), (9, 16, 2, 1),
+                                                     (4, 8, 2, 37)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_pair_matches_plain_small_shapes(cuda_device, dtype, seq, hidden, layers, batch):
+    errors = train_pair_errors(cuda_device, batch, seq, hidden, layers, 8, dtype, seed=seq)
+    worst = max(errors, key=errors.get)
+    assert errors[worst] <= ATOL[dtype], (worst, errors[worst])
+
+
+def test_train_forward_equals_inference_kernel(cuda_device):
+    stack, x, z = _case(cuda_device, 64, 128, 48, 4, 32, seed=5)
+    for dtype in (torch.float32, torch.bfloat16):
+        y, _ = bilstm_train_fwd(stack, x, z, 48, dtype)
+        torch.testing.assert_close(y, fused_bilstm_fwd(stack, x, 48, z, dtype=dtype),
+                                   atol=0, rtol=0)
+
+
+def test_train_pair_refuses_too_wide_a_stack(cuda_device):
+    stack, x, z = _case(cuda_device, 2, 4, 300, 1, 4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bilstm_train_fwd(stack, x, z, 300, torch.float32)
+    res = torch.zeros((1, 2, 4, 2, 1800), device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bilstm_train_bwd(stack, x, z, res, torch.zeros((2, 4, 600), device=cuda_device), 300,
+                         torch.float32)
+
+
+def test_autograd_function_on_cuda_matches_cpu(cuda_device):
+    """Gradients through ``bilstm_train_apply`` on the card (kernels 2 and 3)
+    equal those on the CPU (the plain pair), float32."""
+    stack = BiLSTM(2 + 8, 16, 2, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.uniform(-1, 1, (6, 12, 2)).astype(np.float32))
+    z = torch.from_numpy(rng.normal(size=(6, 8)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(6, 12, 32)).astype(np.float32))
+    results = []
+    for device in ("cpu", cuda_device):
+        model = BiLSTM(2 + 8, 16, 2)
+        model.load_state_dict(stack.state_dict())
+        model = model.to(device)
+        xs, zs = x.to(device).requires_grad_(), z.to(device).requires_grad_()
+        y = bilstm_train_apply(model.params(), xs, zs, 16, dtype=torch.float32)
+        grads = torch.autograd.grad((y * dy.to(device)).sum(), [xs, zs, *model.parameters()])
+        results.append([g.cpu() for g in grads])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, atol=1e-4 * max(1.0, a.abs().max().item()), rtol=0)
+
+
+@pytest.mark.parametrize("recipe", ["reference", "flagship"])
+def test_train_step_on_cuda_matches_cpu(cuda_device, recipe):
+    """One full-width float32 ``gan_train_step`` on the card (kernels 1-3)
+    against the CPU's plain path from the same state, batch and noise, with
+    the tolerances ``chip_smoke.STEP_RECIPES`` states; it raises otherwise."""
+    import chip_smoke
+
+    line = chip_smoke.step_vs_cpu_recipe(cuda_device, recipe, batch=16)
+    assert line["max_grad_err_rel"] <= chip_smoke.STEP_RECIPES[recipe][1]

@@ -1,18 +1,21 @@
-"""PyTorch/CUDA port of the wordgesture_gan_tpu serving path.
+"""PyTorch/CUDA port of wordgesture_gan_tpu: gesture serving and
+fixed-length two-cycle GAN training.
 
 A second package beside the JAX one: it imports torch and numpy only, keeps
-its own copies of the configuration, keyboard and chunking code it needs, and
-mirrors the JAX package's module names so each counterpart is easy to find.
-The stacked BiLSTM generator's recurrence runs as a hand-written CUDA kernel
-for Hopper (``ops/bilstm_fused.py``, ``csrc/bilstm_fused.cu``); tensors on the
-CPU take the kernel's plain PyTorch version, which the tests hold against the
-JAX package.
+its own copies of the configuration, keyboard, data and chunking code it
+needs, and mirrors the JAX package's module names so each counterpart is easy
+to find. The stacked BiLSTM generator's recurrence runs as hand-written CUDA
+kernels for Hopper: the inference forward (``ops/bilstm_fused.py``,
+``csrc/bilstm_fused.cu``) and the training forward and backward through time
+(``ops/bilstm_train.py``, ``csrc/bilstm_train.cu``). Tensors on the CPU take
+the kernels' plain PyTorch versions, which the tests hold against the JAX
+package.
 
 Entry points take ``device="cuda"`` by default; pass ``device="cpu"`` to run
 the plain versions.
 """
 
-from .configs import KeyboardConfig, ModelConfig
+from .configs import KeyboardConfig, ModelConfig, TrainingConfig
 from .keyboard import QWERTYKeyboard
 
-__all__ = ["KeyboardConfig", "ModelConfig", "QWERTYKeyboard"]
+__all__ = ["KeyboardConfig", "ModelConfig", "QWERTYKeyboard", "TrainingConfig"]

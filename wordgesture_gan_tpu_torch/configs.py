@@ -1,5 +1,6 @@
-"""Configuration dataclasses: the port's copy of ``ModelConfig`` and
-``KeyboardConfig`` from the JAX package's ``configs.py``.
+"""Configuration dataclasses: the port's copy of ``ModelConfig``,
+``TrainingConfig`` and ``KeyboardConfig`` from the JAX package's
+``configs.py``.
 
 Field names and defaults are identical, so a ``run_meta.json`` written by
 either package configures the other.
@@ -8,7 +9,7 @@ either package configures the other.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -64,6 +65,66 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainingConfig:
+    """GAN training configuration."""
+
+    batch_size: int = 512
+    learning_rate: float = 2e-4
+    num_epochs: int = 200
+
+    # WGAN: critic updates per generator update
+    n_critic: int = 5
+
+    # Cosine-annealing floor
+    lr_scheduler_eta_min: float = 1e-5
+
+    # Per-model global-norm gradient clipping (0 disables)
+    grad_clip_norm: float = 1.0
+
+    # Loss weights (paper Section 4.2)
+    lambda_feat: float = 1.0
+    lambda_rec: float = 4.0
+    lambda_lat: float = 0.5
+    lambda_kld: float = 0.02
+
+    # Timing-dynamics auxiliaries on the cycle-2 reconstruction (0 = off):
+    # an L1 on the per-segment time increments, a (1 - Pearson) loss on the
+    # |v| profiles, and a (1 - Pearson) loss on the Δt pattern
+    # (losses.time_delta_loss / speed_profile_loss / time_delta_corr_loss).
+    lambda_dt: float = 0.0
+    lambda_speed: float = 0.0
+    lambda_dtc: float = 0.0
+
+    # MSGAN mode-seeking regularizer on a second prior draw in cycle 1
+    # (losses.mode_seeking_loss); costs one more differentiated generator
+    # forward per step when on. 0 = off.
+    lambda_ms: float = 0.0
+
+    # Hinged conditional-diversity loss on the same second prior draw
+    # (losses.diversity_hinge_loss): penalize a pair of generations only while
+    # their mean-L1 distance is below div_margin. div_margin=None means
+    # "measure it from the data": the training loop substitutes the corpus's
+    # mean within-word L1 distance (data.pipeline.within_word_diversity).
+    # 0 = off.
+    lambda_div: float = 0.0
+    div_margin: Optional[float] = None
+
+    # Dataset balancing / split
+    max_samples_per_word: int = 5
+    train_ratio: float = 0.8
+
+    # Checkpointing / logging cadence
+    save_every: int = 10
+    log_every: int = 100
+
+    # Score (real ++ fake) in ONE spectral-norm critic forward per update (one
+    # power-iteration advance) instead of the reference's two sequential
+    # forwards, each of which advances u. Default False: the reference's
+    # two-forward u schedule.
+    fused_critic_forward: bool = False
+
+
+@dataclass(frozen=True)
 class KeyboardConfig:
     """Virtual QWERTY layout."""
 
@@ -76,4 +137,5 @@ class KeyboardConfig:
 
 
 DEFAULT_MODEL_CONFIG = ModelConfig()
+DEFAULT_TRAINING_CONFIG = TrainingConfig()
 DEFAULT_KEYBOARD_CONFIG = KeyboardConfig()

@@ -1,10 +1,12 @@
-"""Generator weights from the JAX package, without importing JAX.
+"""Weights and train states from the JAX package, without importing JAX.
 
 The JAX generator's parameters (``state["g"]["params"]``) are a tree of
 nested dicts and lists: ``lstm[k].{fwd,bwd}.{w_ih, w_hh, b_ih, b_hh}`` and
 ``out.{w, b}``. ``generator_from_jax`` turns that tree, given as numpy
-arrays, into the port's ``Generator`` state dict; the port keeps the JAX
-layout, so no weight is transposed.
+arrays, into the port's ``Generator`` state dict; ``train_state_from_jax``
+turns a whole JAX train state (all four models, the critics' spectral-norm
+u vectors and, optionally, the Adam moments) into the port's train state.
+The port keeps the JAX layout, so no weight is transposed.
 
 To move trained weights, flatten the tree by path into an ``.npz``
 (``lstm/0/fwd/w_ih``, ..., ``out/w``). Anyone with the JAX package can write
@@ -88,3 +90,28 @@ def generator_from_jax(tree) -> Dict[str, torch.Tensor]:
 def generator_from_npz(path: str) -> Dict[str, torch.Tensor]:
     """The port's state dict from a path-keyed JAX generator npz."""
     return generator_from_jax(read_generator_npz(path))
+
+
+def adam_moments(opt) -> Dict:
+    """{"mu", "nu", "count"} of an optax chain state (a tuple holding one
+    ``ScaleByAdamState``, numpy leaves)."""
+    for part in opt:
+        if all(hasattr(part, k) for k in ("mu", "nu", "count")):
+            return {"mu": part.mu, "nu": part.nu, "count": int(np.asarray(part.count))}
+    raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+
+
+def train_state_from_jax(tree, device="cuda", seed: int = 0) -> Dict:
+    """The port's train state (``train/state.py``) from a JAX train state
+    with numpy leaves: ``tree[m]["params"]`` for m in g, e, d1, d2, the
+    critics' ``tree[m]["sn"]``, and optionally ``tree[m]["opt"]`` (optax's
+    chain state) and ``tree["epoch"]``. Without an optimizer state a model
+    gets fresh Adam moments. The port's random generator is seeded with
+    ``seed``: JAX's key has no PyTorch counterpart."""
+    from ..train.state import MODELS, make_train_state
+
+    params = {m: tree[m]["params"] for m in MODELS}
+    sn = {m: tree[m]["sn"] for m in ("d1", "d2")}
+    opt = {m: adam_moments(tree[m]["opt"]) for m in MODELS if tree[m].get("opt") is not None}
+    return make_train_state(params, sn, device, seed=seed, opt=opt,
+                            epoch=int(np.asarray(tree.get("epoch", 0))))

@@ -1,24 +1,32 @@
-"""The BiLSTM generator and its output head (the port of the generator half
-of the JAX package's ``models/gan.py``; encoder, critics and autoencoder are
-not ported yet).
+"""The WordGesture-GAN models: BiLSTM generator and output head, variational
+encoder, MLP and temporal (Conv1D) spectral-norm critics — the port of the
+JAX package's ``models/gan.py`` (the FID autoencoder is not ported yet).
+
+Every model but the serving ``Generator`` module is an init/apply pair over
+an explicit tree of float32 tensors in the JAX layout, so a JAX parameter
+tree maps onto it leaf for leaf (``interop/from_jax.py``). Applies run in the
+configured compute dtype through a cast view of the weights
+(``layers.cast_floats``); heads, scores and losses stay float32.
 
 The latent code enters the first LSTM layer as a static input, projected
 once, with ``w_ih`` rows ordered [prototype | z] — the same as broadcasting
-z along the sequence and concatenating it. The recurrence runs in the
-configured compute dtype through ``ops.bilstm_fused``; the output ``dense``
-and the time head run in float32.
+z along the sequence and concatenating it. The recurrence runs through
+``ops.bilstm_fused`` (undifferentiated) or ``ops.bilstm_train``
+(differentiated); the output ``dense`` and the time head run in float32.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
 from ..ops.bilstm_fused import fused_bilstm_fwd
-from .layers import BiLSTM, Dense, bilstm_apply
+from ..ops.bilstm_train import bilstm_train_apply
+from .layers import (BiLSTM, Dense, batched_spectral_normalize, bilstm_apply, cast_floats,
+                     conv1d, dense_init, leaky_relu, sn_conv1d_init, sn_dense_init)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -56,6 +64,49 @@ def apply_time_head(raw: torch.Tensor, mode: str,
     return torch.cat([xy, t[..., None].to(xy.dtype)], dim=-1)
 
 
+def _require_bilstm(config: ModelConfig) -> None:
+    if config.generator_type != "bilstm":
+        raise NotImplementedError(
+            f"generator_type={config.generator_type!r} is not ported yet; "
+            f"the PyTorch port runs the 'bilstm' generator")
+
+
+def generator_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
+                   generator: Optional[torch.Generator] = None) -> Dict:
+    """The generator's parameter tree, JAX layout: ``{"lstm": [{"fwd": cell,
+    "bwd": cell}, ...], "out": {"w", "b"}}``, PyTorch-default init."""
+    return Generator(config, generator).tree()
+
+
+def generator_apply(params: Dict, prototype: torch.Tensor, z: torch.Tensor,
+                    config: ModelConfig = DEFAULT_MODEL_CONFIG, *,
+                    inference: bool = False) -> torch.Tensor:
+    """(prototype (B, L, 3), z (B, Z)) → gesture (B, L, 3), the port of the JAX
+    package's ``generator_apply``.
+
+    ``inference=True`` marks a forward that is never differentiated (serving,
+    the critic loop's fakes): the stack runs through the inference kernel
+    (``ops/bilstm_fused.py``), which carries no gradient. ``inference=False``
+    runs the differentiable training pair (``ops/bilstm_train.py``), whose
+    backward gives every LSTM weight and z their gradients. A prototype with
+    its time channel takes the plain recurrence with the stack cast to the
+    compute dtype (the JAX package's scan path for that option)."""
+    _require_bilstm(config)
+    proto = prototype if config.prototype_has_time else prototype[..., :2]
+    dtype = compute_dtype(config)
+    layers = params["lstm"]
+    if proto.shape[-1] == 2:
+        if inference:
+            h = fused_bilstm_fwd(layers, proto, config.gen_hidden_dim, z, dtype=dtype)
+        else:
+            h = bilstm_train_apply(layers, proto, z, config.gen_hidden_dim, dtype=dtype)
+    else:
+        h = bilstm_apply(cast_floats(layers, dtype), proto.to(dtype), config.gen_hidden_dim,
+                         static=z.to(dtype))
+    out = params["out"]
+    return apply_time_head(h.to(torch.float32) @ out["w"] + out["b"], config.time_head)
+
+
 class Generator(nn.Module):
     """BiLSTM generator: (prototype (B, L, 3), z (B, Z)) → gesture (B, L, 3).
 
@@ -66,10 +117,7 @@ class Generator(nn.Module):
     def __init__(self, config: ModelConfig = DEFAULT_MODEL_CONFIG,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.generator_type != "bilstm":
-            raise NotImplementedError(
-                f"generator_type={config.generator_type!r} is not ported yet; "
-                f"the PyTorch port serves the 'bilstm' generator")
+        _require_bilstm(config)
         compute_dtype(config)
         self.config = config
         proto_dim = config.input_dim if config.prototype_has_time else 2
@@ -77,18 +125,154 @@ class Generator(nn.Module):
                            config.gen_num_layers, generator)
         self.out = Dense(2 * config.gen_hidden_dim, config.input_dim, generator)
 
-    def forward(self, prototype: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        config = self.config
-        proto = prototype if config.prototype_has_time else prototype[..., :2]
-        dtype = compute_dtype(config)
-        layers = self.lstm.params()
-        if proto.shape[-1] == 2:
-            h = fused_bilstm_fwd(layers, proto, config.gen_hidden_dim, z, dtype=dtype)
-        else:
-            # A prototype with its time channel: the plain recurrence, with
-            # the whole stack cast to the compute dtype (the JAX package's
-            # scan path for this option).
-            layers = [{d: {k: v.to(dtype) for k, v in layer[d].items()} for d in layer}
-                      for layer in layers]
-            h = bilstm_apply(layers, proto.to(dtype), config.gen_hidden_dim, static=z.to(dtype))
-        return apply_time_head(self.out(h.to(torch.float32)), config.time_head)
+    def tree(self) -> Dict:
+        """The parameters as the JAX-layout tree ``generator_apply`` takes."""
+        return {"lstm": self.lstm.params(), "out": {"w": self.out.w, "b": self.out.b}}
+
+    def forward(self, prototype: torch.Tensor, z: torch.Tensor, *,
+                inference: bool = False) -> torch.Tensor:
+        """``generator_apply`` on this module's parameters; serving passes
+        ``inference=True``."""
+        return generator_apply(self.tree(), prototype, z, self.config, inference=inference)
+
+
+# -- variational encoder ----------------------------------------------------------------
+
+
+def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"] + p["b"]
+
+
+def encoder_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
+                 generator: Optional[torch.Generator] = None) -> Dict:
+    """``{"mlp": [dense, ...], "mu": dense, "log_var": dense}``."""
+    dims = (config.seq_length * config.input_dim,) + tuple(config.enc_hidden_dims)
+    return {
+        "mlp": [dense_init(dims[i], dims[i + 1], generator) for i in range(len(dims) - 1)],
+        "mu": dense_init(dims[-1], config.latent_dim, generator),
+        "log_var": dense_init(dims[-1], config.latent_dim, generator),
+    }
+
+
+def encoder_apply(params: Dict, x: torch.Tensor, config: ModelConfig = DEFAULT_MODEL_CONFIG, *,
+                  eps: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gesture (B, L, 3) → (z, mu, log_var) by the reparameterization trick,
+    z = mu + eps·exp(log_var / 2). ``eps`` (B, Z) is injected, or drawn from
+    ``generator``. The hidden MLP runs in the compute dtype; the (mu,
+    log_var) heads and the reparameterization run in float32."""
+    dtype = compute_dtype(config)
+    h = x.reshape(x.shape[0], -1).to(dtype)
+    for layer in cast_floats(params["mlp"], dtype):
+        h = leaky_relu(_dense(layer, h))
+    h = h.to(torch.float32)
+    mu = _dense(params["mu"], h)
+    log_var = _dense(params["log_var"], h)
+    if eps is None:
+        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+    return mu + eps * torch.exp(0.5 * log_var), mu, log_var
+
+
+# -- critics ------------------------------------------------------------------------------
+
+
+def mlp_disc_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
+                  generator: Optional[torch.Generator] = None) -> Tuple[Dict, Dict]:
+    """MLP critic: (params, spectral state)."""
+    dims = (config.seq_length * config.input_dim,) + tuple(config.disc_hidden_dims)
+    layers, us = [], []
+    for i in range(len(dims) - 1):
+        p, u = sn_dense_init(dims[i], dims[i + 1], generator)
+        layers.append(p)
+        us.append(u)
+    out_p, out_u = sn_dense_init(dims[-1], 1, generator)
+    return {"layers": layers, "out": out_p}, {"layers": us, "out": out_u}
+
+
+def mlp_disc_apply(params: Dict, state: Dict, x: torch.Tensor, update_stats: bool,
+                   dtype: torch.dtype = torch.float32):
+    """(B, L, 3) → (scores (B, 1) float32, features, new spectral state).
+    Features are the post-LeakyReLU activations of every hidden layer."""
+    layer_ps = list(params["layers"]) + [params["out"]]
+    ws, new_us = batched_spectral_normalize([p["w"] for p in layer_ps],
+                                            list(state["layers"]) + [state["out"]], update_stats)
+    h = x.reshape(x.shape[0], -1).to(dtype)
+    features = []
+    for p, w in zip(layer_ps[:-1], ws[:-1]):
+        h = leaky_relu(h @ w.to(dtype) + p["b"].to(dtype))
+        features.append(h)
+    out = h @ ws[-1].to(dtype) + layer_ps[-1]["b"].to(dtype)
+    return out.to(torch.float32), features, {"layers": new_us[:-1], "out": new_us[-1]}
+
+
+_TCONV_SPEC = ((3, 64, 5, 2), (64, 64, 5, 2), (64, 32, 3, 1))  # in, out, kernel, padding
+_POOL_BINS = 8
+
+
+def temporal_disc_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
+                       generator: Optional[torch.Generator] = None) -> Tuple[Dict, Dict]:
+    """Temporal critic: three spectral-norm Conv1D layers, an 8-bin average
+    pool, two spectral-norm dense layers and the score head."""
+    convs, conv_us = [], []
+    for cin, cout, k, _pad in _TCONV_SPEC:
+        p, u = sn_conv1d_init(cin, cout, k, generator)
+        convs.append(p)
+        conv_us.append(u)
+    m1, u1 = sn_dense_init(_TCONV_SPEC[-1][1] * _POOL_BINS, 128, generator)
+    m2, u2 = sn_dense_init(128, 64, generator)
+    out, uo = sn_dense_init(64, 1, generator)
+    return ({"convs": convs, "mlp": [m1, m2], "out": out},
+            {"convs": conv_us, "mlp": [u1, u2], "out": uo})
+
+
+def temporal_disc_apply(params: Dict, state: Dict, x: torch.Tensor, update_stats: bool,
+                        dtype: torch.dtype = torch.float32):
+    """(B, L, 3) → (scores (B, 1) float32, features, new spectral state).
+
+    Convolutions take (B, L, C) activations and WIO weights, as the JAX
+    package does; the three conv feature taps are flattened in that (L, C)
+    order, followed by the two dense activations. The pool averages 8 equal
+    chunks of L and is flattened channel-major, as torch's
+    ``AdaptiveAvgPool1d`` output is. All six power iterations run as one
+    batched computation."""
+    B = x.shape[0]
+    conv_ps, mlp_ps = params["convs"], params["mlp"]
+    n_conv = len(conv_ps)
+    ws, new_us = batched_spectral_normalize(
+        [p["w"].reshape(-1, p["w"].shape[-1]) for p in conv_ps]
+        + [p["w"] for p in mlp_ps] + [params["out"]["w"]],
+        list(state["convs"]) + list(state["mlp"]) + [state["out"]], update_stats)
+
+    h = x.to(dtype)
+    features = []
+    for p, w, (_cin, _cout, _k, pad) in zip(conv_ps, ws[:n_conv], _TCONV_SPEC):
+        h = leaky_relu(conv1d({"w": w.reshape(p["w"].shape).to(dtype), "b": p["b"].to(dtype)},
+                              h, padding=pad))
+        features.append(h.reshape(B, -1))
+    L, C = h.shape[1], h.shape[2]
+    pooled = h.reshape(B, _POOL_BINS, L // _POOL_BINS, C).mean(dim=2)           # (B, 8, C)
+    h2 = pooled.transpose(1, 2).reshape(B, -1)                                  # channel-major
+    for p, w in zip(mlp_ps, ws[n_conv:-1]):
+        h2 = leaky_relu(h2 @ w.to(dtype) + p["b"].to(dtype))
+        features.append(h2)
+    out = h2 @ ws[-1].to(dtype) + params["out"]["b"].to(dtype)
+    return out.to(torch.float32), features, {"convs": new_us[:n_conv],
+                                              "mlp": new_us[n_conv:-1], "out": new_us[-1]}
+
+
+def disc_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
+              generator: Optional[torch.Generator] = None) -> Tuple[Dict, Dict]:
+    """The critic ``config.use_temporal_disc`` selects: (params, spectral state)."""
+    if config.use_temporal_disc:
+        return temporal_disc_init(config, generator)
+    return mlp_disc_init(config, generator)
+
+
+def disc_apply(params: Dict, state: Dict, x: torch.Tensor, update_stats: bool,
+               config: ModelConfig = DEFAULT_MODEL_CONFIG):
+    """The configured critic in the configured compute dtype."""
+    dtype = compute_dtype(config)
+    if config.use_temporal_disc:
+        return temporal_disc_apply(params, state, x, update_stats, dtype=dtype)
+    return mlp_disc_apply(params, state, x, update_stats, dtype=dtype)

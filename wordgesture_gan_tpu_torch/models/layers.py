@@ -1,5 +1,7 @@
-"""Building blocks of the generator: dense, LeakyReLU, LSTM cells and the
-plain stacked BiLSTM (the port of the JAX package's ``models/layers.py``).
+"""Building blocks of the models: dense, LeakyReLU, the compute-dtype cast
+view, spectral normalization over an explicit u state, conv1d, LSTM cells
+and the plain stacked BiLSTM (the port of the JAX package's
+``models/layers.py``).
 
 Weights keep the JAX package's layout — ``dense`` weights are (in, out) and
 applied as ``x @ w + b``; LSTM ``w_ih`` is (in, 4H), ``w_hh`` is (H, 4H),
@@ -11,9 +13,10 @@ explicit ``torch.Generator``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -21,8 +24,97 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.nn.functional.leaky_relu(x, slope)
 
 
+def cast_floats(tree, dtype: torch.dtype):
+    """The tree with every floating tensor cast to ``dtype``: the compute view
+    of float32 weights. ``Tensor.to`` is differentiable and its gradient comes
+    back in the source dtype, so gradients and Adam statistics stay float32."""
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floats(v, dtype) for v in tree)
+    return tree.to(dtype) if torch.is_floating_point(tree) else tree
+
+
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     return (torch.rand(shape, generator=generator, dtype=torch.float32) * 2.0 - 1.0) * bound
+
+
+# -- spectral normalization ----------------------------------------------------------
+#
+# One power-iteration step per training forward, W normalized by
+# sigma = v^T W u, differentiated through sigma with respect to W but not
+# through u or v. u is an explicit state tensor the caller threads through
+# (the critics return the advanced u); nothing here mutates it in place.
+
+
+def _l2n(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + eps)
+
+
+def spectral_init(fan_out: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Initial left-singular estimate u (fan_out,) of a (fan_in, fan_out) matrix."""
+    return _l2n(torch.randn((fan_out,), generator=generator, dtype=torch.float32))
+
+
+def spectral_normalize(w2d: torch.Tensor, u: torch.Tensor,
+                       update: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(w2d / sigma, new u) for a (fan_in, fan_out) weight; ``update`` runs
+    the power iteration (training), otherwise u is reused."""
+    with torch.no_grad():
+        v = _l2n(w2d @ u)
+        if update:
+            u = _l2n(v @ w2d)
+    sigma = v @ w2d @ u
+    return w2d / sigma, u
+
+
+def batched_spectral_normalize(ws2d: List[torch.Tensor], us: List[torch.Tensor],
+                               update: bool) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """``spectral_normalize`` of every (w2d, u) pair as one batched
+    computation: the matrices are zero-padded to a common (fan_in, fan_out)
+    and stacked (zero rows and columns add nothing to any product or norm),
+    so a critic's power iterations are three batched products instead of a
+    chain of small launches per layer."""
+    fan_in = max(w.shape[0] for w in ws2d)
+    fan_out = max(w.shape[1] for w in ws2d)
+    W = torch.stack([F.pad(w, (0, fan_out - w.shape[1], 0, fan_in - w.shape[0]))
+                     for w in ws2d])                                            # (n, I, O)
+    with torch.no_grad():
+        U = torch.stack([F.pad(u, (0, fan_out - u.shape[0])) for u in us])      # (n, O)
+        V = _l2n(torch.einsum("nio,no->ni", W, U))
+        if update:
+            U = _l2n(torch.einsum("ni,nio->no", V, W))
+    sigma = (torch.einsum("ni,nio->no", V, W) * U).sum(dim=1)                   # (n,)
+    return ([w / sigma[i] for i, w in enumerate(ws2d)],
+            [U[i, :u.shape[0]] for i, u in enumerate(us)])
+
+
+def sn_dense_init(in_dim: int, out_dim: int, generator: Optional[torch.Generator] = None):
+    """Spectrally normalized dense layer: (params, u)."""
+    return dense_init(in_dim, out_dim, generator), spectral_init(out_dim, generator)
+
+
+def conv1d_init(in_ch: int, out_ch: int, kernel: int,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """``nn.Conv1d`` default init, U(±1/sqrt(in_ch·kernel)), weight in the JAX
+    ``(kernel, in, out)`` (WIO) layout."""
+    bound = 1.0 / (in_ch * kernel) ** 0.5
+    return {"w": _uniform((kernel, in_ch, out_ch), bound, generator),
+            "b": _uniform((out_ch,), bound, generator)}
+
+
+def conv1d(params: Dict[str, torch.Tensor], x: torch.Tensor, padding: int = 0) -> torch.Tensor:
+    """(B, L, C_in) → (B, L', C_out) with a WIO weight: the JAX layout at the
+    interface, PyTorch's (B, C, L) and (out, in, k) inside."""
+    w = params["w"].permute(2, 1, 0)
+    return F.conv1d(x.transpose(1, 2), w, params["b"], padding=padding).transpose(1, 2)
+
+
+def sn_conv1d_init(in_ch: int, out_ch: int, kernel: int,
+                   generator: Optional[torch.Generator] = None):
+    """Spectrally normalized conv1d: (params, u); power iteration views the
+    kernel as a (kernel·in_ch, out_ch) matrix."""
+    return conv1d_init(in_ch, out_ch, kernel, generator), spectral_init(out_ch, generator)
 
 
 def dense_init(in_dim: int, out_dim: int,

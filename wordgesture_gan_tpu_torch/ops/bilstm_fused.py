@@ -70,6 +70,16 @@ def fused_bilstm_fwd_plain(layers: List[Dict], x: torch.Tensor, hidden: int,
 
     Every product is taken in float32 between operands already rounded to
     ``dtype``, as the kernel takes them; only the order of the sums differs."""
+    return plain_stack(layers, x, hidden, static, dtype)[0]
+
+
+def plain_stack(layers: List[Dict], x: torch.Tensor, hidden: int, static: torch.Tensor,
+                dtype: torch.dtype, residuals: bool = False):
+    """The stack's recurrence under the fused casting contract: returns the
+    (B, L, 2H) output in ``dtype`` and, if ``residuals``, the training
+    forward's residual rows (layers, 2, L, B, 6H) in ``dtype`` — per (layer,
+    direction, position) the planes [h | c | i | f | g | o] after the
+    nonlinearities (``ops/bilstm_train.py``), else None."""
     f32 = torch.float32
     H = hidden
     B, L, _ = x.shape
@@ -83,6 +93,7 @@ def fused_bilstm_fwd_plain(layers: List[Dict], x: torch.Tensor, hidden: int,
     base1 = torch.stack([static @ l0[d]["w_ih"][2:].to(f32) + l0[d]["b_ih"] + l0[d]["b_hh"]
                          for d in ("fwd", "bwd")])                                # (2, B, 4H)
     p = q(x)                                                                      # (B, L, 2)
+    res = x.new_empty((len(layers), 2, L, B, 6 * H), dtype=dtype) if residuals else None
     prev = None
     for k, layer in enumerate(layers):
         whh = torch.stack([q(layer[d]["w_hh"]) for d in ("fwd", "bwd")])          # (2, H, 4H)
@@ -98,16 +109,23 @@ def fused_bilstm_fwd_plain(layers: List[Dict], x: torch.Tensor, hidden: int,
         gx = torch.stack([gx[0], gx[1].flip(1)])      # backward direction reads time reversed
         h = x.new_zeros((2, B, H), dtype=f32)
         c = x.new_zeros((2, B, H), dtype=f32)
-        outs = []
+        outs, rows = [], []
         for t in range(L):
             gates = gx[:, :, t] + torch.bmm(h, whh)
             i, f, g, o = gates.chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = q(torch.sigmoid(o) * torch.tanh(c))
+            i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+            c = f * c + i * g
+            h = q(o * torch.tanh(c))
             outs.append(h)
+            if residuals:
+                rows.append(torch.cat([h, c, i, f, g, o], dim=-1).to(dtype))      # (2, B, 6H)
         hs = torch.stack(outs, dim=2)                                             # (2, B, L, H)
         prev = torch.cat([hs[0], hs[1].flip(1)], dim=-1)                          # (B, L, 2H)
-    return prev.to(dtype)
+        if residuals:
+            steps = torch.stack(rows, dim=1)                                      # (2, L, B, 6H)
+            res[k, 0] = steps[0]
+            res[k, 1] = steps[1].flip(0)          # step order → position order
+    return prev.to(dtype), res
 
 
 def _check(layers: List[Dict], x: torch.Tensor, hidden: int, static: torch.Tensor,

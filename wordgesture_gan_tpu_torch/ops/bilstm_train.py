@@ -1,0 +1,340 @@
+"""Differentiable fused BiLSTM stack: the training forward with residuals
+(kernel 2), the backward-through-time (kernel 3), their plain PyTorch
+versions, and ``bilstm_train_apply``, the ``torch.autograd.Function`` that
+ties them together.
+
+Port of the JAX package's ``ops/bilstm_train.py`` (the Pallas TPU kernels
+``_fwd_kernel``, launched by ``_fwd_call``, and ``_bwd_kernel``, launched by
+``_bwd_call``, under the ``jax.custom_vjp`` ``_train_core``). The CUDA
+kernels are in ``csrc/bilstm_train.cu``; its source note says what bounds
+them on an H100 and how they are laid out.
+
+Casting contract (the TPU pair's):
+
+* forward — the inference kernel's recurrence (``ops/bilstm_fused.py``):
+  gate sums, nonlinearities and the carried cell state float32, h rounded to
+  the compute dtype every step, the layer-1 latent projection float32; every
+  residual row [h | c | i | f | g | o] is stored rounded to the compute dtype.
+  The output equals the inference kernel's;
+* backward — dy is rounded to the compute dtype; every gradient product runs
+  in float32 with the weights rounded to the compute dtype (the static-z rows
+  too); c_prev and h_prev come from the stored, rounded residuals; the
+  gradient passed down to the layer below is rounded to the compute dtype per
+  direction and the two directions' parts are added in the compute dtype; the
+  prototype gradient is two rounded per-direction streams added in the
+  compute dtype; z is rounded for dW_z; dW, db and dz accumulate in float32
+  and db is credited to both ``b_ih`` and ``b_hh``.
+
+Residual layout: (layers, 2, L, B, 6H), indexed by sequence position (not by
+step), planes [h | c | i | f | g | o].
+
+Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
+kernels, and a build or launch failure raises. There is no other path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List, Tuple
+
+import torch
+
+from .bilstm_fused import _DTYPE_CODES, _check, kernel_weights, plain_stack
+
+KERNEL = "bilstm_train"
+_CELL = ("w_ih", "w_hh", "b_ih", "b_hh")
+_DIRS = ("fwd", "bwd")
+# Rows of the backward's weight-gradient product per split of the (L·B) sum.
+_ROWS_PER_SPLIT = 2048
+_MAX_SPLITS = 16
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def bilstm_train_fwd_plain(layers: List[Dict], x: torch.Tensor, static: torch.Tensor,
+                           hidden: int, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 2's function: (B, L, 2) prototype + static (B, Z) → (output
+    (B, L, 2H) in ``dtype``, residuals (layers, 2, L, B, 6H) in ``dtype``)."""
+    return plain_stack(layers, x, hidden, static, dtype, residuals=True)
+
+
+def bilstm_train_bwd_plain(layers: List[Dict], x: torch.Tensor, static: torch.Tensor,
+                           res: torch.Tensor, dy: torch.Tensor, hidden: int,
+                           dtype: torch.dtype) -> Tuple[List[Dict], torch.Tensor, torch.Tensor]:
+    """Kernel 3's function: the stack's gradients from the forward's
+    residuals and the output cotangent ``dy`` (B, L, 2H).
+
+    Returns (per-layer gradient tree in the weights' layout, float32;
+    d prototype (B, L, 2) float32; d static (B, Z) float32). Step by step as
+    the kernel: the reverse sweep of both directions together, top layer
+    first; the sums over (time, batch) are taken after each layer's sweep."""
+    f32 = torch.float32
+    H = hidden
+    n, _, L, B, _ = res.shape
+
+    def q(t):
+        return t.to(dtype).to(f32)
+
+    dy_in = q(dy)                                                        # (B, L, 2H)
+    grads: List[Dict] = [None] * n
+    dx = dz = None
+    zero_row = res.new_zeros((1, B, 6 * H), dtype=f32)
+    for k in range(n - 1, -1, -1):
+        layer = layers[k]
+        R = res[k].to(f32)                                               # (2, L, B, 6H)
+        # Each direction's previous internal step: fwd reads position p-1,
+        # bwd position p+1; the first step's is zero.
+        R_prev = torch.stack([torch.cat([zero_row, R[0, :-1]]), torch.cat([R[1, 1:], zero_row])])
+        whh = torch.stack([q(layer[d]["w_hh"]) for d in _DIRS])          # (2, H, 4H)
+        dy_dir = dy_in.view(B, L, 2, H).permute(2, 1, 0, 3)              # (2, L, B, H)
+        dG = R.new_empty((2, L, B, 4 * H))
+        dh = R.new_zeros((2, B, H))
+        dc = R.new_zeros((2, B, H))
+        for u in range(L):
+            def at(t):   # direction 0 at position L-1-u, direction 1 at u
+                return torch.stack([t[0, L - 1 - u], t[1, u]])
+            row, c_prev = at(R), at(R_prev)[..., H:2 * H]
+            c_t, i, f, g, o = (row[..., s * H:(s + 1) * H] for s in range(1, 6))
+            dh = dh + at(dy_dir)
+            tanh_c = torch.tanh(c_t)
+            do = dh * tanh_c
+            dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
+            dg = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                            dc * i * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)   # (2, B, 4H)
+            dc = dc * f
+            dh = torch.bmm(dg, whh.transpose(1, 2))
+            dG[0, L - 1 - u] = dg[0]
+            dG[1, u] = dg[1]
+
+        dwhh = torch.einsum("dlbh,dlbg->dhg", R_prev[..., 0:H], dG)
+        db = dG.sum(dim=(1, 2))                                          # (2, 4H)
+        if k > 0:
+            below = res[k - 1].to(f32)
+            xin = torch.cat([below[0, ..., 0:H], below[1, ..., 0:H]], dim=-1)   # (L, B, 2H)
+            dwih = torch.einsum("lbk,dlbg->dkg", xin, dG)
+            wih = torch.stack([q(layer[d]["w_ih"]) for d in _DIRS])      # (2, 2H, 4H)
+            dxa = torch.einsum("dlbg,dkg->dlbk", dG, wih).to(dtype)      # per direction, rounded
+            dy_in = (dxa[0] + dxa[1]).to(f32).transpose(0, 1)            # (B, L, 2H)
+        else:
+            proto = q(x).transpose(0, 1)                                 # (L, B, 2)
+            dwp = torch.einsum("lbc,dlbg->dcg", proto, dG)
+            dgsum = dG.sum(dim=1)                                        # (2, B, 4H)
+            dwz = torch.einsum("bz,dbg->dzg", q(static), dgsum)
+            wz = torch.stack([q(layer[d]["w_ih"][2:]) for d in _DIRS])   # (2, Z, 4H)
+            dz = torch.einsum("dbg,dzg->bz", dgsum, wz)
+            wp = torch.stack([q(layer[d]["w_ih"][:2]) for d in _DIRS])   # (2, 2, 4H)
+            dpa = torch.einsum("dlbg,dcg->dlbc", dG, wp).to(dtype)
+            dx = (dpa[0] + dpa[1]).to(f32).transpose(0, 1)               # (B, L, 2)
+            dwih = torch.cat([dwp, dwz], dim=1)                          # (2, 2+Z, 4H)
+        grads[k] = {d: {"w_ih": dwih[i], "w_hh": dwhh[i], "b_ih": db[i], "b_hh": db[i].clone()}
+                    for i, d in enumerate(_DIRS)}
+    return grads, dx, dz
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernels' library (built at first use) with its C signatures declared."""
+    from .build import load
+
+    lib = load(KERNEL)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wgg_bilstm_train_fwd.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.wgg_bilstm_train_fwd.restype = i
+    lib.wgg_bilstm_train_bwd.argtypes = [p] * 14 + [i] * 7 + [p]
+    lib.wgg_bilstm_train_bwd.restype = i
+    lib.wgg_cuda_error_string.argtypes = [i]
+    lib.wgg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.wgg_cuda_error_string(err).decode()} (cudaError {err})")
+
+
+def _pointers(tensors: List[torch.Tensor], device: torch.device) -> List[int]:
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"kernel operand on {t.device}, the prototype on {device}")
+        if t.data_ptr() % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
+    return [t.data_ptr() for t in tensors]
+
+
+def backward_weights(layers: List[Dict], hidden: int, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The weights kernel 3 reads, rounded to ``dtype``, laid out so that a
+    warp's threads (consecutive hidden units) read consecutive addresses:
+    ``whhT`` (layers, 4H, 2, H), ``wihT`` (layers-1, 4H, 2, 2H), ``wpT``
+    (4H, 2, 2) and the static rows ``wz`` (2, Z, 4H)."""
+    def both(name, rows=slice(None)):
+        return lambda layer: torch.stack([layer[d][name][rows] for d in _DIRS])   # (2, rows, 4H)
+
+    whh = torch.stack([both("w_hh")(layer) for layer in layers])         # (layers, 2, H, 4H)
+    if len(layers) > 1:
+        wih = torch.stack([both("w_ih")(layer) for layer in layers[1:]]).permute(0, 3, 1, 2)
+    else:
+        wih = whh.new_zeros((1,))    # never read by a one-layer stack
+    return {
+        "whhT": whh.permute(0, 3, 1, 2).to(dtype).contiguous(),
+        "wihT": wih.to(dtype).contiguous(),
+        "wpT": both("w_ih", slice(0, 2))(layers[0]).permute(2, 0, 1).to(dtype).contiguous(),
+        "wz": both("w_ih", slice(2, None))(layers[0]).to(dtype).contiguous(),
+    }
+
+
+def _splits(rows: int) -> int:
+    """How many parts the (L·B)-row weight-gradient sum is cut into."""
+    return max(1, min(_MAX_SPLITS, rows // _ROWS_PER_SPLIT))
+
+
+def _launch_fwd(layers, x, static, hidden, dtype):
+    lib = _library()
+    device = x.device
+    B, L, _ = x.shape
+    n = len(layers)
+    w = kernel_weights(layers, hidden, dtype)
+    proto = x.to(dtype).contiguous()
+    z = static.to(torch.float32).contiguous()
+    res = torch.empty((n, 2, L, B, 6 * hidden), dtype=dtype, device=device)
+    out = torch.empty((B, L, 2 * hidden), dtype=dtype, device=device)
+    ptrs = _pointers([proto, z, w["wseq1"], w["wz"], w["whh"], w["wih"], w["bias"], res, out],
+                     device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.wgg_bilstm_train_fwd(*ptrs, B, L, hidden, static.shape[1], n,
+                                       _DTYPE_CODES[dtype], stream)
+    _raise_on(lib, err, "bilstm_train_fwd")
+    bilstm_train_fwd.launches += 1
+    return out, res
+
+
+def _launch_bwd(layers, x, static, res, dy, hidden, dtype):
+    lib = _library()
+    device = x.device
+    n, _, L, B, _ = res.shape
+    H, Z = hidden, static.shape[1]
+    f32 = torch.float32
+    w = backward_weights(layers, hidden, dtype)
+    m_first, m_rest = 2 + Z + H + 1, 3 * H + 1     # rows of [dW_ih; dW_hh; db] per layer
+    m_max = max(m_first, m_rest) if n > 1 else m_first
+    splits = _splits(L * B)
+    operands = [
+        res.contiguous(), dy.to(dtype).contiguous(), x.to(dtype).contiguous(),
+        static.to(dtype).contiguous(), w["whhT"], w["wihT"], w["wpT"], w["wz"],
+        torch.empty((n, 2, L, B, 4 * H), dtype=f32, device=device),                # gate grads
+        torch.empty((2, 2, B, L, 2 * H) if n > 1 else (1,), dtype=dtype, device=device),
+        torch.empty((2, B, L, 2), dtype=dtype, device=device),                     # dx streams
+        torch.empty((B, Z), dtype=f32, device=device),                              # dz
+        torch.empty((splits, 2 * n, m_max, 4 * H), dtype=f32, device=device),      # partials
+        torch.empty((2 * (m_first + (n - 1) * m_rest) * 4 * H,), dtype=f32, device=device),
+    ]
+    ptrs = _pointers(operands, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.wgg_bilstm_train_bwd(*ptrs, B, L, H, Z, n, splits, _DTYPE_CODES[dtype], stream)
+    _raise_on(lib, err, "bilstm_train_bwd")
+    bilstm_train_bwd.launches += 1
+    dpa, dz, dw = operands[10], operands[11], operands[13]
+    grads, offset = [], 0
+    for k in range(n):
+        din = 2 + Z if k == 0 else 2 * H
+        cells = {}
+        for d in _DIRS:
+            mat = dw[offset:offset + (din + H + 1) * 4 * H].view(din + H + 1, 4 * H)
+            offset += mat.numel()
+            cells[d] = {"w_ih": mat[:din], "w_hh": mat[din:din + H], "b_ih": mat[din + H],
+                        "b_hh": mat[din + H].clone()}
+        grads.append(cells)
+    return grads, (dpa[0] + dpa[1]).to(f32), dz
+
+
+def _dispatch(x: torch.Tensor) -> bool:
+    """True to launch the kernel (CUDA tensor), False for the plain version
+    (CPU tensor); any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def bilstm_train_fwd(layers: List[Dict], x: torch.Tensor, static: torch.Tensor, hidden: int,
+                     dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 2 on a CUDA ``x`` (``bilstm_train_fwd.launches`` counts the
+    launches), ``bilstm_train_fwd_plain`` on a CPU one. Not differentiated."""
+    _check(layers, x, hidden, static, dtype)
+    with torch.no_grad():
+        if _dispatch(x):
+            return _launch_fwd(layers, x, static, hidden, dtype)
+        return bilstm_train_fwd_plain(layers, x, static, hidden, dtype)
+
+
+def bilstm_train_bwd(layers: List[Dict], x: torch.Tensor, static: torch.Tensor,
+                     res: torch.Tensor, dy: torch.Tensor, hidden: int, dtype: torch.dtype):
+    """Kernel 3 on CUDA tensors (``bilstm_train_bwd.launches`` counts the
+    launches), ``bilstm_train_bwd_plain`` on CPU ones. Not differentiated."""
+    if res.shape != (len(layers), 2, x.shape[1], x.shape[0], 6 * hidden) or res.dtype != dtype:
+        raise ValueError(f"residuals {tuple(res.shape)} {res.dtype} do not fit the stack")
+    if dy.shape != (x.shape[0], x.shape[1], 2 * hidden):
+        raise ValueError(f"dy must be (B, L, 2H), got {tuple(dy.shape)}")
+    with torch.no_grad():
+        if _dispatch(x):
+            return _launch_bwd(layers, x, static, res, dy, hidden, dtype)
+        return bilstm_train_bwd_plain(layers, x, static, res, dy, hidden, dtype)
+
+
+bilstm_train_fwd.launches = 0
+bilstm_train_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The autograd Function
+# ---------------------------------------------------------------------------
+
+
+def _unflatten(weights, n_layers: int) -> List[Dict]:
+    it = iter(weights)
+    return [{d: {name: next(it) for name in _CELL} for d in _DIRS} for _ in range(n_layers)]
+
+
+class _BiLSTMTrain(torch.autograd.Function):
+    """Forward: kernel 2, residuals saved. Backward: kernel 3."""
+
+    @staticmethod
+    def forward(ctx, hidden, dtype, x, static, *weights):
+        layers = _unflatten(weights, len(weights) // 8)
+        y, res = bilstm_train_fwd(layers, x, static, hidden, dtype)
+        ctx.hidden, ctx.dtype = hidden, dtype
+        ctx.save_for_backward(x, static, res, *weights)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, static, res, *weights = ctx.saved_tensors
+        layers = _unflatten(weights, len(weights) // 8)
+        grads, dx, dz = bilstm_train_bwd(layers, x, static, res, dy, ctx.hidden, ctx.dtype)
+        flat = [cell[d][name] for cell in grads for d in _DIRS for name in _CELL]
+        return (None, None, dx if ctx.needs_input_grad[2] else None,
+                dz.to(static.dtype) if ctx.needs_input_grad[3] else None,
+                *[g.to(w.dtype) for g, w in zip(flat, weights)])
+
+
+def bilstm_train_apply(layers: List[Dict], x: torch.Tensor, static: torch.Tensor, hidden: int,
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Differentiable fused BiLSTM stack: (B, L, 2) + static (B, Z) → (B, L, 2H)
+    in ``dtype``, any B >= 1 (the JAX package's signature).
+
+    ``layers`` is the tree ``[k]["fwd" | "bwd"]["w_ih" | "w_hh" | "b_ih" |
+    "b_hh"]``. Every weight, ``static`` and, where asked for, ``x`` receive a
+    gradient from kernel 3 (CUDA) or its plain version (CPU)."""
+    _check(layers, x, hidden, static, dtype)
+    weights = [layer[d][name] for layer in layers for d in _DIRS for name in _CELL]
+    return _BiLSTMTrain.apply(hidden, dtype, x, static, *weights)

@@ -1,22 +1,122 @@
-"""The read side of checkpoints that serving needs: run metadata and
-generator weights.
+"""Checkpoints of the train state, run metadata, and the generator weights
+serving reads (the port of the JAX package's ``train/checkpoint.py``).
 
-Generator weights come either from a port checkpoint — ``torch.save`` of a
-``Generator`` state dict (``.pt``) — or from a path-keyed JAX generator
-``.npz`` (``interop/from_jax.py``).
+A checkpoint is one ``torch.save`` file per saved epoch, ``epoch_{N}.pt``,
+written to a hidden temporary file and renamed into place, and ``latest.pt``,
+a relative symlink to the newest one swapped in by an atomic rename: a kill
+at any point leaves the previous snapshot or the new one, never a partial
+file. It holds the state's trees on the CPU, the random generator's state and
+the epoch.
+
+Generator weights for serving come from a port checkpoint (a train state, or
+``torch.save`` of a ``Generator`` state dict) or from a path-keyed JAX
+generator ``.npz`` (``interop/from_jax.py``).
 """
 
 from __future__ import annotations
 
 import json
+import os
+import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ..configs import ModelConfig
-from ..interop.from_jax import generator_from_npz
+from ..interop.from_jax import flatten_tree, generator_from_npz
 from ..models.gan import Generator
+from ..utils.tree import tree_leaves, tree_map
+from .state import MODELS
+
+
+def _atomic_write(path: Path, write) -> None:
+    """``write(tmp_path)``, then rename over ``path``; the temporary file is
+    removed if anything fails."""
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".{path.name}.", suffix=".tmp")
+    os.close(fd)
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def _snapshot(state: Dict) -> Dict:
+    """The state as CPU tensors and ints (what ``torch.save`` writes)."""
+    out = {m: tree_map(lambda t: t.detach().cpu() if torch.is_tensor(t) else t, state[m])
+           for m in MODELS}
+    out["rng"] = state["rng"].get_state()
+    out["epoch"] = int(state["epoch"])
+    return out
+
+
+def save_checkpoint(state: Dict, checkpoint_dir: str, epoch: int) -> None:
+    """Write ``epoch_{epoch+1}.pt`` and point ``latest.pt`` at it."""
+    base = Path(checkpoint_dir).absolute()
+    base.mkdir(parents=True, exist_ok=True)
+    name = f"epoch_{epoch + 1}.pt"
+    snapshot = _snapshot(state)
+    _atomic_write(base / name, lambda tmp: torch.save(snapshot, tmp))
+    link = base / f".latest.lnk.{os.getpid()}"
+    if link.is_symlink() or link.exists():
+        link.unlink()
+    os.symlink(name, link)
+    os.replace(link, base / "latest.pt")
+
+
+@torch.no_grad()
+def restore_checkpoint(state: Dict, checkpoint_dir: str, name: str = "latest.pt") -> Optional[Dict]:
+    """Copy a checkpoint into ``state`` (a fresh state of the same
+    configuration) and return it, or None when there is none. A missing or
+    dangling ``latest.pt`` falls back to the newest ``epoch_N.pt``."""
+    base = Path(checkpoint_dir).absolute()
+    path = base / name
+    if not path.exists():
+        n = latest_epoch(checkpoint_dir)
+        if n <= 0:
+            return None
+        path = base / f"epoch_{n}.pt"
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    for m in MODELS:
+        for part in state[m]:
+            if part == "opt":
+                saved_opt = saved[m]["opt"]
+                pairs = zip(tree_leaves({k: state[m]["opt"][k] for k in ("mu", "nu")}),
+                            tree_leaves({k: saved_opt[k] for k in ("mu", "nu")}))
+                state[m]["opt"]["count"] = int(saved_opt["count"])
+            else:
+                pairs = zip(tree_leaves(state[m][part]), tree_leaves(saved[m][part]))
+            for dst, src in pairs:
+                if dst.shape != src.shape:
+                    raise ValueError(f"checkpoint {path}: {m}/{part} holds {tuple(src.shape)} "
+                                     f"where the model has {tuple(dst.shape)}; the run's "
+                                     f"configuration does not match the one that wrote it")
+                dst.copy_(src)
+    state["rng"].set_state(saved["rng"])
+    state["epoch"] = int(saved["epoch"])
+    return state
+
+
+def latest_epoch(checkpoint_dir: str) -> int:
+    """Highest epoch number with a snapshot, or 0."""
+    base = Path(checkpoint_dir)
+    if not base.exists():
+        return 0
+    epochs = [int(p.stem.split("_")[1]) for p in base.glob("epoch_*.pt")
+              if p.stem.split("_")[1].isdigit()]
+    return max(epochs, default=0)
+
+
+def save_run_metadata(checkpoint_dir: str, **fields) -> None:
+    """Merge ``fields`` into ``run_meta.json`` (written atomically)."""
+    base = Path(checkpoint_dir).absolute()
+    base.mkdir(parents=True, exist_ok=True)
+    meta = load_run_metadata(checkpoint_dir)
+    meta.update(fields)
+    _atomic_write(base / "run_meta.json", lambda tmp: Path(tmp).write_text(json.dumps(meta, indent=2)))
 
 
 def load_run_metadata(checkpoint_dir: str) -> dict:
@@ -32,10 +132,15 @@ def load_run_metadata(checkpoint_dir: str) -> dict:
 
 
 def load_generator_weights(path: str) -> Dict[str, torch.Tensor]:
-    """Generator state dict from a ``.npz`` (JAX tree) or a port checkpoint."""
+    """Generator state dict from a ``.npz`` (JAX tree), a port train-state
+    checkpoint, or a saved ``Generator`` state dict."""
     if str(path).endswith(".npz"):
         return generator_from_npz(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if "g" in saved and "rng" in saved:
+        return {k.replace("/", "."): torch.as_tensor(v)
+                for k, v in flatten_tree(saved["g"]["params"]).items()}
+    return saved
 
 
 def load_generator(path: str, config: ModelConfig, device="cuda") -> Generator:

@@ -1,16 +1,144 @@
-"""Batched sampling from the generator (the serving half of the JAX
-package's ``train/gan_loop.py``; training is not ported yet)."""
+"""The GAN training loop and batched sampling from the generator (the port
+of the JAX package's ``train/gan_loop.py``: ``train_gan`` on one device,
+and ``generate_gestures``)."""
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
+from ..configs import (DEFAULT_MODEL_CONFIG, DEFAULT_TRAINING_CONFIG, ModelConfig,
+                       TrainingConfig)
+from ..data.pipeline import GestureArrays, within_word_diversity
 from ..models.gan import Generator
 from ..utils.chunking import chunk_layout, pad_to_chunks
+from ..utils.preemption import PreemptionGuard
+from .checkpoint import restore_checkpoint, save_checkpoint, save_run_metadata
+from .gan_step import gan_train_step, make_epoch_batches
+from .history import append_history, truncate_history
+from .schedules import cosine_annealing_lr
+from .state import init_gan_state
+
+
+@dataclass
+class TrainResult:
+    state: Dict
+    history: List[Dict[str, float]] = field(default_factory=list)
+    # Wall seconds of each epoch this run trained (host clock, ending after
+    # the epoch's losses reached the host), and the gestures it trained on.
+    epoch_seconds: List[float] = field(default_factory=list)
+    gestures_per_epoch: int = 0
+
+
+def train_gan(
+    train_ds: GestureArrays,
+    model_config: ModelConfig = DEFAULT_MODEL_CONFIG,
+    training_config: TrainingConfig = DEFAULT_TRAINING_CONFIG,
+    num_epochs: Optional[int] = None,
+    seed: int = 42,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = True,
+    epoch_callback: Optional[Callable[[int, Dict, Dict[str, float]], None]] = None,
+    verbose: bool = True,
+    device="cuda",
+) -> TrainResult:
+    """Train the two-cycle GAN on ``train_ds`` on one ``device``.
+
+    Per epoch: the cosine learning rate, a seeded shuffle with drop-last,
+    one ``gan_train_step`` per batch, the epoch's mean losses (a non-finite
+    one aborts the run before anything is written), a history line, a log
+    line with gestures/s, ``epoch_callback(epoch, state, losses)``, and a
+    checkpoint every ``save_every`` epochs and after the last. With
+    ``resume`` and a checkpoint in ``checkpoint_dir`` the run continues
+    after the saved epoch. A first SIGTERM/SIGINT stops cleanly after the
+    epoch in flight, with a checkpoint."""
+    say = print if verbose else (lambda *_: None)
+    num_epochs = num_epochs or training_config.num_epochs
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but no CUDA device is available; pass device='cpu' "
+                           "to train on the CPU")
+
+    if training_config.lambda_div and training_config.div_margin is None:
+        margin = within_word_diversity(train_ds)
+        training_config = dataclasses.replace(training_config, div_margin=margin)
+        say(f"Diversity hinge margin measured from data: {margin:.4f} (mean within-word L1)")
+
+    gestures = torch.as_tensor(np.asarray(train_ds.gestures, np.float32), device=device)
+    prototypes = torch.as_tensor(np.asarray(train_ds.prototypes, np.float32), device=device)
+
+    state = init_gan_state(seed, model_config, device)
+    start_epoch = 0
+    if checkpoint_dir:
+        save_run_metadata(checkpoint_dir, generator_type=model_config.generator_type,
+                          time_head=model_config.time_head,
+                          gen_hidden_dim=model_config.gen_hidden_dim)
+        if resume and restore_checkpoint(state, checkpoint_dir) is not None:
+            start_epoch = state["epoch"]
+            truncate_history(checkpoint_dir, start_epoch)
+            say(f"Resumed from checkpoint at epoch {start_epoch}")
+    if start_epoch >= num_epochs:
+        say(f"Already trained to epoch {start_epoch}, nothing to do.")
+        return TrainResult(state=state)
+
+    B = training_config.batch_size
+    result = TrainResult(state=state, gestures_per_epoch=(len(train_ds) // B) * B)
+    with PreemptionGuard() as preempt:
+        for epoch in range(start_epoch, num_epochs):
+            lr = float(cosine_annealing_lr(training_config.learning_rate, epoch, num_epochs,
+                                           training_config.lr_scheduler_eta_min))
+            shuffle = torch.Generator(device=device)
+            shuffle.manual_seed((seed ^ 0x5EED) * 1_000_003 + epoch)
+            batches = make_epoch_batches(shuffle, gestures, prototypes, B)
+
+            t0 = time.perf_counter()
+            traces: Dict[str, List[torch.Tensor]] = {}
+            for i in range(batches["gesture"].shape[0]):
+                _, metrics = gan_train_step(state, {k: v[i] for k, v in batches.items()}, lr,
+                                            model_config, training_config)
+                for k, v in metrics.items():
+                    traces.setdefault(k, []).append(v)
+            # One host transfer per epoch; it waits for the device.
+            keys = list(traces)
+            means = torch.stack([torch.stack(traces[k]).mean() for k in keys]) if keys else None
+            losses = dict(zip(keys, means.cpu().tolist())) if keys else {}
+            dt = time.perf_counter() - t0
+            state["epoch"] = epoch + 1
+            losses["lr"] = lr
+            bad = [k for k, v in losses.items() if not np.isfinite(v)]
+            if bad:
+                raise FloatingPointError(f"Non-finite losses at epoch {epoch + 1}: {bad}. "
+                                         f"Last good checkpoint is in {checkpoint_dir!r}.")
+            result.history.append(losses)
+            result.epoch_seconds.append(dt)
+            append_history(checkpoint_dir, epoch, losses)
+            if traces:
+                say(f"Epoch {epoch + 1}/{num_epochs} [{dt:.1f}s, "
+                    f"{result.gestures_per_epoch / max(dt, 1e-9):.0f} gestures/s] - "
+                    f"D1:{losses['d1_loss']:.3f} D2:{losses['d2_loss']:.3f} "
+                    f"C1:{losses['cycle1_total']:.3f} C2:{losses['cycle2_total']:.3f} "
+                    f"LR:{lr:.6f}")
+            if epoch_callback is not None:
+                epoch_callback(epoch, state, losses)
+
+            saved = False
+            if checkpoint_dir and ((epoch + 1) % training_config.save_every == 0
+                                   or epoch == num_epochs - 1):
+                save_checkpoint(state, checkpoint_dir, epoch)
+                say(f"  Checkpoint saved at epoch {epoch + 1}")
+                saved = True
+            if preempt.requested:
+                if checkpoint_dir and not saved:
+                    save_checkpoint(state, checkpoint_dir, epoch)
+                say(f"Preemption signal received — stopped cleanly after epoch {epoch + 1}; "
+                    f"rerun to resume.")
+                break
+    return result
 
 
 def generate_gestures(generator: Generator, prototypes: np.ndarray,
@@ -22,11 +150,11 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
 
     The prototypes are zero-padded to whole power-of-two chunks of at most
     ``batch`` rows (``utils/chunking.py``, the JAX package's layout) and the
-    generator runs once per chunk on ``device``. Each chunk draws its noise
-    from one ``torch.Generator`` on ``device`` seeded with ``seed``. ``z``
-    (n, Z), if given, replaces those draws (it is still scaled by
-    ``truncation``): JAX's random stream cannot be reproduced, so a test
-    hands both packages the same noise this way.
+    generator runs once per chunk on ``device``, through the inference
+    kernel. Each chunk draws its noise from one ``torch.Generator`` on
+    ``device`` seeded with ``seed``. ``z`` (n, Z), if given, replaces those
+    draws (it is still scaled by ``truncation``): JAX's random stream cannot
+    be reproduced, so a test hands both packages the same noise this way.
 
     ``config`` must be the generator's own configuration; the generator is
     moved to ``device``."""
@@ -54,5 +182,5 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
                 eps = torch.randn((chunk, config.latent_dim), generator=rng, device=device)
             else:
                 eps = noise[rows]
-            outs.append(generator(protos[rows], eps * truncation))
+            outs.append(generator(protos[rows], eps * truncation, inference=True))
     return torch.cat(outs).float().cpu().numpy()[:n]

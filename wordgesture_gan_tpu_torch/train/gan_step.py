@@ -1,0 +1,173 @@
+"""The two-cycle WGAN train step and epoch batching (the port of the JAX
+package's ``train/gan_step.py``; the scanned epoch has no counterpart, the
+loop runs the step once per batch).
+
+Gradient-flow rules, as in the JAX step:
+  * critics train on detached fakes;
+  * cycle-1 latent recovery runs the encoder without gradient, so nothing
+    flows to E, or back into G, through z';
+  * cycle 2's critic scores and features backpropagate into G and E, but the
+    joint step takes gradients for G and E only (``torch.autograd.grad`` on
+    their leaves), so D1 and D2 get no update and no leftover ``.grad``;
+  * the real side's critic features are detached in feature matching;
+  * each model is clipped to its own global norm before its Adam step.
+
+Spectral-norm power iteration advances once per critic forward: twice per
+critic update (real, then fake) unless ``fused_critic_forward``, and twice per
+critic in the joint step, whose advanced u's are kept.
+
+The step updates ``state`` in place (parameters and Adam moments are
+overwritten, the critics' u trees replaced) and returns it with its metrics
+as 0-d float32 tensors on the device, so no step waits for the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..configs import ModelConfig, TrainingConfig
+from ..losses import (diversity_hinge_loss, feature_matching_loss, kl_divergence_loss,
+                      latent_encoding_loss, mode_seeking_loss, reconstruction_loss,
+                      speed_profile_loss, time_delta_corr_loss, time_delta_loss,
+                      wgan_critic_loss, wgan_generator_loss)
+from ..models.gan import disc_apply, encoder_apply, generator_apply
+from ..utils.tree import tree_leaves
+from .state import apply_update
+
+
+def _critic_update(disc: Dict, real: torch.Tensor, fake: torch.Tensor, lr: float,
+                   model_config: ModelConfig, training_config: TrainingConfig) -> torch.Tensor:
+    """One critic step on (real, detached fake): WGAN loss, clip, Adam.
+    Updates ``disc`` (``{"params", "opt", "sn"}``) in place; returns the loss."""
+    fake = fake.detach()
+    params, sn = disc["params"], disc["sn"]
+    if training_config.fused_critic_forward:
+        scores, _, sn = disc_apply(params, sn, torch.cat([real, fake]), True, model_config)
+        real_scores, fake_scores = scores[:real.shape[0]], scores[real.shape[0]:]
+    else:
+        real_scores, _, sn = disc_apply(params, sn, real, True, model_config)
+        fake_scores, _, sn = disc_apply(params, sn, fake, True, model_config)
+    loss = wgan_critic_loss(real_scores, fake_scores)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    apply_update(params, grads, disc["opt"], lr, training_config.grad_clip_norm)
+    disc["sn"] = sn
+    return loss.detach()
+
+
+def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
+                   model_config: ModelConfig, training_config: TrainingConfig,
+                   noise: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+    """One two-cycle step on one batch (``gesture``, ``prototype``: (B, L, 3)).
+
+    ``noise`` injects every random draw instead of taking it from
+    ``state["rng"]``: ``z_rand``/``eps_enc`` (n_critic, B, Z) for the critic
+    loop, ``z1``/``eps_rec``/``eps2`` (B, Z) for the joint step, and
+    ``z_ms`` (B, Z), the second prior draw, when ``lambda_ms`` or
+    ``lambda_div`` is on. The random streams of JAX and PyTorch differ, so
+    the tests hand both packages the same noise this way."""
+    tc = training_config
+    real, proto = batch["gesture"], batch["prototype"]
+    B, Z, device = real.shape[0], model_config.latent_dim, real.device
+    rng = state["rng"]
+    g_params, e_params = state["g"]["params"], state["e"]["params"]
+    d1, d2 = state["d1"], state["d2"]
+
+    def draw(name, shape):
+        if noise is not None:
+            return noise[name]
+        return torch.randn(shape, generator=rng, device=device, dtype=torch.float32)
+
+    # -- critic loop: G and E frozen; the encoder runs once, with fresh ε per
+    # iteration; each iteration draws both fakes in one 2B inference call.
+    n_c = tc.n_critic
+    d1_loss = d2_loss = torch.zeros((), device=device)
+    if n_c > 0:
+        z_rands = draw("z_rand", (n_c, B, Z))
+        eps_encs = draw("eps_enc", (n_c, B, Z))
+        with torch.no_grad():
+            _, mu_c, log_var_c = encoder_apply(e_params, real, model_config, eps=eps_encs[0])
+            z_encs = mu_c[None] + eps_encs * torch.exp(0.5 * log_var_c)[None]
+        proto2 = torch.cat([proto, proto])
+        for i in range(n_c):
+            with torch.no_grad():
+                fakes = generator_apply(g_params, proto2, torch.cat([z_rands[i], z_encs[i]]),
+                                        model_config, inference=True)
+            d1_loss = _critic_update(d1, real, fakes[:B], lr, model_config, tc)
+            d2_loss = _critic_update(d2, real, fakes[B:], lr, model_config, tc)
+
+    # -- joint G + E step.
+    z = draw("z1", (B, Z))
+    eps_rec = draw("eps_rec", (B, Z))
+    eps2 = draw("eps2", (B, Z))
+    diversity = bool(tc.lambda_ms or tc.lambda_div)
+    z_ms = draw("z_ms", (B, Z)) if diversity else None
+
+    # Cycle 1: z → X' → z'.
+    fake1 = generator_apply(g_params, proto, z, model_config)
+    fake1_scores, fake1_feats, d1_sn = disc_apply(d1["params"], d1["sn"], fake1, True,
+                                                  model_config)
+    with torch.no_grad():
+        _, real1_feats, d1_sn = disc_apply(d1["params"], d1_sn, real, True, model_config)
+        z_rec, _, _ = encoder_apply(e_params, fake1.detach(), model_config, eps=eps_rec)
+    c1_wgan = wgan_generator_loss(fake1_scores)
+    c1_feat = feature_matching_loss(real1_feats, fake1_feats)
+    c1_lat = latent_encoding_loss(z, z_rec)
+    c1_total = c1_wgan + tc.lambda_feat * c1_feat + tc.lambda_lat * c1_lat
+    if diversity:
+        fake_ms = generator_apply(g_params, proto, z_ms, model_config)
+        if tc.lambda_ms:
+            c1_total = c1_total + tc.lambda_ms * mode_seeking_loss(fake1, fake_ms, z, z_ms)
+        if tc.lambda_div:
+            if tc.div_margin is None:
+                raise ValueError("lambda_div requires div_margin; the training loop "
+                                 "measures it from the data when left as None")
+            c1_total = c1_total + tc.lambda_div * diversity_hinge_loss(fake1, fake_ms,
+                                                                       tc.div_margin)
+
+    # Cycle 2: X → z → X'.
+    z_enc, mu, log_var = encoder_apply(e_params, real, model_config, eps=eps2)
+    fake2 = generator_apply(g_params, proto, z_enc, model_config)
+    fake2_scores, fake2_feats, d2_sn = disc_apply(d2["params"], d2["sn"], fake2, True,
+                                                  model_config)
+    with torch.no_grad():
+        _, real2_feats, d2_sn = disc_apply(d2["params"], d2_sn, real, True, model_config)
+    c2_wgan = wgan_generator_loss(fake2_scores)
+    c2_feat = feature_matching_loss(real2_feats, fake2_feats)
+    c2_rec = reconstruction_loss(real, fake2)
+    c2_kld = kl_divergence_loss(mu, log_var)
+    c2_total = (c2_wgan + tc.lambda_feat * c2_feat + tc.lambda_rec * c2_rec
+                + tc.lambda_kld * c2_kld)
+    if tc.lambda_dt:
+        c2_total = c2_total + tc.lambda_dt * time_delta_loss(real, fake2)
+    if tc.lambda_speed:
+        c2_total = c2_total + tc.lambda_speed * speed_profile_loss(real, fake2)
+    if tc.lambda_dtc:
+        c2_total = c2_total + tc.lambda_dtc * time_delta_corr_loss(real, fake2)
+
+    g_leaves, e_leaves = tree_leaves(g_params), tree_leaves(e_params)
+    grads = torch.autograd.grad(c1_total + c2_total, g_leaves + e_leaves)
+    apply_update(g_params, grads[:len(g_leaves)], state["g"]["opt"], lr, tc.grad_clip_norm)
+    apply_update(e_params, grads[len(g_leaves):], state["e"]["opt"], lr, tc.grad_clip_norm)
+    d1["sn"], d2["sn"] = d1_sn, d2_sn
+
+    metrics = {"d1_loss": d1_loss, "d2_loss": d2_loss, "cycle1_total": c1_total,
+               "cycle1_wgan": c1_wgan, "cycle1_feat": c1_feat, "cycle1_lat": c1_lat,
+               "cycle2_total": c2_total, "cycle2_wgan": c2_wgan, "cycle2_feat": c2_feat,
+               "cycle2_rec": c2_rec, "cycle2_kld": c2_kld}
+    return state, {k: v.detach().to(torch.float32) for k, v in metrics.items()}
+
+
+def make_epoch_batches(generator: torch.Generator, gestures: torch.Tensor,
+                       prototypes: torch.Tensor, batch_size: int) -> Dict[str, torch.Tensor]:
+    """Shuffle with ``generator`` and cut into (n_batches, B, L, 3) stacks,
+    dropping the last partial batch. The permutation is drawn on the
+    generator's device and applied on the data's."""
+    n = gestures.shape[0]
+    n_batches = n // batch_size
+    perm = torch.randperm(n, generator=generator, device=generator.device)
+    perm = perm[:n_batches * batch_size].to(gestures.device)
+    return {"gesture": gestures[perm].reshape(n_batches, batch_size, *gestures.shape[1:]),
+            "prototype": prototypes[perm].reshape(n_batches, batch_size, *prototypes.shape[1:])}

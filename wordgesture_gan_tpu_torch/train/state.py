@@ -1,0 +1,118 @@
+"""GAN train state: the four models' parameters, their optimizer states, the
+critics' spectral-norm u state, the random generator and the epoch (the port
+of the JAX package's ``train/state.py``).
+
+The state is a plain dict of trees of float32 tensors in the JAX layout::
+
+    {"g":  {"params": tree, "opt": adam},
+     "e":  {"params": tree, "opt": adam},
+     "d1": {"params": tree, "opt": adam, "sn": u tree},
+     "d2": {"params": tree, "opt": adam, "sn": u tree},
+     "rng": torch.Generator on the device, "epoch": int}
+
+with ``adam = {"mu": tree, "nu": tree, "count": int}``. Parameters are leaf
+tensors that require grad; the train step takes gradients with
+``torch.autograd.grad`` (so no ``.grad`` is ever left on a leaf) and updates
+parameters and moments in place, where the JAX step returns new arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
+from ..models.gan import disc_init, encoder_init, generator_init
+from ..utils.tree import tree_leaves, tree_map
+
+MODELS = ("g", "e", "d1", "d2")
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.5, 0.999, 1e-8
+
+
+def adam_init(params) -> Dict:
+    """Zero moments shaped like ``params``, step count 0."""
+    return {"mu": tree_map(torch.zeros_like, params), "nu": tree_map(torch.zeros_like, params),
+            "count": 0}
+
+
+@torch.no_grad()
+def apply_update(params, grads: List[torch.Tensor], opt: Dict, lr: float,
+                 grad_clip_norm: float) -> None:
+    """One optimizer step, in place: global-norm clipping, then Adam
+    (β = (0.5, 0.999), ε = 1e-8 outside the square root, bias-corrected),
+    then ``p -= lr · u``.
+
+    Clipping is optax's ``clip_by_global_norm``: the gradients are scaled by
+    max / ‖g‖ only when ‖g‖ >= max (no ε in the denominator), decided on the
+    device without a host round trip. ``grads`` are in ``tree_leaves(params)``
+    order."""
+    p = tree_leaves(params)
+    g = list(grads)
+    mu, nu = tree_leaves(opt["mu"]), tree_leaves(opt["nu"])
+    if grad_clip_norm and grad_clip_norm > 0:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        scale = torch.where(norm < grad_clip_norm, torch.ones_like(norm), grad_clip_norm / norm)
+        g = torch._foreach_mul(g, scale)
+    torch._foreach_mul_(mu, ADAM_B1)
+    torch._foreach_add_(mu, g, alpha=1.0 - ADAM_B1)
+    torch._foreach_mul_(nu, ADAM_B2)
+    torch._foreach_addcmul_(nu, g, g, value=1.0 - ADAM_B2)
+    opt["count"] += 1
+    denom = torch._foreach_div(nu, 1.0 - ADAM_B2 ** opt["count"])
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, ADAM_EPS)
+    update = torch._foreach_div(mu, 1.0 - ADAM_B1 ** opt["count"])
+    torch._foreach_div_(update, denom)
+    torch._foreach_add_(p, update, alpha=-lr)
+
+
+def _state(t, device) -> torch.Tensor:
+    """A float32 copy of a tensor or array on ``device``."""
+    if not torch.is_tensor(t):
+        t = torch.from_numpy(np.array(t, dtype=np.float32))
+    return t.detach().to(device=device, dtype=torch.float32).clone()
+
+
+def _leaf(t, device) -> torch.Tensor:
+    return _state(t, device).requires_grad_(True)
+
+
+def make_train_state(params: Dict, sn: Dict, device="cuda", seed: int = 0,
+                     opt: Optional[Dict] = None, epoch: int = 0) -> Dict:
+    """A train state on ``device`` from parameter trees ``params[m]`` and
+    spectral states ``sn["d1" | "d2"]`` (tensors or arrays), with fresh Adam
+    states unless ``opt[m]`` gives ``{"mu", "nu", "count"}``. ``rng`` is a
+    ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    device = torch.device(device)
+    state: Dict = {}
+    for m in MODELS:
+        p = tree_map(lambda t: _leaf(t, device), params[m])
+        if opt is not None and m in opt:
+            o = {"mu": tree_map(lambda t: _state(t, device), opt[m]["mu"]),
+                 "nu": tree_map(lambda t: _state(t, device), opt[m]["nu"]),
+                 "count": int(opt[m]["count"])}
+        else:
+            o = adam_init(tree_map(lambda t: t.detach(), p))
+        state[m] = {"params": p, "opt": o}
+        if m in ("d1", "d2"):
+            state[m]["sn"] = tree_map(lambda t: _state(t, device), sn[m])
+    state["rng"] = torch.Generator(device=device)
+    state["rng"].manual_seed(seed)
+    state["epoch"] = epoch
+    return state
+
+
+def init_gan_state(seed: int = 0, model_config: ModelConfig = DEFAULT_MODEL_CONFIG,
+                   device="cuda") -> Dict:
+    """Fresh train state for (G, E, D1, D2) on ``device``. Weights are drawn
+    on the CPU from one ``torch.Generator`` seeded with ``seed`` (PyTorch's
+    default initializers), then moved in one go. The optimizer needs no
+    configuration here: the step passes the learning rate and the clip norm."""
+    gen = torch.Generator().manual_seed(seed)
+    d1, d1_sn = disc_init(model_config, gen)
+    d2, d2_sn = disc_init(model_config, gen)
+    params = {"g": generator_init(model_config, gen), "e": encoder_init(model_config, gen),
+              "d1": d1, "d2": d2}
+    return make_train_state(params, {"d1": d1_sn, "d2": d2_sn}, device, seed=seed)
