@@ -11,6 +11,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 3. hold each kernel against its plain PyTorch version on the card at the
    flagship generator's full width (4 layers, H=48, L=128, Z=32) for
    B in {1, 131, 512, 2048}, float32 with TF32 off and bfloat16:
+   kernel 4 (exact batched DTW, float32 only): aligned pairs at P in
+   {1, 131, 8192}, D in {2, 3}, L=128 on gesture-like walks, the matrix entry
+   at 64x64, 37x13, a short length and L=1 against the plain version and
+   against aligned pairs, and four pairs against a float64 recurrence on
+   the host, each distance relative to its own size, 1e-4;
    kernel 1 (inference forward): 1e-4 / 2e-2 abs;
    kernels 2 and 3 (training forward with residuals, backward through
    time): the output, every residual plane and every gradient (dW_ih,
@@ -36,10 +41,25 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the reference recipe and the flagship one: losses, the gradients (Adam
    moments after a step at lr=0) and the parameters after a step at
    lr=2e-4, with the tolerances stated at STEP_RECIPES;
-7. time kernel 1, kernels 2 and 3, their plain versions and cuDNN
+7. evaluate through the entry points a user calls: the synthetic corpus
+   (480 users: 8744 gestures to train on, 2170 to test on), a smoke
+   generator trained for 2 epochs through ``train_cli.main`` (flagship
+   recipe), then ``eval_cli.main --model both --n-samples 2000`` at full
+   width with DTW on — 4·10^6 pairs through kernel 4 for the generator and
+   again for the minimum-jerk baseline, whose pass must reuse the real side
+   (``cached_real``); the FID autoencoders train 5 epochs instead of 100.
+   Every metric finite, precision and recall in [0, 1], FID >= 0,
+   DTW-Wasserstein > 0, launches counted from 0 (2 kernel-4, 4 kernel-1);
+   4096 sampled entries of the DTW matrix no larger than their diagonal
+   path's cost; a small evaluation (n=64) on the card against the CPU; the
+   suite profiled once;
+8. time kernel 1, kernels 2 and 3, their plain versions and cuDNN
    ``torch.nn.LSTM`` on the same weights (a yardstick the port never calls;
    the training yardstick is its float32 forward and backward) at B=512 in
-   bfloat16 and float32 with CUDA events, beside each kernel's bound.
+   bfloat16 and float32 with CUDA events, beside each kernel's bound; time
+   kernel 4 at 2000 x 2000 pairs in one launch beside its plain version over
+   the same pairs and its bound (no PyTorch call computes DTW), at D=2 as
+   the evaluation calls it and at D=3.
 
 Output: check, timing and profile lines as JSON, then the kernel table as
 one JSON line ({"kernels": [...]}), then the nvidia-smi line, then as the
@@ -61,16 +81,21 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from wordgesture_gan_tpu_torch import generate
-from wordgesture_gan_tpu_torch.configs import ModelConfig, TrainingConfig
+from wordgesture_gan_tpu_torch import eval_cli, generate, train_cli
+from wordgesture_gan_tpu_torch.cli_common import load_split
+from wordgesture_gan_tpu_torch.configs import EvaluationConfig, ModelConfig, TrainingConfig
 from wordgesture_gan_tpu_torch.data.pipeline import GestureArrays
 from wordgesture_gan_tpu_torch.interop.from_jax import write_generator_npz
 from wordgesture_gan_tpu_torch.keyboard import QWERTYKeyboard
+from wordgesture_gan_tpu_torch.metrics.suite import evaluate_all_metrics
+from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance
 from wordgesture_gan_tpu_torch.ops import build as kernel_build
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import fused_bilstm_fwd, fused_bilstm_fwd_plain
 from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_bwd, bilstm_train_bwd_plain,
                                                         bilstm_train_fwd, bilstm_train_fwd_plain)
-from wordgesture_gan_tpu_torch.train.checkpoint import latest_epoch, load_generator
+from wordgesture_gan_tpu_torch.ops.dtw import dtw_matrix, dtw_pairs, dtw_pairs_plain
+from wordgesture_gan_tpu_torch.train.checkpoint import (find_checkpoint, latest_epoch,
+                                                        load_generator)
 from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures, train_gan
 from wordgesture_gan_tpu_torch.train.gan_step import gan_train_step
 from wordgesture_gan_tpu_torch.train.state import MODELS, init_gan_state
@@ -321,7 +346,7 @@ def cudnn_lstm(tree: dict, latent: int, dtype: torch.dtype, device) -> torch.nn.
 
 def time_kernel(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ,
                 layers=LAYERS, latent=LATENT) -> dict:
-    """Phase 7: kernel 1, its plain version and cuDNN LSTM at one shape."""
+    """Phase 8: kernel 1, its plain version and cuDNN LSTM at one shape."""
     dtype = getattr(torch, dtype_name)
     tree = random_generator_tree(hidden, layers, latent, seed=2)
     stack = stack_on(tree, device)
@@ -443,7 +468,7 @@ def check_train_kernels(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LA
 
 def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ,
                     layers=LAYERS, latent=LATENT) -> dict:
-    """Phase 7, kernels 2 and 3: each kernel, its plain version, and cuDNN's
+    """Phase 8, kernels 2 and 3: each kernel, its plain version, and cuDNN's
     float32 LSTM forward (training mode) and backward on the same weights."""
     dtype = getattr(torch, dtype_name)
     tree = random_generator_tree(hidden, layers, latent, seed=2)
@@ -474,6 +499,139 @@ def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, se
            "fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],
            "bwd_bound_ms": bounds["bwd"][0], "bwd_bound_by": bounds["bwd"][1]}
     print(json.dumps({"timing": "bilstm_train", **row}), flush=True)
+    return row
+
+
+# -- kernel 4: exact batched DTW ----------------------------------------------------------
+
+DTW_CHECK_PAIRS = (1, 131, 8192)
+# Kernel against plain, each distance relative to its own size: the kernel
+# adds costs along the path, the plain version subtracts prefix sums of up to
+# 128 costs, so they differ by a few float32 roundings of sums of order 10-100.
+DTW_TOL_REL = 1e-4
+# Peak rates for the DTW bound: the H100 SXM's 132 SMs at the 1.98 GHz boost
+# clock behind its 67 TFLOP/s float32 figure, 16 special-function lanes each.
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+
+
+def gesture_like(rng, count: int, seq: int, dims: int) -> torch.Tensor:
+    """Seeded sequences shaped like gestures: cumulative small steps, kept in
+    [-1, 1]."""
+    walk = np.cumsum(rng.normal(0.0, 0.05, (count, seq, dims)), axis=1)
+    return torch.from_numpy(np.clip(walk, -1.0, 1.0).astype(np.float32))
+
+
+def dtw_host_float64(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """The classic O(L^2) recurrence in float64 numpy, vectorised over pairs."""
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    P, L, _ = x.shape
+    cost = np.sqrt(((x[:, :, None, :] - y[:, None, :, :]) ** 2).sum(-1))
+    acc = np.full((P, L + 1, L + 1), np.inf)
+    acc[:, 0, 0] = 0.0
+    for i in range(1, L + 1):
+        for j in range(1, L + 1):
+            acc[:, i, j] = cost[:, i - 1, j - 1] + np.minimum(
+                np.minimum(acc[:, i - 1, j], acc[:, i - 1, j - 1]), acc[:, i, j - 1])
+    return acc[:, L, L]
+
+
+def _dtw_rel(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max over pairs of |err| / |want|, max |err|)."""
+    err = (got.double() - want.double()).abs()
+    return (err / want.double().abs().clamp_min(1e-6)).max().item(), err.max().item()
+
+
+def dtw_bound_ms(pairs: int, rows: int, cols: int, seq: int, dims: int) -> dict:
+    """Least time of kernel 4 on an H100 for ``pairs`` pairs of ``seq`` points:
+    bytes (both sets read once — ``rows`` + ``cols`` sequences — and one
+    float32 per pair written) against operations, the larger of the float32
+    work (per cell ``dims`` subtractions, ``dims`` multiplies, ``dims``-1
+    adds, two minimums and one add, at the 67 TFLOP/s peak) and one square
+    root per cell on the special-function units."""
+    cells = pairs * seq * seq
+    t_bytes = ((rows + cols) * seq * dims * 4 + pairs * 4) / PEAK_BYTES_PER_S * 1e3
+    t_fp32 = cells * (3 * dims + 2) / PEAK_FLOPS["float32"] * 1e3
+    t_sfu = cells / SFU_OPS_PER_S * 1e3
+    t_ops = max(t_fp32, t_sfu)
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "bytes_ms": t_bytes, "fp32_ms": t_fp32, "sqrt_sfu_ms": t_sfu,
+            "set_by": "square roots on the special-function units" if t_sfu >= t_fp32
+            else "float32 pipes"}
+
+
+def check_dtw(device, seq=SEQ, pair_counts=DTW_CHECK_PAIRS) -> list:
+    """Phase 3, kernel 4: both entries against the plain version on the same
+    inputs, the matrix entry against aligned pairs, short and odd shapes, and
+    a small case against a float64 recurrence on the host."""
+    rng = np.random.default_rng(11)
+    results = []
+
+    def record(case: str, got, want, **extra):
+        rel, err = _dtw_rel(got, want)
+        row = {"case": case, **extra, "max_rel_err": rel, "max_abs_err": err,
+               "tolerance_rel": DTW_TOL_REL}
+        results.append(row)
+        print(json.dumps({"check": "dtw vs plain", **row}), flush=True)
+        if not (rel <= DTW_TOL_REL and torch.isfinite(got).all()):
+            raise AssertionError(f"dtw disagrees with its plain version: {row}")
+
+    for dims in (2, 3):
+        for pairs in pair_counts:
+            x = gesture_like(rng, pairs, seq, dims).to(device)
+            y = gesture_like(rng, pairs, seq, dims).to(device)
+            got = dtw_pairs(x, y)
+            if got.shape != (pairs,) or got.dtype != torch.float32:
+                raise AssertionError(f"dtw_pairs output {tuple(got.shape)} {got.dtype}")
+            record("aligned pairs", got, dtw_pairs_plain(x, y), pairs=pairs, dims=dims, seq=seq)
+        for n, m, length in ((64, 64, seq), (37, 13, seq), (33, 5, max(seq // 2 - 14, 1)),
+                             (3, 2, 1)):
+            real = gesture_like(rng, n, length, dims).to(device)
+            fake = gesture_like(rng, m, length, dims).to(device)
+            got = dtw_matrix(real, fake)
+            idx = torch.arange(n * m, device=device)
+            rx, fy = real[idx // m], fake[idx % m]
+            record("matrix entry", got.reshape(-1), dtw_pairs_plain(rx, fy), n=n, m=m,
+                   dims=dims, seq=length)
+            record("matrix entry vs aligned pairs", got.reshape(-1), dtw_pairs(rx, fy), n=n,
+                   m=m, dims=dims, seq=length)
+        x, y = gesture_like(rng, 4, seq, dims), gesture_like(rng, 4, seq, dims)
+        want = torch.from_numpy(dtw_host_float64(x.numpy(), y.numpy()))
+        record("aligned pairs vs float64 host recurrence", dtw_pairs(x.to(device), y.to(device)).cpu(),
+               want, pairs=4, dims=dims, seq=seq)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return results
+
+
+def dtw_plain_all_pairs(real: torch.Tensor, fake: torch.Tensor, chunk: int = 1 << 19) -> torch.Tensor:
+    """The plain version over all n·m pairs, gathered in chunks of ``chunk``
+    pairs (a whole (n·m, L, D) gather would not fit beside its row buffers)."""
+    n, m = real.shape[0], fake.shape[0]
+    idx = torch.arange(n * m, device=real.device)
+    return torch.cat([dtw_pairs_plain(real[i // m], fake[i % m])
+                      for i in idx.split(chunk)]).reshape(n, m)
+
+
+def time_dtw(device, n=2000, seq=SEQ, dims=2) -> dict:
+    """Phase 8, kernel 4: the matrix entry at the evaluation's shape (one
+    launch for all n·n pairs) and the plain version over the same pairs (in
+    chunks, timed once after a warm-up on one small chunk), whose result the
+    kernel's whole matrix is also held against."""
+    rng = np.random.default_rng(12)
+    real = gesture_like(rng, n, seq, dims).to(device)
+    fake = gesture_like(rng, n, seq, dims).to(device)
+    ms = time_ms(lambda: dtw_matrix(real, fake), iters=5, warmup=1)
+    dtw_plain_all_pairs(real[:64], fake[:64])                               # warm
+    plain = []
+    plain_ms = time_ms(lambda: plain.append(dtw_plain_all_pairs(real, fake)), iters=1, warmup=0)
+    rel, err = _dtw_rel(dtw_matrix(real, fake), plain[0])
+    if not rel <= DTW_TOL_REL:
+        raise AssertionError(f"dtw matrix of {n}x{n} disagrees with its plain version: {rel}")
+    row = {"pairs": n * n, "n": n, "m": n, "seq": seq, "dims": dims, "launches_per_matrix": 1,
+           "ms": ms, "pairs_per_s": n * n / ms * 1e3, "plain_ms": plain_ms,
+           "max_rel_err_all_pairs": rel, "max_abs_err_all_pairs": err,
+           **dtw_bound_ms(n * n, n, n, seq, dims), "library_ms": None}
+    print(json.dumps({"timing": "dtw", **row}), flush=True)
     return row
 
 
@@ -615,6 +773,154 @@ def step_vs_cpu_recipe(device, recipe: str, batch=STEP_BATCH, model: dict = None
     print(json.dumps(line), flush=True)
     return line
 
+# -- evaluation through the entry points --------------------------------------------------
+
+# The corpus: the port's synthetic swipelog writer over dataset/wordfreq.txt;
+# 480 users give a test split of 2170 gestures (8744 to train on), enough
+# for the 2000 the evaluation samples (440 users give 2010, 320 give 1586).
+EVAL_USERS, EVAL_N = 480, 2000
+EVAL_TRAIN_EPOCHS = 2          # a smoke generator: the flagship recipe, 2 epochs
+EVAL_FID_EPOCHS = 5            # the FID autoencoders' epochs, cut from 100
+EVAL_SCALARS = ("l2_wasserstein", "dtw_wasserstein", "jerk_real", "jerk_fake", "velocity_corr",
+                "acceleration_corr", "speed_profile_corr", "time_delta_corr",
+                "ae_reconstruction_loss", "ae_test_loss", "fid", "fid_paper", "fid_positional",
+                "precision", "recall")
+# The small evaluation on the card against the CPU: distances, jerk,
+# correlations and the autoencoder losses within 2e-3 of max(1, |value|) (two
+# float32 trainings of the autoencoders whose sums run in another order);
+# the FIDs, small differences of traces, within 5% + 1e-5; precision and
+# recall within one sample of the set (a distance on a ball's edge may flip).
+SMALL_EVAL_N, SMALL_EVAL_TRAIN, SMALL_EVAL_FID_EPOCHS = 64, 512, 2
+
+
+def _check_results(name: str, results: dict) -> None:
+    bad = [k for k in EVAL_SCALARS if not np.isfinite(results[k])]
+    if bad:
+        raise AssertionError(f"{name}: non-finite metrics {bad}")
+    if not (0.0 <= results["precision"] <= 1.0 and 0.0 <= results["recall"] <= 1.0):
+        raise AssertionError(f"{name}: precision/recall outside [0, 1]")
+    if min(results["fid"], results["fid_paper"], results["fid_positional"]) < 0.0:
+        raise AssertionError(f"{name}: negative FID")
+    if not results["dtw_wasserstein"] > 0.0:
+        raise AssertionError(f"{name}: dtw_wasserstein {results['dtw_wasserstein']}")
+
+
+def evaluate(device, workdir: Path, users=EVAL_USERS, n=EVAL_N, train_epochs=EVAL_TRAIN_EPOCHS,
+             fid_epochs=EVAL_FID_EPOCHS, batch_size=512, model_args=()) -> dict:
+    """Phase 7: train a smoke generator through ``train_cli.main`` on the
+    synthetic corpus, then score it and the minimum-jerk baseline through
+    ``eval_cli.main`` with DTW on, kernel launches counted from 0.
+    ``model_args`` are extra CLI flags for a rehearsal at a tiny size."""
+    ckpt = workdir / "checkpoints"
+    data = ["--synthetic", "--synthetic-users", str(users), "--data",
+            str(workdir / "swipelogs.zip"), "--checkpoint-dir", str(ckpt), "--device", device.type]
+    t0 = time.perf_counter()
+    trained = train_cli.main(["--epochs", str(train_epochs), "--batch-size", str(batch_size),
+                              "--lambda-speed", "2.0", "--lambda-div", "0.3", "--lambda-dtc", "4.0",
+                              *model_args, *data])
+    train_seconds = time.perf_counter() - t0
+    if latest_epoch(str(ckpt)) != train_epochs or len(trained.history) != train_epochs:
+        raise AssertionError("train_cli did not train and checkpoint the requested epochs")
+
+    counters = {"dtw": dtw_matrix, "dtw_aligned_pairs": dtw_pairs, "bilstm_fused": fused_bilstm_fwd}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = eval_cli.main(["--model", "both", "--n-samples", str(n), "--fid-epochs",
+                         str(fid_epochs), *data])
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+
+    if out["n"] != n:
+        raise AssertionError(f"the test split gave {out['n']} samples, not {n}")
+    for name in ("gan", "minjerk"):
+        _check_results(name, out[name])
+    stages = out["stage_seconds"]
+    # The minimum-jerk pass must reuse the real side of the GAN pass: no
+    # second autoencoder training, the same autoencoder behind both FIDs.
+    if ("fid_autoencoder_training" not in stages["gan"]
+            or "fid_autoencoder_training" in stages["minjerk"]
+            or out["gan"]["ae_reconstruction_loss"] != out["minjerk"]["ae_reconstruction_loss"]
+            or out["gan"]["jerk_real"] != out["minjerk"]["jerk_real"]):
+        raise AssertionError("the minimum-jerk pass did not reuse cached_real")
+    expected = {"dtw": 2, "dtw_aligned_pairs": 0, "bilstm_fused": chunk_layout(n, 512)[1]}
+    if device.type == "cuda" and launches != expected:
+        raise AssertionError(f"launches on the evaluation path {launches}, expected {expected}")
+    line = {"evaluation": "eval_cli.main", "model": "both", "n": n, "pairs_per_matrix": n * n,
+            "synthetic_users": users, "generator": f"train_cli.main, {train_epochs} epochs",
+            "train_cli_seconds": train_seconds, "fid_epochs": fid_epochs,
+            "fid_epochs_default": EvaluationConfig().fid_autoencoder_epochs,
+            "seconds": wall, "stage_seconds": stages, "launches": launches,
+            "gan": {k: out["gan"][k] for k in EVAL_SCALARS},
+            "minjerk": {k: out["minjerk"][k] for k in EVAL_SCALARS}}
+    print(json.dumps(line), flush=True)
+
+    # The same split and fakes again (the cached corpus, the same checkpoint
+    # and seed), to look inside: the DTW matrix against the diagonal path, and
+    # against the scalar the CLI printed.
+    args = eval_cli.build_parser().parse_args(["--n-samples", str(n), *data])
+    meta = json.loads((ckpt / "run_meta.json").read_text())
+    mcfg = ModelConfig(time_head=meta["time_head"], gen_hidden_dim=meta["gen_hidden_dim"])
+    train_ds, test_ds, _ = load_split(args, mcfg, TrainingConfig(), verbose=False)
+    real = test_ds.gestures[:n]
+    model = load_generator(str(find_checkpoint(str(ckpt))), mcfg, device=device)
+    fake = generate_gestures(model, test_ds.prototypes[:n], mcfg, seed=args.seed, device=device)
+    real_t = torch.from_numpy(real[:, :, :2]).to(device)
+    fake_t = torch.from_numpy(fake[:, :, :2]).to(device)
+    matrix = dtw_matrix(real_t, fake_t)
+    rng = np.random.default_rng(13)
+    i = torch.from_numpy(rng.integers(0, n, 4096)).to(device)
+    j = torch.from_numpy(rng.integers(0, n, 4096)).to(device)
+    diagonal = (real_t[i] - fake_t[j]).norm(dim=-1).sum(dim=-1)
+    slack = (matrix[i, j] - diagonal * (1.0 + 1e-5)).max().item()
+    again = matched_mean_distance(matrix.cpu().numpy()) / np.sqrt(real.shape[1])
+    gap = abs(again - out["gan"]["dtw_wasserstein"]) / out["gan"]["dtw_wasserstein"]
+    print(json.dumps({"check": "dtw matrix of the evaluation", "sampled_pairs": 4096,
+                      "max_dtw_minus_diagonal_path_cost": slack,
+                      "dtw_wasserstein_recomputed": again, "rel_gap_to_cli": gap,
+                      "tolerance_rel": 1e-6}), flush=True)
+    if slack > 0.0 or not torch.isfinite(matrix).all():
+        raise AssertionError("an exact DTW distance exceeds its diagonal path's cost")
+    if gap > 1e-6:
+        raise AssertionError(f"dtw_wasserstein recomputed {again} vs CLI {out['gan']}")
+
+    line["small_eval"] = small_eval_vs_cpu(device, real, fake, train_ds.gestures, mcfg)
+    if device.type == "cuda":   # where the suite's time goes, autoencoder training included
+        ecfg = EvaluationConfig(fid_autoencoder_epochs=fid_epochs)
+        line["profile"] = device_profile(
+            lambda: evaluate_all_metrics(real, fake, train_ds.gestures, mcfg, ecfg,
+                                         verbose=False, device=device),
+            "evaluate_all_metrics", n=n, fid_epochs=fid_epochs)
+    line["launches"] = launches
+    return line
+
+
+def small_eval_vs_cpu(device, real, fake, train, mcfg, n=SMALL_EVAL_N, n_train=SMALL_EVAL_TRAIN,
+                      fid_epochs=SMALL_EVAL_FID_EPOCHS) -> dict:
+    """A small evaluation on the card against the same call on the CPU."""
+    ecfg = EvaluationConfig(fid_autoencoder_epochs=fid_epochs)
+    runs = [evaluate_all_metrics(real[:n], fake[:n], train[:n_train], mcfg, ecfg, verbose=False,
+                                 device=dev) for dev in (device, "cpu")]
+    worst = {}
+    for k in EVAL_SCALARS:
+        got, want = float(runs[0][k]), float(runs[1][k])
+        if k.startswith("fid"):
+            err, tol = abs(got - want), 0.05 * abs(want) + 1e-5
+        elif k in ("precision", "recall"):
+            err, tol = abs(got - want), 1.0 / n + 1e-6
+        else:
+            err, tol = abs(got - want) / max(1.0, abs(want)), 2e-3
+        worst[k] = err
+        if not err <= tol:
+            raise AssertionError(f"small evaluation, {k}: {got} on the card vs {want} on the "
+                                 f"CPU (error {err} > {tol})")
+    line = {"check": "evaluate_all_metrics on the card vs CPU", "n": n, "n_train": n_train,
+            "fid_epochs": fid_epochs, "errors": worst,
+            "tolerances": {"fid*": "5% + 1e-5", "precision, recall": "1/n",
+                           "others": "2e-3 of max(1, |value|)"}}
+    print(json.dumps(line), flush=True)
+    return line
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -633,7 +939,7 @@ def main() -> int:
                       "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}), flush=True)
 
     t0 = time.perf_counter()
-    logs = kernel_build.build(["bilstm_fused", "bilstm_train"])
+    logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw"])
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -642,6 +948,7 @@ def main() -> int:
 
     checks = check_kernel(device)
     train_checks = check_train_kernels(device)
+    dtw_checks = check_dtw(device)
     with tempfile.TemporaryDirectory() as tmp:
         served = serve(device, Path(tmp))
     steady = served["runs"][-1]
@@ -654,8 +961,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trained = train(device, Path(tmp))
     step_vs_cpu(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluated = evaluate(device, Path(tmp))
     timings = {name: time_kernel(device, name) for name in ("bfloat16", "float32")}
     pair = {name: time_train_pair(device, name) for name in ("bfloat16", "float32")}
+    dtw_t = time_dtw(device)
+    time_dtw(device, dims=3)    # (x, y, t) gestures: not on the evaluation's path, timed beside it
 
     main_t, main_p = timings["bfloat16"], pair["bfloat16"]
     launches = trained["launches"]
@@ -663,7 +974,8 @@ def main() -> int:
         "name": "bilstm_fused", "route": "cuda",
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_fused.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_fused.py:54",
-        "launches": served["launches"] + launches["bilstm_fused"],
+        "launches": served["launches"] + launches["bilstm_fused"]
+        + evaluated["launches"]["bilstm_fused"],
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"], "library_ms": main_t["library_ms"],
@@ -685,6 +997,18 @@ def main() -> int:
         "ms": main_p["bwd_ms"], "plain_ms": main_p["plain_bwd_ms"],
         "bound_ms": main_p["bwd_bound_ms"], "bound_by": main_p["bwd_bound_by"],
         "library_ms": main_p["cudnn_fp32_bwd_ms"],
+    }, {
+        # No single PyTorch call computes DTW: the bound is the yardstick.
+        "name": "dtw", "route": "cuda",
+        "source": "wordgesture_gan_tpu_torch/csrc/dtw.cu",
+        "replaces": "wordgesture_gan_tpu/ops/dtw_pallas.py:53",
+        "launches": evaluated["launches"]["dtw"],
+        "max_abs_err": max(max(c["max_abs_err"] for c in dtw_checks),
+                           dtw_t["max_abs_err_all_pairs"]),
+        "max_rel_err": max(max(c["max_rel_err"] for c in dtw_checks),
+                           dtw_t["max_rel_err_all_pairs"]),
+        "ms": dtw_t["ms"], "plain_ms": dtw_t["plain_ms"], "bound_ms": dtw_t["bound_ms"],
+        "bound_by": dtw_t["bound_by"], "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -10,7 +10,9 @@ Tolerances: float32 with TF32 off 1e-4 (summation order and the device's
 transcendentals); bfloat16 2e-2 (h and the residuals rounded to bf16, so a
 one-ulp flip propagates). Kernel 1's outputs are compared in absolute terms;
 kernels 2 and 3 relative to the largest magnitude of each compared tensor,
-because their gradients span orders of magnitude between leaves.
+because their gradients span orders of magnitude between leaves. Kernel 4
+(DTW, float32 only) is held to 1e-4 of each distance: it adds costs along the
+path where the plain version subtracts prefix sums.
 """
 
 import numpy as np
@@ -24,6 +26,8 @@ from wordgesture_gan_tpu_torch.ops.bilstm_fused import fused_bilstm_fwd, fused_b
 from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_apply, bilstm_train_bwd,
                                                         bilstm_train_bwd_plain, bilstm_train_fwd,
                                                         bilstm_train_fwd_plain)
+from wordgesture_gan_tpu_torch.ops.dtw import (dtw_distance_matrix, dtw_matrix, dtw_pairs,
+                                               dtw_pairs_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -192,3 +196,62 @@ def test_train_step_on_cuda_matches_cpu(cuda_device, recipe):
 
     line = chip_smoke.step_vs_cpu_recipe(cuda_device, recipe, batch=16)
     assert line["max_grad_err_rel"] <= chip_smoke.STEP_RECIPES[recipe][1]
+
+
+# -- kernel 4: exact batched DTW ----------------------------------------------------------
+
+DTW_RTOL = 1e-4
+
+
+def _walks(seed, count, seq, dims, device):
+    rng = np.random.default_rng(seed)
+    walk = np.clip(np.cumsum(rng.normal(0.0, 0.05, (count, seq, dims)), axis=1), -1.0, 1.0)
+    return torch.from_numpy(walk.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("pairs,seq", [(1, 128), (31, 128), (131, 128), (4099, 128), (67, 50),
+                                       (5, 1)])
+def test_dtw_pairs_kernel_matches_plain(cuda_device, pairs, seq, dims):
+    x, y = _walks(0, pairs, seq, dims, cuda_device), _walks(1, pairs, seq, dims, cuda_device)
+    before = dtw_pairs.launches
+    got = dtw_pairs(x, y)
+    torch.cuda.synchronize()
+    assert dtw_pairs.launches == before + 1
+    assert got.shape == (pairs,) and got.dtype == torch.float32 and got.is_cuda
+    torch.testing.assert_close(got, dtw_pairs_plain(x, y), rtol=DTW_RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("n,m", [(64, 64), (37, 13), (1, 1), (33, 5)])
+def test_dtw_matrix_kernel_matches_aligned_pairs_and_plain(cuda_device, n, m, dims):
+    real, fake = _walks(2, n, 128, dims, cuda_device), _walks(3, m, 128, dims, cuda_device)
+    before = dtw_matrix.launches
+    got = dtw_matrix(real, fake)
+    torch.cuda.synchronize()
+    assert dtw_matrix.launches == before + 1 and got.shape == (n, m)
+    idx = torch.arange(n * m, device=cuda_device)
+    rx, fy = real[idx // m], fake[idx % m]
+    torch.testing.assert_close(got.reshape(-1), dtw_pairs(rx, fy), rtol=0, atol=0)
+    torch.testing.assert_close(got.reshape(-1), dtw_pairs_plain(rx, fy), rtol=DTW_RTOL, atol=1e-6)
+    host = dtw_distance_matrix(real.cpu().numpy(), fake.cpu().numpy(), device=cuda_device)
+    np.testing.assert_array_equal(host, got.cpu().numpy())
+
+
+def test_dtw_kernel_takes_strided_and_wider_inputs(cuda_device):
+    gestures = _walks(4, 9, 128, 3, cuda_device)
+    xy = gestures[:, :, :2]                              # a non-contiguous (x, y) view
+    torch.testing.assert_close(dtw_matrix(xy, xy), dtw_matrix(xy.contiguous(), xy.contiguous()),
+                               rtol=0, atol=0)
+    assert dtw_matrix(xy, xy).diagonal().abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("shape", [(4, 129, 2), (4, 16, 4), (4, 16, 1)])
+def test_dtw_cuda_tensor_with_an_unsupported_shape_raises(cuda_device, shape):
+    x = torch.zeros(shape, device=cuda_device)
+    before = dtw_pairs.launches, dtw_matrix.launches
+    with pytest.raises(ValueError):
+        dtw_pairs(x, x)
+    with pytest.raises(ValueError):
+        dtw_matrix(x, x)
+    assert (dtw_pairs.launches, dtw_matrix.launches) == before

@@ -1,6 +1,6 @@
 """Configuration dataclasses: the port's copy of ``ModelConfig``,
-``TrainingConfig`` and ``KeyboardConfig`` from the JAX package's
-``configs.py``.
+``TrainingConfig``, ``EvaluationConfig``, ``KeyboardConfig`` and
+``PathsConfig`` from the JAX package's ``configs.py``.
 
 Field names and defaults are identical, so a ``run_meta.json`` written by
 either package configures the other.
@@ -8,6 +8,7 @@ either package configures the other.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -125,6 +126,32 @@ class TrainingConfig:
 
 
 @dataclass(frozen=True)
+class EvaluationConfig:
+    """Evaluation configuration."""
+
+    n_samples: int = 2000
+    truncation: float = 1.0
+
+    # FID feature autoencoder
+    fid_autoencoder_epochs: int = 100
+    fid_autoencoder_lr: float = 1e-3
+    fid_hidden_dim: int = 32
+    # "positional" adds a time ramp to the FID autoencoder's decoder, so the
+    # encoder must embed gesture shape; the paper's decoder ("paper")
+    # broadcasts the latent with no positional signal, can only emit a
+    # constant trace, and yields features near-blind to shape and timing.
+    # Same encoder topology and feature dimensionality in both modes.
+    fid_feature_mode: str = "positional"   # "positional" | "paper"
+
+    # k-NN manifold precision/recall
+    precision_recall_k: int = 3
+
+    # Savitzky-Golay jerk filter
+    savgol_window: int = 21
+    savgol_poly_order: int = 3
+
+
+@dataclass(frozen=True)
 class KeyboardConfig:
     """Virtual QWERTY layout."""
 
@@ -136,6 +163,24 @@ class KeyboardConfig:
     key_height: float = 0.333
 
 
+@dataclass(frozen=True)
+class PathsConfig:
+    """Local run paths."""
+
+    checkpoint_dir: str = "checkpoints"
+    data_path: str = "dataset/swipelogs.zip"
+    cache_dir: str = ""            # "" → alongside the zip
+    wandb_project: str = "wordgesture-gan-tpu"
+    random_seed: int = 42
+
+
 DEFAULT_MODEL_CONFIG = ModelConfig()
 DEFAULT_TRAINING_CONFIG = TrainingConfig()
+DEFAULT_EVALUATION_CONFIG = EvaluationConfig()
 DEFAULT_KEYBOARD_CONFIG = KeyboardConfig()
+DEFAULT_PATHS_CONFIG = PathsConfig()
+
+
+def asdict(cfg) -> dict:
+    """Dataclass → plain dict (for logging and checkpoint metadata)."""
+    return dataclasses.asdict(cfg)

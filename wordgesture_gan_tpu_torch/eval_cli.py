@@ -1,0 +1,215 @@
+"""Evaluate WordGesture-GAN and/or the fitted minimum-jerk baseline on the GPU.
+
+The PyTorch twin of ``eval_gan.py``: the same flags and defaults, plus
+``--device`` (default ``cuda``) and ``--fid-epochs``. It reads the run
+metadata sidecar and the newest checkpoint (``latest.pt``) that
+``train_cli`` writes into ``--checkpoint-dir``. ``--variable-length`` and
+``--large-scale`` are not ported yet and are refused.
+
+Usage:
+    python -m wordgesture_gan_tpu_torch.eval_cli --model both --n-samples 2000 [--synthetic]
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+from .cli_common import add_data_args, load_split, maybe_wandb
+from .configs import EvaluationConfig, ModelConfig, PathsConfig, TrainingConfig
+from .eval.gan_eval import (PAPER_GAN, PAPER_MINJERK, attach_eval_to_wandb,
+                            evaluate_gan_and_minjerk, print_comparison_table,
+                            print_results_table)
+from .train.checkpoint import find_checkpoint, load_generator, load_run_metadata
+from .train.gan_loop import generate_gestures
+from .utils.logging import log, seed_everything
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Evaluate WordGesture-GAN (PyTorch/CUDA)")
+    parser.add_argument("--model", choices=["gan", "min-jerk", "both"], default="both")
+    parser.add_argument("--n-samples", type=int, default=2000)
+    parser.add_argument("--truncation", type=float, default=1.0)
+    parser.add_argument("--savgol-window", type=int, default=21)
+    parser.add_argument("--precision-k", type=int, default=3)
+    parser.add_argument("--wandb", action="store_true")
+    parser.add_argument("--fast", action="store_true", help="skip DTW Wasserstein")
+    parser.add_argument("--fid-features", choices=["positional", "paper"],
+                        default="positional",
+                        help="FID feature AE decoder: 'positional' (shape-aware "
+                             "features; default) or 'paper' (reference parity — "
+                             "constant-trace decoder, features near-blind to "
+                             "shape/timing)")
+    parser.add_argument("--fid-epochs", type=int,
+                        default=EvaluationConfig().fid_autoencoder_epochs,
+                        help="training epochs of the FID feature autoencoders")
+    parser.add_argument("--large-scale", type=int, default=0, metavar="N",
+                        help="distribution metrics at scale (not ported yet)")
+    parser.add_argument("--checkpoint-dir", type=str, default="checkpoints")
+    parser.add_argument("--generator", choices=["bilstm", "mlp", "transformer"],
+                        default=None, help="generator family (default: what the "
+                        "checkpoint's run metadata records, else bilstm)")
+    parser.add_argument("--time-head", choices=["tanh", "monotone"], default=None,
+                        help="generator time-channel head (default: what the "
+                             "checkpoint's run metadata records, else tanh)")
+    parser.add_argument("--gen-hidden", type=int, default=None,
+                        help="BiLSTM hidden dim (default: run metadata, else 48)")
+    parser.add_argument("--precision", choices=["float32", "bfloat16"],
+                        default="float32",
+                        help="generation compute precision (metrics always fp32)")
+    parser.add_argument("--variable-length", action="store_true",
+                        help="evaluate a variable-length checkpoint (not ported yet)")
+    parser.add_argument("--arc-step", type=float, default=0.02,
+                        help="arc-length per point for --variable-length")
+    parser.add_argument("--save-figures", type=str, default=None,
+                        help="directory for comparison/overlay figures")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the kernels' plain versions")
+    add_data_args(parser)
+    return parser
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the CLI; returns {"n", "gan", "minjerk", "stage_seconds"}: the two
+    result dicts (None for a model that was not evaluated) and the host
+    seconds of loading, of generation, and of each stage of the metric suite
+    per evaluated model."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.variable_length:
+        parser.error("--variable-length is not ported to PyTorch yet: the masked transformer "
+                     "path comes with the variable-length slice of the port")
+    if args.large_scale:
+        parser.error("--large-scale is not ported to PyTorch yet: the sliced-W2 / energy / "
+                     "chunked-kNN metrics come with the scale-metrics slice of the port")
+
+    if args.save_figures and importlib.util.find_spec("matplotlib") is None:
+        parser.error("--save-figures needs matplotlib, which is not installed")
+
+    meta = load_run_metadata(args.checkpoint_dir)
+    generator_type = args.generator or meta.get("generator_type", "bilstm")
+    if generator_type != "bilstm":
+        parser.error(f"--generator {generator_type} is not ported to PyTorch yet; "
+                     f"only the bilstm generator is evaluated")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error("--device cuda but no CUDA device is available; pass --device cpu")
+
+    log(f"Device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
+    log(f"Model: {args.model}, Samples: {args.n_samples}, Truncation: {args.truncation}")
+    log(f"Savgol window: {args.savgol_window}, Precision k: {args.precision_k}, Fast: {args.fast}")
+    log("")
+    seed_everything(args.seed)
+
+    # Architecture knobs default to what the training run recorded in its
+    # run-metadata sidecar, so `--checkpoint-dir D` alone restores the head
+    # and the width.
+    model_config = ModelConfig(
+        generator_type=generator_type,
+        time_head=args.time_head or meta.get("time_head", "tanh"),
+        gen_hidden_dim=args.gen_hidden or meta.get("gen_hidden_dim", 48),
+        compute_dtype=args.precision)
+    training_config = TrainingConfig()
+    eval_config = EvaluationConfig(
+        n_samples=args.n_samples,
+        truncation=args.truncation,
+        savgol_window=args.savgol_window,
+        precision_recall_k=args.precision_k,
+        fid_feature_mode=args.fid_features,
+        fid_autoencoder_epochs=args.fid_epochs,
+    )
+    stage_seconds = {}
+
+    log("[1/5] Loading data...")
+    t0 = time.perf_counter()
+    train_ds, test_ds, keyboard = load_split(args, model_config, training_config)
+    stage_seconds["load"] = time.perf_counter() - t0
+    log(f"  Train: {len(train_ds)}, Test: {len(test_ds)}")
+
+    n = min(args.n_samples, len(test_ds))
+    real_g = test_ds.gestures[:n]
+    words = test_ds.words[:n]
+
+    gan_fake = None
+    if args.model in ("gan", "both"):
+        log("[2/5] Loading GAN checkpoint...")
+        path = find_checkpoint(args.checkpoint_dir)
+        if path is None:
+            log(f"  ERROR: No checkpoint found in {args.checkpoint_dir}")
+            if args.model == "gan":
+                raise SystemExit(1)
+            log("  Skipping GAN evaluation.")
+        else:
+            model = load_generator(str(path), model_config, device=device)
+            epoch = torch.load(path, map_location="cpu", weights_only=True).get("epoch")
+            log(f"  Loaded checkpoint from epoch {epoch}")
+            log("[3/5] Generating samples (batched)...")
+            t0 = time.perf_counter()
+            gan_fake = generate_gestures(model, test_ds.prototypes[:n], model_config,
+                                         truncation=args.truncation, seed=args.seed,
+                                         device=device)
+            stage_seconds["generate"] = time.perf_counter() - t0
+            log(f"    Generated {n} samples")
+
+    log("[4/5] Computing metrics...")
+    gan_results, minjerk_results = evaluate_gan_and_minjerk(
+        real_g, words, train_ds, keyboard,
+        gan_fake=gan_fake,
+        run_minjerk=args.model in ("min-jerk", "both"),
+        model_config=model_config,
+        eval_config=eval_config,
+        skip_dtw=args.fast,
+        cache_dir=args.checkpoint_dir,
+        device=device,
+        stage_seconds=stage_seconds,
+    )
+    log("[5/5] Done computing metrics.")
+    log("")
+
+    if args.model == "both" and gan_results and minjerk_results:
+        print_comparison_table(gan_results, minjerk_results, args.precision_k)
+    elif gan_results:
+        print_results_table(gan_results, "GAN", PAPER_GAN, args.precision_k)
+    elif minjerk_results:
+        print_results_table(minjerk_results, "Minimum Jerk", PAPER_MINJERK, args.precision_k)
+
+    if args.save_figures and gan_fake is not None:
+        import matplotlib.pyplot as plt
+
+        from .viz import create_comparison_figure, create_overlay_figure
+
+        out = Path(args.save_figures)
+        out.mkdir(parents=True, exist_ok=True)
+        fig = create_comparison_figure(real_g[:6], gan_fake[:6], words[:6])
+        fig.savefig(out / "comparison.png", dpi=100)
+        plt.close(fig)
+        fig = create_overlay_figure(real_g[:5], gan_fake[:5], words[0] if words else "sample")
+        fig.savefig(out / "overlay.png", dpi=100)
+        plt.close(fig)
+        log(f"Figures saved to {out}")
+
+    if args.wandb:
+        # Attach the results to the training run through the run-id sidecar;
+        # a standalone run when there is none.
+        train_run_id = meta.get("wandb_run_id")
+        wb = maybe_wandb(True, project=PathsConfig().wandb_project,
+                         name=None if train_run_id else "eval_standalone",
+                         id=train_run_id, resume="allow" if train_run_id else None)
+        if wb is not None:
+            attach_eval_to_wandb(wb, gan_results, minjerk_results,
+                                 real_g=real_g, gan_fake=gan_fake, words=words)
+            wb.finish()
+
+    log("")
+    log("Done.")
+    return {"n": n, "gan": gan_results, "minjerk": minjerk_results,
+            "stage_seconds": stage_seconds}
+
+
+if __name__ == "__main__":
+    main()

@@ -92,6 +92,14 @@ def generator_from_npz(path: str) -> Dict[str, torch.Tensor]:
     return generator_from_jax(read_generator_npz(path))
 
 
+def autoencoder_from_jax(tree, device="cpu") -> Dict:
+    """The FID autoencoder's JAX parameter tree (numpy leaves) → the port's
+    tree of float32 tensors on ``device`` (same structure, same layout)."""
+    from ..utils.tree import tree_map
+
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32), device=device), tree)
+
+
 def adam_moments(opt) -> Dict:
     """{"mu", "nu", "count"} of an optax chain state (a tuple holding one
     ``ScaleByAdamState``, numpy leaves)."""

@@ -1,6 +1,6 @@
 """The WordGesture-GAN models: BiLSTM generator and output head, variational
 encoder, MLP and temporal (Conv1D) spectral-norm critics — the port of the
-JAX package's ``models/gan.py`` (the FID autoencoder is not ported yet).
+JAX package's ``models/gan.py``, with the FID feature autoencoder.
 
 Every model but the serving ``Generator`` module is an init/apply pair over
 an explicit tree of float32 tensors in the JAX layout, so a JAX parameter
@@ -276,3 +276,64 @@ def disc_apply(params: Dict, state: Dict, x: torch.Tensor, update_stats: bool,
     if config.use_temporal_disc:
         return temporal_disc_apply(params, state, x, update_stats, dtype=dtype)
     return mlp_disc_apply(params, state, x, update_stats, dtype=dtype)
+
+
+# -- FID feature autoencoder ----------------------------------------------------------------
+
+_AE_DIMS = (192, 96, 48)
+
+
+def autoencoder_init(config: ModelConfig = DEFAULT_MODEL_CONFIG, hidden_dim: int = 32,
+                     positional: bool = False,
+                     generator: Optional[torch.Generator] = None) -> Dict:
+    """FID feature autoencoder: ``{"enc": [dense, ...], "post_pool": dense,
+    "pre_expand": dense, "dec": [dense, ...]}``.
+
+    ``positional=False`` is the paper's architecture: its decoder broadcasts
+    the latent identically to every timestep, so it can only emit a constant
+    trace and its features only encode a gesture's central point.
+    ``positional=True`` concatenates a [-1, 1] time ramp to the decoder's
+    per-timestep input, so the encoder must embed the gesture's shape; same
+    encoder and feature dimensionality. The mode is recoverable from the
+    parameters (the first decoder layer's fan-in)."""
+    enc_dims = (config.input_dim,) + _AE_DIMS + (hidden_dim,)
+    dec_in = hidden_dim + (1 if positional else 0)
+    dec_dims = (dec_in,) + _AE_DIMS[::-1] + (config.input_dim,)
+    return {
+        "enc": [dense_init(enc_dims[i], enc_dims[i + 1], generator)
+                for i in range(len(enc_dims) - 1)],
+        "post_pool": dense_init(hidden_dim, hidden_dim, generator),
+        "pre_expand": dense_init(hidden_dim, hidden_dim, generator),
+        "dec": [dense_init(dec_dims[i], dec_dims[i + 1], generator)
+                for i in range(len(dec_dims) - 1)],
+    }
+
+
+def autoencoder_encode(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """(B, L, 3) → (B, hidden): per-timestep MLP, mean-pool over the
+    sequence, then a linear head."""
+    h = x
+    for i, layer in enumerate(params["enc"]):
+        h = _dense(layer, h)
+        if i < len(params["enc"]) - 1:
+            h = leaky_relu(h)
+    return _dense(params["post_pool"], h.mean(dim=1))
+
+
+def autoencoder_decode(params: Dict, z: torch.Tensor, seq_length: int) -> torch.Tensor:
+    """(B, hidden) → (B, L, 3): the latent broadcast along the sequence
+    (joined by the time ramp in positional mode), a per-timestep MLP, tanh."""
+    h = _dense(params["pre_expand"], z)
+    h = h[:, None, :].expand(h.shape[0], seq_length, h.shape[1])
+    if params["dec"][0]["w"].shape[0] == h.shape[-1] + 1:
+        ramp = torch.linspace(-1.0, 1.0, seq_length, dtype=h.dtype, device=h.device)
+        h = torch.cat([h, ramp[None, :, None].expand(h.shape[0], seq_length, 1)], dim=-1)
+    for i, layer in enumerate(params["dec"]):
+        h = _dense(layer, h)
+        if i < len(params["dec"]) - 1:
+            h = leaky_relu(h)
+    return torch.tanh(h)
+
+
+def autoencoder_apply(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    return autoencoder_decode(params, autoencoder_encode(params, x), x.shape[1])

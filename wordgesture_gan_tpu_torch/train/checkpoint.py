@@ -72,13 +72,9 @@ def restore_checkpoint(state: Dict, checkpoint_dir: str, name: str = "latest.pt"
     """Copy a checkpoint into ``state`` (a fresh state of the same
     configuration) and return it, or None when there is none. A missing or
     dangling ``latest.pt`` falls back to the newest ``epoch_N.pt``."""
-    base = Path(checkpoint_dir).absolute()
-    path = base / name
-    if not path.exists():
-        n = latest_epoch(checkpoint_dir)
-        if n <= 0:
-            return None
-        path = base / f"epoch_{n}.pt"
+    path = find_checkpoint(checkpoint_dir, name)
+    if path is None:
+        return None
     saved = torch.load(path, map_location="cpu", weights_only=True)
     for m in MODELS:
         for part in state[m]:
@@ -98,6 +94,18 @@ def restore_checkpoint(state: Dict, checkpoint_dir: str, name: str = "latest.pt"
     state["rng"].set_state(saved["rng"])
     state["epoch"] = int(saved["epoch"])
     return state
+
+
+def find_checkpoint(checkpoint_dir: str, name: str = "latest.pt") -> Optional[Path]:
+    """The snapshot ``name`` of a checkpoint directory; a missing or dangling
+    ``latest.pt`` falls back to the newest ``epoch_N.pt``. None when the
+    directory holds no snapshot."""
+    base = Path(checkpoint_dir).absolute()
+    path = base / name
+    if path.exists():
+        return path
+    n = latest_epoch(checkpoint_dir)
+    return base / f"epoch_{n}.pt" if n > 0 else None
 
 
 def latest_epoch(checkpoint_dir: str) -> int:
@@ -138,9 +146,22 @@ def load_generator_weights(path: str) -> Dict[str, torch.Tensor]:
         return generator_from_npz(path)
     saved = torch.load(path, map_location="cpu", weights_only=True)
     if "g" in saved and "rng" in saved:
-        return {k.replace("/", "."): torch.as_tensor(v)
-                for k, v in flatten_tree(saved["g"]["params"]).items()}
+        return _generator_state_dict(saved["g"]["params"])
     return saved
+
+
+def _generator_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """A generator parameter tree (CPU tensors) as a ``Generator`` state dict."""
+    return {k.replace("/", "."): torch.as_tensor(v) for k, v in flatten_tree(params).items()}
+
+
+def generator_from_state(state: Dict, config: ModelConfig, device="cuda") -> Generator:
+    """A serving ``Generator`` of ``config`` on ``device`` holding a copy of a
+    train state's generator weights (sampling during training)."""
+    model = Generator(config)
+    model.load_state_dict(_generator_state_dict(
+        tree_map(lambda t: t.detach().cpu(), state["g"]["params"])))
+    return model.to(device).eval()
 
 
 def load_generator(path: str, config: ModelConfig, device="cuda") -> Generator:

@@ -39,10 +39,10 @@ def adam_init(params) -> Dict:
 
 @torch.no_grad()
 def apply_update(params, grads: List[torch.Tensor], opt: Dict, lr: float,
-                 grad_clip_norm: float) -> None:
+                 grad_clip_norm: float, b1: float = ADAM_B1, b2: float = ADAM_B2) -> None:
     """One optimizer step, in place: global-norm clipping, then Adam
-    (β = (0.5, 0.999), ε = 1e-8 outside the square root, bias-corrected),
-    then ``p -= lr · u``.
+    (β = (0.5, 0.999) for the GAN's models, ε = 1e-8 outside the square root,
+    bias-corrected), then ``p -= lr · u``.
 
     Clipping is optax's ``clip_by_global_norm``: the gradients are scaled by
     max / ‖g‖ only when ‖g‖ >= max (no ε in the denominator), decided on the
@@ -55,15 +55,15 @@ def apply_update(params, grads: List[torch.Tensor], opt: Dict, lr: float,
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
         scale = torch.where(norm < grad_clip_norm, torch.ones_like(norm), grad_clip_norm / norm)
         g = torch._foreach_mul(g, scale)
-    torch._foreach_mul_(mu, ADAM_B1)
-    torch._foreach_add_(mu, g, alpha=1.0 - ADAM_B1)
-    torch._foreach_mul_(nu, ADAM_B2)
-    torch._foreach_addcmul_(nu, g, g, value=1.0 - ADAM_B2)
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, g, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
     opt["count"] += 1
-    denom = torch._foreach_div(nu, 1.0 - ADAM_B2 ** opt["count"])
+    denom = torch._foreach_div(nu, 1.0 - b2 ** opt["count"])
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, ADAM_EPS)
-    update = torch._foreach_div(mu, 1.0 - ADAM_B1 ** opt["count"])
+    update = torch._foreach_div(mu, 1.0 - b1 ** opt["count"])
     torch._foreach_div_(update, denom)
     torch._foreach_add_(p, update, alpha=-lr)
 
