@@ -7,10 +7,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from ``wordgesture_gan_tpu_torch/csrc``
-   (one nvcc per source, started together) and print ptxas' register report;
+   (one nvcc per source, started together) and print ptxas' register report
+   and the tensor-core training kernels' shared memory and CTAs per SM;
 3. hold each kernel against its plain PyTorch version on the card at the
    flagship generator's full width (4 layers, H=48, L=128, Z=32) for
-   B in {1, 131, 512, 2048}, float32 with TF32 off and bfloat16:
+   B in {1, 131, 512, 2048} (kernels 2 and 3 also at 7, 8 and 9, around their
+   8-sample tile), float32 with TF32 off and bfloat16:
    kernel 4 (exact batched DTW, float32 only): aligned pairs at P in
    {1, 131, 8192}, D in {2, 3}, L=128 on gesture-like walks, the matrix entry
    at 64x64, 37x13, a short length and L=1 against the plain version and
@@ -21,7 +23,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    time): the output, every residual plane and every gradient (dW_ih,
    dW_hh, db, dz, dx), each as max |err| / max |want|, 1e-4 / 2e-2; kernel
    3 and its plain version read kernel 2's residuals; kernel 2's output
-   must equal kernel 1's;
+   agrees with kernel 1's within kernel 1's tolerance (the two sum in
+   different orders); the bfloat16 calls must have taken the tensor-core
+   kernels and the float32 calls the CUDA-core ones (launches counted per
+   path); two launches of kernel 3 on the same inputs give bit-equal
+   gradients; the small PyTorch launches each wrapper adds around its
+   kernels are counted under torch.profiler and printed;
 4. serve gestures through the entry point a user calls,
    ``wordgesture_gan_tpu_torch.generate.main``: seeded random full-width
    weights written as a JAX-layout npz, 8192 gestures over a word list at
@@ -35,7 +42,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    λ_dtc 4) on 4096 smoke gestures made in numpy from keyboard prototypes,
    2 epochs of 8 steps with a checkpoint each, then a resumed third epoch
    with every launch count set to 0 just before: 5 kernel-1, 3 kernel-2 and
-   3 kernel-3 launches per step; losses finite; one steady step profiled;
+   3 kernel-3 launches per step, kernels 2 and 3 all on the tensor-core
+   path; losses finite; one steady step profiled;
 6. one step on the card against the CPU's plain path from the same state,
    batch and injected noise (B=32, full width, float32, n_critic 5), for
    the reference recipe and the flagship one: losses, the gradients (Adam
@@ -53,7 +61,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    4096 sampled entries of the DTW matrix no larger than their diagonal
    path's cost; a small evaluation (n=64) on the card against the CPU; the
    suite profiled once;
-8. time kernel 1, kernels 2 and 3, their plain versions and cuDNN
+8. time kernel 1, kernels 2 and 3 (with one profiled call of the pair at one
+   layer and at full depth), their plain versions and cuDNN
    ``torch.nn.LSTM`` on the same weights (a yardstick the port never calls;
    the training yardstick is its float32 forward and backward) at B=512 in
    bfloat16 and float32 with CUDA events, beside each kernel's bound; time
@@ -70,6 +79,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -92,7 +102,8 @@ from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance
 from wordgesture_gan_tpu_torch.ops import build as kernel_build
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import fused_bilstm_fwd, fused_bilstm_fwd_plain
 from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_bwd, bilstm_train_bwd_plain,
-                                                        bilstm_train_fwd, bilstm_train_fwd_plain)
+                                                        bilstm_train_fwd, bilstm_train_fwd_plain,
+                                                        kernel_path, mma_kernel_info)
 from wordgesture_gan_tpu_torch.ops.dtw import dtw_matrix, dtw_pairs, dtw_pairs_plain
 from wordgesture_gan_tpu_torch.train.checkpoint import (find_checkpoint, latest_epoch,
                                                         load_generator)
@@ -104,6 +115,8 @@ from wordgesture_gan_tpu_torch.utils.tree import tree_leaves
 
 HIDDEN, SEQ, LAYERS, LATENT = 48, 128, 4, 32
 CHECK_BATCHES = (1, 131, 512, 2048)
+# Kernels 2 and 3 also around the tensor-core path's tile of 8 samples.
+TRAIN_CHECK_BATCHES = (1, 7, 8, 9, 131, 512, 2048)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 SERVE_N, SERVE_BATCH = 8192, 512
 TIME_BATCH = 512
@@ -132,6 +145,9 @@ PLANES = ("h", "c", "i", "f", "g", "o")
 # and FLOP/s by operand type (bf16 on the tensor cores, fp32 on the CUDA cores).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# bf16 terms a float32 gate gradient is split into for the tensor cores
+# (ops/bilstm_train.py:split_hi_lo): each backward product runs that often.
+BWD_SPLIT_TERMS = 2
 WORDS = ("the quick brown fox jumps over lazy dog hello world gesture keyboard swipe "
          "typing model sample serve people time year good first would there their "
          "about which when make like just know take into your some could them see "
@@ -386,10 +402,17 @@ def train_bounds_ms(batch: int, seq: int, hidden: int, layers: int, latent: int,
     Kernel 3: the products every backward step needs per sample and
     direction — dh through W_hh^T (H·4H), the input gradient (2H·4H above
     layer 1, 2·4H at it) and the weight gradients ([x | h_prev]^T·dgates,
-    (din + H)·4H) — plus dW_z and dz (2·Z·4H per sample), all float32 by the
-    casting contract, so against the float32 peak in both dtypes; bytes:
-    residuals, dy, prototype, z and weights read once, dW, dz and dx written
-    once."""
+    (din + H)·4H) — plus dW_z and dz (2·Z·4H per sample). The casting
+    contract asks for float32 products of the float32 gate gradients with
+    weights and residuals rounded to the compute dtype. In bfloat16 those
+    operands are exact in bf16, so the least arithmetic that keeps the
+    contract is BWD_SPLIT_TERMS bf16 tensor-core products per product (the
+    gate gradient split in that many bf16 terms, float32 accumulation):
+    operations x BWD_SPLIT_TERMS at the bf16 tensor peak. In float32 the
+    operands are not exact in bf16, so the products stay on the float32
+    CUDA-core peak. Bytes: residuals, dy, prototype, z and weights read once,
+    dW, dz and dx written once. Beyond either bound the practical floor of
+    kernels 1-3 is the chain of layers x L dependent steps."""
     item = 2 if dtype == "bfloat16" else 4
     H, g = hidden, 4 * hidden
     fwd_flops = batch * 2 * (seq * 2 * g * (H + 2) + (layers - 1) * seq * 2 * g * 3 * H
@@ -406,8 +429,10 @@ def train_bounds_ms(batch: int, seq: int, hidden: int, layers: int, latent: int,
     dw = 2 * ((2 + latent + H + 1) + (layers - 1) * (3 * H + 1)) * g * 4
     bwd_bytes = res + batch * seq * 2 * H * item + proto_z + weights + latent * 2 * g * item \
         + dw + batch * latent * 4 + batch * seq * 2 * 4
+    bwd_peak = PEAK_FLOPS["bfloat16"] / BWD_SPLIT_TERMS if dtype == "bfloat16" \
+        else PEAK_FLOPS["float32"]
     return {"fwd": _bound(fwd_bytes, fwd_flops, PEAK_FLOPS[dtype]),
-            "bwd": _bound(bwd_bytes, bwd_flops, PEAK_FLOPS["float32"])}
+            "bwd": _bound(bwd_bytes, bwd_flops, bwd_peak)}
 
 
 def _rel_err(got, want) -> tuple:
@@ -417,24 +442,40 @@ def _rel_err(got, want) -> tuple:
     return err / max(want.abs().max().item(), 1e-30), err
 
 
+def _weight_grads_equal(a: list, b: list) -> bool:
+    return all(torch.equal(a[k][d][leaf], b[k][d][leaf])
+               for k in range(len(a)) for d in ("fwd", "bwd") for leaf in ("w_ih", "w_hh", "b_ih"))
+
+
 def check_train_kernels(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LATENT,
-                        batches=CHECK_BATCHES) -> list:
+                        batches=TRAIN_CHECK_BATCHES) -> list:
     """Phase 3, kernels 2 and 3: each against its plain version on the same
     inputs (kernel 3 and its plain version both read kernel 2's residuals),
-    and kernel 2's output against kernel 1's."""
+    kernel 2's output against kernel 1's, the kernel path every call took
+    (tensor cores in bfloat16 at this width, CUDA cores in float32), and
+    kernel 3 launched twice on the same inputs (bit-equal gradients)."""
     stack = stack_on(random_generator_tree(hidden, layers, latent, seed=4), device)
     results = []
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         tol = TOLERANCE[dtype_name]
+        path = kernel_path(dtype, hidden, seq, layers)
         for batch in batches:
             x, z = random_inputs(batch, seq, latent, seed=batch + 1, device=device)
             dy = torch.from_numpy(np.random.default_rng(batch).normal(
                 size=(batch, seq, 2 * hidden)).astype(np.float32)).to(device)
+            before = [dict(f.launches_by_path) for f in (bilstm_train_fwd, bilstm_train_bwd)]
             y, res = bilstm_train_fwd(stack, x, z, hidden, dtype)
             grads, dx, dz = bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)
+            grads2, dx2, dz2 = bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)
             y_inference = fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype)
             if device.type == "cuda":
                 torch.cuda.synchronize()
+                took = [{k: f.launches_by_path[k] - b[k] for k in b}
+                        for f, b in zip((bilstm_train_fwd, bilstm_train_bwd), before)]
+                want_took = [{"mma": 0, "general": 0, path: 1}, {"mma": 0, "general": 0, path: 2}]
+                if took != want_took:
+                    raise AssertionError(f"{dtype_name} B={batch}: launches by path {took}, "
+                                         f"expected {want_took}")
             y_p, res_p = bilstm_train_fwd_plain(stack, x, z, hidden, dtype)
             grads_p, dx_p, dz_p = bilstm_train_bwd_plain(stack, x, z, res, dy, hidden, dtype)
             if y.shape != (batch, seq, 2 * hidden) or y.dtype != dtype or res.dtype != dtype:
@@ -449,12 +490,15 @@ def check_train_kernels(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LA
                         for k in range(layers) for d in ("fwd", "bwd")]
                 bwd[key] = (max(e[0] for e in errs), max(e[1] for e in errs))
             vs_kernel1 = (y.float() - y_inference.float()).abs().max().item()
-            row = {"dtype": dtype_name, "batch": batch, "tolerance_rel": tol,
+            deterministic = (_weight_grads_equal(grads, grads2) and torch.equal(dx, dx2)
+                             and torch.equal(dz, dz2))
+            row = {"dtype": dtype_name, "batch": batch, "path": path, "tolerance_rel": tol,
                    "fwd_rel": {k: v[0] for k, v in fwd.items()},
                    "bwd_rel": {k: v[0] for k, v in bwd.items()},
                    "fwd_max_abs_err": max(v[1] for v in fwd.values()),
                    "bwd_max_abs_err": max(v[1] for v in bwd.values()),
-                   "train_fwd_vs_bilstm_fused_max_abs": vs_kernel1}
+                   "train_fwd_vs_bilstm_fused_max_abs": vs_kernel1,
+                   "bwd_bit_equal_across_two_launches": deterministic}
             results.append(row)
             print(json.dumps({"check": "bilstm_train vs plain", **row}), flush=True)
             worst = max(list(fwd.items()) + list(bwd.items()), key=lambda kv: kv[1][0])
@@ -463,7 +507,42 @@ def check_train_kernels(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LA
                                      f"{dtype_name} B={batch} {worst[0]} {worst[1][0]} > {tol}")
             if not vs_kernel1 <= TOLERANCE[dtype_name]:
                 raise AssertionError(f"kernel 2's output differs from kernel 1's by {vs_kernel1}")
+            if not deterministic:
+                raise AssertionError(f"kernel 3 is not deterministic: {dtype_name} B={batch}")
     return results
+
+
+OWN_KERNELS = ("train_fwd", "train_bwd", "bilstm_fused")
+
+
+def count_small_launches(device, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ, layers=LAYERS,
+                         latent=LATENT) -> dict:
+    """Phase 3: the PyTorch launches (casts, copies, concatenations, adds)
+    each training wrapper makes around its own kernels in one call, counted
+    as device events under torch.profiler, per dtype (hence per kernel path).
+    They add to the train step's launch count."""
+    stack = stack_on(random_generator_tree(hidden, layers, latent, seed=2), device)
+    x, z = random_inputs(batch, seq, latent, seed=3, device=device)
+    dy = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(batch, seq, 2 * hidden)).astype(np.float32)).to(device)
+    line = {"check": "small launches per wrapper call", "batch": batch}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        _, res = bilstm_train_fwd(stack, x, z, hidden, dtype)                  # warm
+        bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)
+        counts = {}
+        for name, call in (("fwd", lambda: bilstm_train_fwd(stack, x, z, hidden, dtype)),
+                           ("bwd", lambda: bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype))):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            own = sum(e.count for e in events if any(k in e.key for k in OWN_KERNELS))
+            counts[name] = {"own_kernels": own, "small_launches": sum(e.count for e in events) - own}
+        line[dtype_name] = {"path": kernel_path(dtype, hidden, seq, layers), **counts}
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ,
@@ -492,7 +571,7 @@ def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, se
     library_bwd_ms = time_ms(lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True),
                              iters=10)
     bounds = train_bounds_ms(batch, seq, hidden, layers, latent, dtype_name)
-    row = {"dtype": dtype_name, "batch": batch,
+    row = {"dtype": dtype_name, "batch": batch, "path": kernel_path(dtype, hidden, seq, layers),
            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": plain_fwd_ms,
            "plain_bwd_ms": plain_bwd_ms, "cudnn_fp32_fwd_ms": library_fwd_ms,
            "cudnn_fp32_bwd_ms": library_bwd_ms,
@@ -500,6 +579,37 @@ def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, se
            "bwd_bound_ms": bounds["bwd"][0], "bwd_bound_by": bounds["bwd"][1]}
     print(json.dumps({"timing": "bilstm_train", **row}), flush=True)
     return row
+
+
+def profile_train_pair(device, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ, latent=LATENT,
+                       depths=(1, LAYERS), calls=3) -> list:
+    """Phase 8: a few bfloat16 calls of kernel 2 and kernel 3 under
+    torch.profiler, at one layer and at the full depth: the device time per
+    launch of each pass (forward, sweep, weight-gradient product, the
+    fixed-order sum) and what a layer adds to the chain. The profiler may
+    drop the first events of a profile, so each pass is reported per event seen."""
+    lines = []
+    for layers in depths:
+        stack = stack_on(random_generator_tree(hidden, layers, latent, seed=2), device)
+        x, z = random_inputs(batch, seq, latent, seed=3, device=device)
+        dy = torch.from_numpy(np.random.default_rng(5).normal(
+            size=(batch, seq, 2 * hidden)).astype(np.float32)).to(device)
+        _, res = bilstm_train_fwd(stack, x, z, hidden, torch.bfloat16)
+        bilstm_train_bwd(stack, x, z, res, dy, hidden, torch.bfloat16)              # warm
+
+        def pairs():
+            for _ in range(calls):
+                bilstm_train_fwd(stack, x, z, hidden, torch.bfloat16)
+                bilstm_train_bwd(stack, x, z, res, dy, hidden, torch.bfloat16)
+
+        line = device_profile(pairs, "bilstm_train pair", batch=batch, dtype="bfloat16",
+                              layers=layers, calls=calls)
+        own = {r["name"].split("::")[-1].split("(")[0]: r["device_ms"] / r["count"]
+               for r in line["top"] if any(k in r["name"] for k in OWN_KERNELS)}
+        print(json.dumps({"timing": "bilstm_train passes", "batch": batch, "dtype": "bfloat16",
+                          "layers": layers, "ms_per_launch": own}), flush=True)
+        lines.append(line)
+    return lines
 
 
 # -- kernel 4: exact batched DTW ----------------------------------------------------------
@@ -680,8 +790,12 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
                 "bilstm_train_bwd": bilstm_train_bwd}
     for c in counters.values():
         c.launches = 0
+    for c in (bilstm_train_fwd, bilstm_train_bwd):
+        c.launches_by_path = dict.fromkeys(c.launches_by_path, 0)
     third = train_gan(ds, mcfg, tcfg, num_epochs=3, checkpoint_dir=str(workdir), device=device)
     launches = {name: c.launches for name, c in counters.items()}
+    by_path = {name: dict(counters[name].launches_by_path)
+               for name in ("bilstm_train_fwd", "bilstm_train_bwd")}
     if len(third.history) != 1 or third.state["epoch"] != 3 or latest_epoch(str(workdir)) != 3:
         raise AssertionError("the run did not resume for exactly one epoch")
     for losses in first.history + third.history:
@@ -691,12 +805,19 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
     expected = {name: per * steps for name, per in PER_STEP.items()}
     if device.type == "cuda" and launches != expected:
         raise AssertionError(f"launches in the resumed epoch {launches}, expected {expected}")
+    # Every kernel-2 and kernel-3 launch of the recipe's width and dtype took
+    # the path the dispatch rule names (the tensor-core one at full width).
+    path = kernel_path(getattr(torch, mcfg.compute_dtype), mcfg.gen_hidden_dim, mcfg.seq_length, 1)
+    for name, counts in by_path.items():
+        if device.type == "cuda" and counts != {"mma": 0, "general": 0, path: expected[name]}:
+            raise AssertionError(f"{name} launches by path {counts}, expected all on {path}")
     seconds = first.epoch_seconds + third.epoch_seconds
     line = {"training": "train_gan", "n": n, "batch": tcfg.batch_size, "steps_per_epoch": steps,
             "dtype": "bfloat16", "epoch_seconds": seconds,
             "gestures_per_s": [first.gestures_per_epoch / t for t in seconds],
             "ms_per_step": [t / steps * 1e3 for t in seconds],
-            "launches_resumed_epoch": launches, "losses_last_epoch": third.history[-1]}
+            "launches_resumed_epoch": launches, "kernel_path": path,
+            "launches_by_path": by_path, "losses_last_epoch": third.history[-1]}
     print(json.dumps(line), flush=True)
     if device.type == "cuda":   # where a steady step's time goes
         batch = {"gesture": torch.from_numpy(ds.gestures[:batch_size]).to(device),
@@ -941,13 +1062,22 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw"])
     for name, log in logs.items():
+        kernel = ""
         for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw)_\w+?kernel)"
+                              r"(?:ILi(\d)E|I(f|13__nv_bfloat16))?", line)
+            if entry:   # the mangled name: kernel, then its H/16 or type template argument
+                kernel = entry.group(1) + "".join(f"<{g.replace('13__nv_', '')}>"
+                                                  for g in entry.groups()[1:] if g)
             if "registers" in line or "spill" in line:
-                print(f"[{name}] {line.strip()}", flush=True)
+                print(f"[{name}] {kernel}: {line.strip()}", flush=True)
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
+    print(json.dumps({"occupancy": "bilstm_train tensor-core kernels", "hidden": HIDDEN,
+                      **mma_kernel_info(HIDDEN)}), flush=True)
 
     checks = check_kernel(device)
     train_checks = check_train_kernels(device)
+    count_small_launches(device)
     dtw_checks = check_dtw(device)
     with tempfile.TemporaryDirectory() as tmp:
         served = serve(device, Path(tmp))
@@ -965,6 +1095,7 @@ def main() -> int:
         evaluated = evaluate(device, Path(tmp))
     timings = {name: time_kernel(device, name) for name in ("bfloat16", "float32")}
     pair = {name: time_train_pair(device, name) for name in ("bfloat16", "float32")}
+    profile_train_pair(device)
     dtw_t = time_dtw(device)
     time_dtw(device, dims=3)    # (x, y, t) gestures: not on the evaluation's path, timed beside it
 
@@ -980,7 +1111,7 @@ def main() -> int:
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"], "library_ms": main_t["library_ms"],
     }, {
-        "name": "bilstm_train_fwd", "route": "cuda",
+        "name": "bilstm_train_fwd", "route": "cuda", "path": main_p["path"],
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:57",
         "launches": launches["bilstm_train_fwd"],
@@ -989,7 +1120,7 @@ def main() -> int:
         "bound_ms": main_p["fwd_bound_ms"], "bound_by": main_p["fwd_bound_by"],
         "library_ms": main_p["cudnn_fp32_fwd_ms"],
     }, {
-        "name": "bilstm_train_bwd", "route": "cuda",
+        "name": "bilstm_train_bwd", "route": "cuda", "path": main_p["path"],
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:206",
         "launches": launches["bilstm_train_bwd"],

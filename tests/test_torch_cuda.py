@@ -10,7 +10,10 @@ Tolerances: float32 with TF32 off 1e-4 (summation order and the device's
 transcendentals); bfloat16 2e-2 (h and the residuals rounded to bf16, so a
 one-ulp flip propagates). Kernel 1's outputs are compared in absolute terms;
 kernels 2 and 3 relative to the largest magnitude of each compared tensor,
-because their gradients span orders of magnitude between leaves. Kernel 4
+because their gradients span orders of magnitude between leaves. Kernels 2
+and 3 have two paths (``ops/bilstm_train.py:kernel_path``): bfloat16 at H in
+{16, 32, 48} runs on the tensor cores in tiles of 8 samples, everything else
+on the CUDA cores; both are covered below. Kernel 4
 (DTW, float32 only) is held to 1e-4 of each distance: it adds costs along the
 path where the plain version subtracts prefix sums.
 """
@@ -25,7 +28,7 @@ from wordgesture_gan_tpu_torch.models.layers import BiLSTM
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import fused_bilstm_fwd, fused_bilstm_fwd_plain
 from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_apply, bilstm_train_bwd,
                                                         bilstm_train_bwd_plain, bilstm_train_fwd,
-                                                        bilstm_train_fwd_plain)
+                                                        bilstm_train_fwd_plain, kernel_path)
 from wordgesture_gan_tpu_torch.ops.dtw import (dtw_distance_matrix, dtw_matrix, dtw_pairs,
                                                dtw_pairs_plain)
 
@@ -131,7 +134,7 @@ def train_pair_errors(device, batch, seq, hidden, layers, latent, dtype, seed=0)
     return errors
 
 
-@pytest.mark.parametrize("batch", [1, 131, 512, 2048])
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 131, 512, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_pair_matches_plain_full_width(cuda_device, dtype, batch):
     errors = train_pair_errors(cuda_device, batch, 128, 48, 4, 32, dtype)
@@ -149,11 +152,55 @@ def test_train_pair_matches_plain_small_shapes(cuda_device, dtype, seq, hidden, 
 
 
 def test_train_forward_equals_inference_kernel(cuda_device):
+    """Kernel 2's output against kernel 1's: the same function, summed in
+    another order (kernel 2's bfloat16 path on the tensor cores), so equal
+    within kernel 1's tolerance; the CUDA-core float32 pair is bit-equal."""
     stack, x, z = _case(cuda_device, 64, 128, 48, 4, 32, seed=5)
     for dtype in (torch.float32, torch.bfloat16):
         y, _ = bilstm_train_fwd(stack, x, z, 48, dtype)
-        torch.testing.assert_close(y, fused_bilstm_fwd(stack, x, 48, z, dtype=dtype),
-                                   atol=0, rtol=0)
+        torch.testing.assert_close(y.float(), fused_bilstm_fwd(stack, x, 48, z, dtype=dtype).float(),
+                                   atol=ATOL[dtype], rtol=0)
+    y, _ = bilstm_train_fwd(stack, x, z, 48, torch.float32)
+    torch.testing.assert_close(y, fused_bilstm_fwd(stack, x, 48, z, dtype=torch.float32),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,hidden,path", [(torch.bfloat16, 48, "mma"),
+                                               (torch.bfloat16, 16, "mma"),
+                                               (torch.bfloat16, 8, "general"),
+                                               (torch.float32, 48, "general")])
+def test_train_pair_takes_the_path_its_dtype_and_shape_name(cuda_device, dtype, hidden, path):
+    """The full-width bfloat16 call runs the tensor-core kernels; the
+    counters per path show which kernels a call launched."""
+    batch, seq, layers = (512, 128, 4) if hidden == 48 else (5, 6, 2)
+    assert kernel_path(dtype, hidden, seq, layers) == path
+    stack, x, z = _case(cuda_device, batch, seq, hidden, layers, 32)
+    dy = torch.ones((batch, seq, 2 * hidden), device=cuda_device)
+    before = dict(bilstm_train_fwd.launches_by_path), dict(bilstm_train_bwd.launches_by_path)
+    _, res = bilstm_train_fwd(stack, x, z, hidden, dtype)
+    bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)
+    torch.cuda.synchronize()
+    for counter, was in zip((bilstm_train_fwd, bilstm_train_bwd), before):
+        took = {k: counter.launches_by_path[k] - was[k] for k in was}
+        assert took == {"mma": 0, "general": 0, path: 1}
+
+
+@pytest.mark.parametrize("batch", [9, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_backward_is_bit_equal_across_launches(cuda_device, dtype, batch):
+    """Kernel 3 adds its partial sums in a fixed order (no float atomics):
+    two launches on the same inputs give the same bits."""
+    stack, x, z = _case(cuda_device, batch, 128, 48, 4, 32, seed=7)
+    dy = torch.randn((batch, 128, 96), generator=torch.Generator().manual_seed(8)).to(cuda_device)
+    _, res = bilstm_train_fwd(stack, x, z, 48, dtype)
+    first = bilstm_train_bwd(stack, x, z, res, dy, 48, dtype)
+    second = bilstm_train_bwd(stack, x, z, res, dy, 48, dtype)
+    torch.cuda.synchronize()
+    for k in range(4):
+        for d in ("fwd", "bwd"):
+            for leaf in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                assert torch.equal(first[0][k][d][leaf], second[0][k][d][leaf]), (k, d, leaf)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
 
 
 def test_train_pair_refuses_too_wide_a_stack(cuda_device):

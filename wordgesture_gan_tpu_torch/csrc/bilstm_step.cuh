@@ -1,0 +1,279 @@
+// The BiLSTM forward step on Hopper's tensor cores, and the small device
+// helpers (mbarriers, bulk copies, mma/ldmatrix wrappers, the packed weight
+// layout) the fused BiLSTM kernels share.
+//
+// The step replaces the per-step body of the TPU kernels `_kernel`
+// (wordgesture_gan_tpu/ops/bilstm_fused.py) and `_fwd_kernel`
+// (wordgesture_gan_tpu/ops/bilstm_train.py): gates = x_t.W_ih + h.W_hh + b,
+// the nonlinearities, c and h. The recurrence is a chain of layers x L
+// dependent steps, so it is bound by the latency of one step, not by bytes or
+// operations. The step here keeps only h.W_hh on that chain:
+//   * samples are the narrow dimension of `mma.sync.m16n8k16` (bf16 in, fp32
+//     accumulate): gates^T[4H, 8] = W_hh^T[4H, H] . h^T[H, 8], a tile of 8
+//     samples per CTA;
+//   * warp w of a direction owns hidden units 16w..16w+15: four 16-row tiles,
+//     one per gate, so a thread's accumulators hold i, f, g and o of the same
+//     (unit, sample) pairs and the cell update needs no exchange. Tile rows
+//     r and r+8 (the two a thread holds) are units 2r and 2r+1, so a thread's
+//     values for one sample are two neighbouring units: one 32-bit store;
+//   * W_hh stays in registers as A fragments for the whole layer (4 gate
+//     tiles x H/16 k-tiles x 4 = H registers a thread);
+//   * h goes back through a double-buffered (8, H+8) bf16 tile in shared
+//     memory (one 32-bit load per B-fragment register, conflict free), one
+//     named barrier per step and direction.
+// The input projection (x_t.W_ih + b, not on the chain) is produced ahead by
+// other warps with the same fragment layout (`gate_product` with the W_ih
+// fragments), handed over in accumulator order.
+//
+// Packed weights: one flat buffer holding, for layer 0.., direction fwd, bwd:
+// w_ih (din, 4H), w_hh (H, 4H), b_ih (4H), b_hh (4H), each row-major as the
+// model stores them (din = 2 + Z for layer 0, 2H above); once in float32 and
+// once rounded to bf16 (ops/bilstm_train.py:packed_weights).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wgg {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kSampleTile = 8;  // samples per CTA: the n of m16n8k16
+
+// ---------------------------------------------------------------------------
+// Packed weight layout
+// ---------------------------------------------------------------------------
+
+struct CellOffsets {
+  size_t w_ih, w_hh, b_ih, b_hh;
+  int din;
+};
+
+__host__ __device__ __forceinline__ CellOffsets cell_offsets(int layer, int dir, int H, int Z) {
+  const size_t G = 4 * (size_t)H;
+  const size_t first = (size_t)(2 + Z + H + 2) * G;
+  const size_t rest = (size_t)(3 * H + 2) * G;
+  CellOffsets o;
+  o.din = layer == 0 ? 2 + Z : 2 * H;
+  const size_t cell = layer == 0 ? first : rest;
+  o.w_ih = (layer == 0 ? 0 : 2 * first + (size_t)(layer - 1) * 2 * rest) + (size_t)dir * cell;
+  o.w_hh = o.w_ih + (size_t)o.din * G;
+  o.b_ih = o.w_hh + (size_t)H * G;
+  o.b_hh = o.b_ih + G;
+  return o;
+}
+
+// Offset of residual row (layer, dir, pos, b): res is (layers, 2, L, B, 6H).
+__device__ __forceinline__ size_t res_row(int layer, int dir, int pos, int b, int L, int B,
+                                          int H) {
+  return ((((size_t)layer * 2 + dir) * L + pos) * B + b) * 6 * H;
+}
+
+// ---------------------------------------------------------------------------
+// Barriers and copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Named barrier over `threads` threads (ids 1..15; 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Orders this thread's shared-memory writes before later bulk (async proxy)
+// copies that read them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Orders this thread's writes (any space) before later async-proxy accesses.
+__device__ __forceinline__ void fence_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// Bulk copy global -> shared, `bytes` a multiple of 16, both 16-byte aligned;
+// completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst_smem, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst_smem)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Bulk copy shared -> global (one contiguous block), tracked by bulk groups.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src_smem, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src_smem)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Every committed bulk store has finished reading its shared-memory source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Every committed bulk store has completed (its writes are visible).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col); fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four transposed 8 x 8 b16 matrices; lane i gives the address of row i % 8
+// of matrix i / 8 (16 bytes a row).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The forward step
+// ---------------------------------------------------------------------------
+
+// Sigmoid and tanh from one exponential and one fast division: absolute error
+// of a few 1e-7, far inside the rounding of h and the residuals to bf16.
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 2.0f * sigmoid_fast(2.0f * x) - 1.0f;
+}
+
+// A fragments of W^T for the four gate tiles of units unit0..unit0+15, from a
+// (K, 4H) row-major bf16 matrix W (w_hh: KT = H/16; w_ih above layer 1:
+// KT = 2H/16). Tile g, k-tile kt: tile rows {r, r+8} are gate rows
+// g*H + unit0 + {2r, 2r+1}; columns 16kt + {2q, 2q+1, 2q+8, 2q+9}
+// (r = lane / 4, q = lane % 4).
+template <int KT>
+__device__ __forceinline__ void load_gate_fragments(uint32_t (&a)[4][KT][4], const bf16* w, int H,
+                                                    int unit0, int lane) {
+  const int r = lane >> 2, q = lane & 3;
+  const size_t G = 4 * (size_t)H;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const size_t m = (size_t)g * H + unit0 + 2 * r;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      const size_t k = (size_t)kt * 16 + 2 * q;
+      a[g][kt][0] = pack_bf16(__ldg(w + k * G + m), __ldg(w + (k + 1) * G + m));
+      a[g][kt][1] = pack_bf16(__ldg(w + k * G + m + 1), __ldg(w + (k + 1) * G + m + 1));
+      a[g][kt][2] = pack_bf16(__ldg(w + (k + 8) * G + m), __ldg(w + (k + 9) * G + m));
+      a[g][kt][3] = pack_bf16(__ldg(w + (k + 8) * G + m + 1), __ldg(w + (k + 9) * G + m + 1));
+    }
+  }
+}
+
+// acc[g] += W^T tile g . b: the step's product, KT k-tiles deep.
+template <int KT>
+__device__ __forceinline__ void gate_product(float (&acc)[4][4], const uint32_t (&a)[4][KT][4],
+                                             const uint32_t (&b)[KT][2]) {
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) mma_bf16(acc[g], a[g][kt], b[kt][0], b[kt][1]);
+}
+
+// B fragments of h^T from the (8, H + 8) bf16 tile `hs` ([sample][unit]).
+template <int HT>
+__device__ __forceinline__ void load_h_fragments(uint32_t (&b)[HT][2], const bf16* hs, int lane) {
+  constexpr int HS = 16 * HT + 8;
+  const uint32_t* row = reinterpret_cast<const uint32_t*>(hs + (lane >> 2) * HS) + (lane & 3);
+#pragma unroll
+  for (int kt = 0; kt < HT; ++kt) {
+    b[kt][0] = row[kt * 8];
+    b[kt][1] = row[kt * 8 + 4];
+  }
+}
+
+// The cell update for a thread's four (unit, sample) pairs: pair j is unit
+// unit0 + 2r + j / 2, sample 2q + j % 2. acc holds the gate sums and
+// returns the gates after the nonlinearities; c is carried in fp32; h is
+// rounded to bf16.
+__device__ __forceinline__ void lstm_cell(float (&acc)[4][4], float (&c)[4], bf16 (&h)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float ig = sigmoid_fast(acc[0][j]);
+    const float fg = sigmoid_fast(acc[1][j]);
+    const float gg = tanh_fast(acc[2][j]);
+    const float og = sigmoid_fast(acc[3][j]);
+    c[j] = fg * c[j] + ig * gg;
+    h[j] = __float2bfloat16_rn(og * tanh_fast(c[j]));
+    acc[0][j] = ig;
+    acc[1][j] = fg;
+    acc[2][j] = gg;
+    acc[3][j] = og;
+  }
+}
+
+}  // namespace wgg

@@ -16,45 +16,77 @@
 // fp32 from T-rounded weights and residuals, the gradient passed down rounded
 // to T per direction and the two directions added in T, dW/db/dz in fp32.
 //
-// What bounds it on this card. Forward: as kernel 1 (a chain of 4 x 128
-// dependent steps, each a small product from weights read through L1), plus
-// the residual stream, 6H values per (layer, direction, step, sample): 302 MB
-// in bf16 at B=512, ~0.09 ms of HBM time, small beside the chain. Backward:
-// the same chain of dependent steps (dh and dc carries), each step three
-// small products per sample (dh through W_hh^T, the input gradient through
-// W_ih^T, both from the step's gate gradients), then the weight gradients:
-// sum over (t, b) of [x | h_prev | 1]^T . dgates, a product with a 65,536-row
-// inner dimension at B=512 (~29 GFLOP in fp32 for the flagship stack), on the
-// fp32 CUDA cores here.
+// What bounds it on this card. Neither bytes nor operations: at B=512 the
+// forward moves 302 MB of residuals (~0.09 ms of HBM time) and does 24 GFLOP,
+// the backward 48 GFLOP. Both are a chain of layers x L = 512 dependent steps
+// (the forward's h and c, the backward's dh and dc carries), so the time of
+// one step, times 512, is the kernel's time. The batch-wide sum of the weight
+// gradients is the one part that is a real matrix product (a 65,536-row inner
+// dimension at B=512).
 //
-// Design (simple and right first; no wgmma/TMA yet):
-//   * as kernel 1, one CTA owns a tile of samples through ALL layers, so the
+// Two paths, chosen by the wrapper from the dtype and the shape alone
+// (ops/bilstm_train.py:kernel_path):
+//
+// A. The tensor-core path: bf16, H in {16, 32, 48}. `*_mma_kernel` below and
+//    the forward step in bilstm_step.cuh. What it does about the chain:
+//   * samples are the narrow dimension of `mma.sync.m16n8k16` (bf16 in, fp32
+//     accumulate), features the wide one: a CTA owns 8 samples through all
+//     layers, both directions, so nothing is synchronised between CTAs; a
+//     warp owns 16 hidden units of one direction, its accumulators holding
+//     all four gates of the same (unit, sample) pairs;
+//   * the layer's weights stay on chip for all L steps as A fragments in
+//     registers (W_hh^T in the chain warps, W_ih^T / W_ih in the side warps),
+//     built once per layer from the packed model-layout weights;
+//   * only h . W_hh (forward) and dh = W_hh . dg (backward) are on the chain.
+//     The input projection x_t . W_ih + b is produced up to kGxStages
+//     positions ahead by producer warps and handed over in accumulator order
+//     through an mbarrier ring; the backward's input gradient dx = W_ih . dg
+//     is taken by side warps from the gate-gradient ring behind the chain;
+//   * residual rows are staged in shared memory and written whole: one
+//     `cp.async.bulk` of tile x 6H values per (layer, direction, position);
+//     the backward loads each sample's row and its dy with bulk copies
+//     kInStages positions ahead (c_prev is the next step's row); the layer
+//     above reads h as 32-bit fragment loads of contiguous 2H-byte planes;
+//   * the casting contract keeps the backward products in fp32: each fp32
+//     gate gradient enters the tensor cores as hi = bf16(dg) and
+//     lo = bf16(dg - hi), both products accumulated in fp32 (about 2^-17
+//     relative); weights and residuals are exact in bf16. db, dz and the z
+//     rows of dW_ih are summed from the fp32 values, the prototype's two rows
+//     from hi + lo on the CUDA cores;
+//   * the gate gradients are stored split, as (4H, 8 samples) bf16 tiles, hi
+//     and lo. That one layout is the sweep's own B operand (through
+//     `ldmatrix.trans`), one contiguous bulk store per step, and the B
+//     fragment order of the weight-gradient product, whose left operand (h
+//     planes of consecutive residual rows) is copied 16 bytes at a time with
+//     zero fill past the ends and read through `ldmatrix.trans`: no
+//     per-element gather. Partial sums (splits over positions, sample tiles)
+//     are added in a fixed order by a last kernel: deterministic.
+//
+// B. The general path: float32, and bf16 at any other H <= 256. CUDA cores,
+//    every product in full fp32 (first version of these kernels):
+//   * one CTA owns a tile of 4 samples through ALL layers, so the
 //     recurrence carries, the input gradients passed between layers and dz
-//     are per CTA and need no cross-CTA synchronisation; shared memory and
-//     registers per CTA do not depend on B (the TPU backward's VMEM scratch
-//     grew with B and did not compile at B=2048);
+//     are per CTA and need no cross-CTA synchronisation;
 //   * thread (dir, unit) owns the four gates of one hidden unit of one
-//     direction for kSamplesPerThread samples: the gate gradients of a unit
-//     need no exchange; the step's 4H gate gradients of a sample go through
-//     shared memory for the products with the transposed weights, which are
-//     laid out so that a warp reads consecutive addresses;
+//     direction for kSamplesPerThread samples; weights are re-read through L1
+//     every step, which sets this path's speed;
 //   * the gradient of layer k's input is stored per direction (two T
 //     streams), so the two directions never write the same row; the layer
 //     below adds the two in T when it reads them (ping-pong between layers);
-//   * the weight gradients, the one sum over the batch, go in a second pass
-//     (design (a)): the sweep writes the fp32 gate gradients of every
-//     (layer, direction, position, sample) to global memory, and a tiled
-//     split-K product reduces [x | h_prev | 1]^T . dgates into
-//     [dW_ih; dW_hh; db] per layer and direction, the bias as the product
-//     with a column of ones and dW_z as the product with z (constant over
-//     t). The splits' partial sums go to a workspace and a third kernel adds
-//     them in a fixed order, so the result is deterministic.
+//   * the weight gradients go in a second pass: the sweep writes the fp32
+//     gate gradients to global memory, and a tiled split-K product reduces
+//     [x | h_prev | 1]^T . dgates per layer and direction; the splits'
+//     partial sums are added in a fixed order by a third kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilstm_step.cuh"
+
 namespace {
+
+using namespace wgg;
 
 constexpr int kSamplesPerThread = 2;
 constexpr int kSampleGroups = 2;  // blockDim.y of the recurrent kernels
@@ -101,12 +133,6 @@ __device__ __forceinline__ void load_gates(const __nv_bfloat16* p, float w[4]) {
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// Offset of residual row (layer, dir, pos, b): res is (layers, 2, L, B, 6H).
-__device__ __forceinline__ size_t res_row(int layer, int dir, int pos, int b, int L, int B,
-                                          int H) {
-  return ((((size_t)layer * 2 + dir) * L + pos) * B + b) * 6 * H;
-}
 
 // ---------------------------------------------------------------------------
 // Kernel 2: training forward.
@@ -635,6 +661,886 @@ int launch_bwd(const void* res, const void* dy, const void* proto, const void* z
   return static_cast<int>(cudaGetLastError());
 }
 
+// ===========================================================================
+// The tensor-core path: bf16, H = 16 * HT (HT = 1, 2, 3). See the note at the
+// head of this file.
+// ===========================================================================
+
+constexpr int kGxStages = 4;  // ring of input projections ahead of the chain
+constexpr int kInStages = 6;  // ring of residual / dy rows ahead of the sweep
+constexpr int kDgStages = 3;  // ring of gate-gradient tiles behind the sweep
+
+template <int HT>
+constexpr size_t fwd_mma_smem_bytes() {
+  constexpr int H = 16 * HT;
+  return (size_t)2 * kGxStages * HT * 128 * 16      // gx ring (float4)
+         + (size_t)2 * 2 * kSampleTile * (6 * H + 8) * 2  // residual row staging
+         + (size_t)2 * 2 * kSampleTile * (H + 8) * 2  // h tiles
+         + (size_t)4 * kGxStages * 8;                 // mbarriers
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2, tensor-core path. One CTA = 8 samples through all layers; per
+// direction HT chain warps (the recurrence) and HT producer warps (the input
+// projection, kGxStages positions ahead).
+//   proto (B, L, 2) bf16; z (B, Z) f32; wq / wf: the packed weights in bf16
+//   and f32; res (layers, 2, L, B, 6H) bf16; out (B, L, 2H) bf16.
+// ---------------------------------------------------------------------------
+template <int HT>
+__global__ void __launch_bounds__(128 * HT, 1)
+    train_fwd_mma_kernel(const bf16* __restrict__ proto, const float* __restrict__ z,
+                         const bf16* __restrict__ wq, const float* __restrict__ wf, bf16* res,
+                         bf16* out, int B, int L, int Z, int layers) {
+  constexpr int H = 16 * HT, G = 4 * H, HS = H + 8, ROW = 6 * H, R = kGxStages;
+  constexpr int SROW = ROW + 8;  // staged rows 16 bytes apart from a bank-aligned stride
+  constexpr int kDirThreads = 32 * HT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float4* gx = reinterpret_cast<float4*>(smem_raw);               // [2][R][HT][4][32]
+  bf16* stage = reinterpret_cast<bf16*>(gx + 2 * R * HT * 128);   // [2][2][8][SROW]
+  bf16* hs = stage + 2 * 2 * kSampleTile * SROW;                  // [2][2][8][HS]
+  uint64_t* full = reinterpret_cast<uint64_t*>(hs + 2 * 2 * kSampleTile * HS);  // [2][R]
+  uint64_t* empty = full + 2 * R;                                                 // [2][R]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int dir = wid / (2 * HT);
+  const int within = wid % (2 * HT);
+  const bool producer = within >= HT;
+  const int w = within % HT;
+  const int r = lane >> 2, q = lane & 3;
+  const int b0 = blockIdx.x * kSampleTile;
+  const int nb = min(kSampleTile, B - b0);
+  // Lane s of a direction's first chain warp copies sample s's staged row out.
+  const bool copier = !producer && w == 0 && lane < nb;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 * R; ++i) {
+      mbar_init(full + i, kDirThreads);
+      mbar_init(empty + i, kDirThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  for (int layer = 0; layer < layers; ++layer) {
+    const CellOffsets off = cell_offsets(layer, dir, H, Z);
+    const int it0 = layer * L;
+    if (producer) {
+      // ---- the input projection of this layer, in the chain's order ----
+      // Hands one position's gate sums to the chain, in accumulator order.
+      auto publish = [&](int t, const float (&acc)[4][4]) {
+        const int it = it0 + t;
+        const int slot = it % R;
+        mbar_wait(empty + dir * R + slot, ((it / R) & 1) ^ 1);
+        float4* dst = gx + ((size_t)(dir * R + slot) * HT + w) * 128 + lane;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          dst[g * 32] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        mbar_arrive(full + dir * R + slot);
+      };
+      float bias[4][2];  // b_ih + b_hh of the thread's gate rows
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const size_t m = (size_t)g * H + 16 * w + 2 * r + half;
+          bias[g][half] = __ldg(wf + off.b_ih + m) + __ldg(wf + off.b_hh + m);
+        }
+      if (layer == 0) {
+        // Layer 1: z . W_z + b once per (gate, pair) in fp32, then two
+        // multiply-adds per position for the prototype's coordinates.
+        float base[4][4], wp[2][4][2];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const size_t m = (size_t)g * H + 16 * w + 2 * r + half;
+            base[g][2 * half] = base[g][2 * half + 1] = bias[g][half];
+            wp[0][g][half] = __bfloat162float(__ldg(wq + off.w_ih + m));
+            wp[1][g][half] = __bfloat162float(__ldg(wq + off.w_ih + G + m));
+          }
+        for (int k = 0; k < Z; ++k) {
+          const float z0 = b0 + 2 * q < B ? __ldg(z + (size_t)(b0 + 2 * q) * Z + k) : 0.0f;
+          const float z1 = b0 + 2 * q + 1 < B ? __ldg(z + (size_t)(b0 + 2 * q + 1) * Z + k) : 0.0f;
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const float wv = __ldg(wf + off.w_ih + (size_t)(2 + k) * G + (size_t)g * H + 16 * w +
+                                     2 * r + half);
+              base[g][2 * half] = fmaf(wv, z0, base[g][2 * half]);
+              base[g][2 * half + 1] = fmaf(wv, z1, base[g][2 * half + 1]);
+            }
+        }
+        for (int t = 0; t < L; ++t) {
+          const int pos = dir ? L - 1 - t : t;
+          float p[2][2];
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const int b = b0 + 2 * q + s;
+            p[s][0] = p[s][1] = 0.0f;
+            if (b < B) {
+              const __nv_bfloat162 v =
+                  *reinterpret_cast<const __nv_bfloat162*>(proto + ((size_t)b * L + pos) * 2);
+              p[s][0] = __bfloat162float(v.x);
+              p[s][1] = __bfloat162float(v.y);
+            }
+          }
+          float acc[4][4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              acc[g][j] = fmaf(wp[0][g][j >> 1], p[j & 1][0], base[g][j]);
+              acc[g][j] = fmaf(wp[1][g][j >> 1], p[j & 1][1], acc[g][j]);
+            }
+          publish(t, acc);
+        }
+      } else {
+        uint32_t a[4][2 * HT][4];
+        load_gate_fragments<2 * HT>(a, wq + off.w_ih, H, 16 * w, lane);
+        const bool valid = b0 + r < B;
+        for (int t = 0; t < L; ++t) {
+          const int pos = dir ? L - 1 - t : t;
+          // x^T fragments: the h planes of the layer below at this position,
+          // sample r of the tile, features 16kt + {2q, 2q+1, 2q+8, 2q+9}.
+          uint32_t bx[2 * HT][2];
+#pragma unroll
+          for (int kt = 0; kt < 2 * HT; ++kt) {
+            bx[kt][0] = bx[kt][1] = 0u;
+            if (valid) {
+              const uint32_t* src = reinterpret_cast<const uint32_t*>(
+                  res + res_row(layer - 1, kt / HT, pos, b0 + r, L, B, H) + (kt % HT) * 16 + 2 * q);
+              bx[kt][0] = src[0];
+              bx[kt][1] = src[4];
+            }
+          }
+          float acc[4][4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[g][j] = bias[g][j >> 1];
+          gate_product<2 * HT>(acc, a, bx);
+          publish(t, acc);
+        }
+      }
+    } else {
+      // ---- the recurrence ----
+      const bool top = layer == layers - 1;
+      uint32_t a[4][HT][4];
+      load_gate_fragments<HT>(a, wq + off.w_hh, H, 16 * w, lane);
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      bf16* hs_d = hs + dir * 2 * kSampleTile * HS;
+      for (int i = w * 32 + lane; i < kSampleTile * HS; i += kDirThreads)
+        hs_d[i] = __float2bfloat16_rn(0.0f);
+      named_barrier(1 + dir, kDirThreads);
+      for (int t = 0; t < L; ++t) {
+        const int pos = dir ? L - 1 - t : t;
+        const int it = it0 + t;
+        const int slot = it % R;
+        mbar_wait(full + dir * R + slot, (it / R) & 1);
+        float acc[4][4];
+        const float4* src = gx + ((size_t)(dir * R + slot) * HT + w) * 128 + lane;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float4 v = src[g * 32];
+          acc[g][0] = v.x;
+          acc[g][1] = v.y;
+          acc[g][2] = v.z;
+          acc[g][3] = v.w;
+        }
+        mbar_arrive(empty + dir * R + slot);
+        uint32_t bh[HT][2];
+        load_h_fragments<HT>(bh, hs_d + (t & 1) * kSampleTile * HS, lane);
+        gate_product<HT>(acc, a, bh);
+        bf16 h[4];
+        lstm_cell(acc, c, h);
+        bf16* hn = hs_d + ((t + 1) & 1) * kSampleTile * HS;
+        bf16* st = stage + (size_t)(dir * 2 + (t & 1)) * kSampleTile * SROW;
+        const int unit = 16 * w + 2 * r;  // and unit + 1: pairs j and j + 2
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int s = 2 * q + e;
+          const uint32_t hh = pack_bf16(h[e], h[e + 2]);
+          *reinterpret_cast<uint32_t*>(hn + s * HS + unit) = hh;
+          uint32_t* row = reinterpret_cast<uint32_t*>(st + s * SROW + unit);
+          row[0] = hh;
+          row[H / 2] = pack_bf16(c[e], c[e + 2]);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) row[(2 + g) * H / 2] = pack_bf16(acc[g][e], acc[g][e + 2]);
+          if (top && b0 + s < B)
+            *reinterpret_cast<uint32_t*>(out + ((size_t)(b0 + s) * L + pos) * 2 * H + dir * H +
+                                         unit) = hh;
+        }
+        fence_async_shared();
+        if (copier) bulk_wait_read();  // the row staged two steps ago has left its buffer
+        named_barrier(1 + dir, kDirThreads);
+        if (copier) {
+          // A sample's whole row [h | c | i | f | g | o] in one copy; the tile's
+          // rows at one position are consecutive in res.
+          bulk_store(res + res_row(layer, dir, pos, b0 + lane, L, B, H), st + lane * SROW, ROW * 2);
+          bulk_commit();
+        }
+      }
+      if (copier) {
+        bulk_wait_all();  // this layer's rows are in global memory
+        fence_async_all();
+      }
+    }
+    __threadfence();
+    __syncthreads();  // the layer above reads both directions at every position
+  }
+}
+
+template <int HT>
+constexpr size_t sweep_mma_smem_bytes() {
+  constexpr int H = 16 * HT;
+  return (size_t)2 * kInStages * kSampleTile * (6 * H * 2 + 16)    // residual rows
+         + (size_t)2 * kInStages * 2 * kSampleTile * (H * 2 + 16)  // dy rows (two streams)
+         + (size_t)2 * kDgStages * 2 * 4 * H * 16                  // gate-gradient tiles
+         + (size_t)2 * 4 * H * kSampleTile * 4                     // per-sample sums
+         + (size_t)2 * (kInStages + 2 * kDgStages) * 8;            // mbarriers
+}
+
+// hi = bf16(v), lo = bf16(v - hi): v = hi + lo to about 2^-17 relative.
+__device__ __forceinline__ void split_bf16(float v, bf16& hi, bf16& lo) {
+  hi = __float2bfloat16_rn(v);
+  lo = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3, pass 1, tensor-core path: the reverse sweep. One CTA = 8 samples
+// through all layers, top down; per direction HT chain warps (gate gradients
+// and dh = W_hh . dg, the dependent chain) and HT side warps (the gradient of
+// the layer's input, dx = W_ih . dg, the copies in and out).
+//   res (layers, 2, L, B, 6H) bf16; dyT (L, B, 2H) bf16; proto (B, L, 2) bf16;
+//   zq (B, Z) bf16; wq: the packed bf16 weights;
+//   dg (layers*2, L, tiles, 2 [hi, lo], 4H, 8) bf16: the split gate gradients;
+//   dxbuf (2 ping-pong, 2 dirs, L, B, 2H) bf16; dpa (2, B, L, 2) bf16;
+//   dz (B, Z) f32; per-tile partial sums wsb (tiles, layers*2, 4H) (bias),
+//   wsp (tiles, 2, 2, 4H) (prototype rows), wsz (tiles, 2, Z, 4H) (z rows).
+// ---------------------------------------------------------------------------
+template <int HT>
+__global__ void __launch_bounds__(128 * HT, 1)
+    train_bwd_sweep_mma_kernel(const bf16* __restrict__ res, const bf16* __restrict__ dyT,
+                               const bf16* __restrict__ proto, const bf16* __restrict__ zq,
+                               const bf16* __restrict__ wq, bf16* dg, bf16* dxbuf, bf16* dpa,
+                               float* dz, float* wsb, float* wsp, float* wsz, int B, int L, int Z,
+                               int layers) {
+  constexpr int H = 16 * HT, G = 4 * H, ROW = 6 * H, RI = kInStages, RD = kDgStages;
+  constexpr int RS = ROW * 2 + 16;  // bytes between staged residual rows (bank spread)
+  constexpr int DS = H * 2 + 16;    // bytes between staged dy rows
+  constexpr int KT = 4 * HT;        // k-tiles of the 4H gate rows
+  constexpr int kDirThreads = 32 * HT;
+  constexpr int kDwpWarp = HT > 1 ? 1 : 0;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* res_ring = smem_raw;                                     // [2][RI][8][RS]
+  unsigned char* dy_ring = res_ring + 2 * RI * kSampleTile * RS;          // [2][RI][2][8][DS]
+  bf16* dg_ring = reinterpret_cast<bf16*>(dy_ring + 2 * RI * 2 * kSampleTile * DS);  // [2][RD][2][G][8]
+  float* sums = reinterpret_cast<float*>(dg_ring + 2 * RD * 2 * G * 8);   // [2][G][8]
+  uint64_t* full_in = reinterpret_cast<uint64_t*>(sums + 2 * G * kSampleTile);  // [2][RI]
+  uint64_t* full_dg = full_in + 2 * RI;                                          // [2][RD]
+  uint64_t* empty_dg = full_dg + 2 * RD;                                         // [2][RD]
+
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int dir = wid / (2 * HT);
+  const int within = wid % (2 * HT);
+  const bool side = within >= HT;
+  const int w = within % HT;
+  const int r = lane >> 2, q = lane & 3;
+  const int tile = blockIdx.x;
+  const int tiles = gridDim.x;
+  const int b0 = tile * kSampleTile;
+  const int nb = min(kSampleTile, B - b0);
+  const size_t stream = (size_t)L * B * 2 * H;  // one direction's input-gradient stream
+
+  // Rows of samples past B are never loaded: zero them once so that their
+  // gate gradients are exact zeros.
+  for (int i = tid * 4; i < 2 * RI * kSampleTile * (RS + 2 * DS); i += nthreads * 4)
+    *reinterpret_cast<uint32_t*>(smem_raw + i) = 0u;
+  if (tid == 0) {
+    for (int i = 0; i < 2 * RI; ++i) mbar_init(full_in + i, 1);
+    for (int i = 0; i < 2 * RD; ++i) {
+      mbar_init(full_dg + i, kDirThreads);
+      mbar_init(empty_dg + i, kDirThreads);
+    }
+    mbar_init_fence();
+  }
+  fence_async_shared();
+  __syncthreads();
+
+  for (int layer = layers - 1; layer >= 0; --layer) {
+    const bool top = layer == layers - 1;
+    const CellOffsets off = cell_offsets(layer, dir, H, Z);
+    const int it0 = (layers - 1 - layer) * L;
+    const int kd = layer * 2 + dir;
+    const bf16* dx_in = dxbuf + (size_t)((layer + 1) & 1) * 2 * stream;  // unless top
+    bf16* dx_out = dxbuf + (size_t)(layer & 1) * 2 * stream;
+
+    // One position's rows for this direction into ring slot it % RI: the
+    // residual row of each sample and its dy (the top layer's cotangent, or
+    // the two per-direction streams the layer above wrote). Called by one
+    // warp; lane s copies sample s.
+    auto start_loads = [&](int u) {
+      const int it = it0 + u;
+      const int slot = it % RI;
+      const int pos = dir ? u : L - 1 - u;
+      uint64_t* bar = full_in + dir * RI + slot;
+      const uint32_t per_sample = ROW * 2 + H * 2 * (top ? 1 : 2);
+      if (lane == 0) mbar_arrive_expect_tx(bar, (uint32_t)nb * per_sample);
+      __syncwarp();
+      if (lane < nb) {
+        const int b = b0 + lane;
+        bulk_load(res_ring + ((size_t)(dir * RI + slot) * kSampleTile + lane) * RS,
+                  res + res_row(layer, dir, pos, b, L, B, H), ROW * 2, bar);
+        unsigned char* dyd = dy_ring + ((size_t)(dir * RI + slot) * 2 * kSampleTile + lane) * DS;
+        const size_t row = ((size_t)pos * B + b) * 2 * H + dir * H;
+        if (top) {
+          bulk_load(dyd, dyT + row, H * 2, bar);
+        } else {
+          bulk_load(dyd, dx_in + row, H * 2, bar);
+          bulk_load(dyd + kSampleTile * DS, dx_in + stream + row, H * 2, bar);
+        }
+      }
+    };
+
+    if (side) {
+      // ---- off the chain: copies, dx = W_ih . dg, the prototype's parts ----
+      // Layer 1 has no layer below: tile 0 of warp 0 holds the prototype's two
+      // weight rows (zero padded) instead, giving the prototype gradient.
+      uint32_t a[2][KT][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt) {
+          const int m = 16 * (2 * w + mt) + 2 * r;  // tile rows r, r+8: features m, m+1
+          const int k = 16 * kt + 2 * q;
+          const int rows = layer == 0 ? 2 : 2 * H;
+          const uint32_t* lo_row =
+              reinterpret_cast<const uint32_t*>(wq + off.w_ih + (size_t)m * G + k);
+          const uint32_t* hi_row =
+              reinterpret_cast<const uint32_t*>(wq + off.w_ih + (size_t)(m + 1) * G + k);
+          a[mt][kt][0] = m < rows ? __ldg(lo_row) : 0u;
+          a[mt][kt][1] = m + 1 < rows ? __ldg(hi_row) : 0u;
+          a[mt][kt][2] = m < rows ? __ldg(lo_row + 4) : 0u;
+          a[mt][kt][3] = m + 1 < rows ? __ldg(hi_row + 4) : 0u;
+        }
+      float dwp[G / 32][2];  // layer 1, one warp: sum over (t, tile) of proto . dg
+#pragma unroll
+      for (int i = 0; i < G / 32; ++i) dwp[i][0] = dwp[i][1] = 0.0f;
+
+      if (w == 0)
+        for (int u = 0; u < min(RI, L); ++u) start_loads(u);
+
+      for (int u = 0; u < L; ++u) {
+        const int pos = dir ? u : L - 1 - u;
+        const int it = it0 + u;
+        const int slot = it % RD;
+        const bf16* tile_hi = dg_ring + (size_t)(dir * RD + slot) * 2 * G * 8;
+        float pc[kSampleTile][2];
+        if (layer == 0 && w == kDwpWarp) {
+#pragma unroll
+          for (int s = 0; s < kSampleTile; ++s) {
+            pc[s][0] = pc[s][1] = 0.0f;
+            if (s < nb) {
+              const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+                  proto + ((size_t)(b0 + s) * L + pos) * 2);
+              pc[s][0] = __bfloat162float(v.x);
+              pc[s][1] = __bfloat162float(v.y);
+            }
+          }
+        }
+        mbar_wait(full_dg + dir * RD + slot, (it / RD) & 1);
+        if (w == 0) {
+          // The chain has read ring slot it % RI for the last time.
+          if (u + RI < L) start_loads(u + RI);
+          if (lane == 0) {
+            bulk_store(dg + (((size_t)kd * L + pos) * tiles + tile) * 2 * G * 8, tile_hi,
+                       2 * G * 16);
+            bulk_commit();
+          }
+        }
+        if (layer > 0 || w == 0) {
+          float acc[2][2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mt][hl][e] = 0.0f;
+#pragma unroll
+          for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+            for (int kp = 0; kp < KT / 2; ++kp) {
+              uint32_t bfr[4];
+              ldmatrix_x4_trans(bfr, tile_hi + ((size_t)hl * G + 32 * kp + lane) * 8);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_bf16(acc[mt][hl], a[mt][2 * kp], bfr[0], bfr[1]);
+                mma_bf16(acc[mt][hl], a[mt][2 * kp + 1], bfr[2], bfr[3]);
+              }
+            }
+          if (layer > 0) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int m = 16 * (2 * w + mt) + 2 * r;
+                const int b = b0 + 2 * q + e;
+                if (b < B)
+                  *reinterpret_cast<uint32_t*>(dx_out + dir * stream +
+                                               ((size_t)pos * B + b) * 2 * H + m) =
+                      pack_bf16(acc[mt][0][e] + acc[mt][1][e], acc[mt][0][e + 2] + acc[mt][1][e + 2]);
+              }
+          } else if (r == 0) {
+            // Tile rows 0 and 8 are the prototype's two coordinates.
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int b = b0 + 2 * q + e;
+              if (b < B)
+                *reinterpret_cast<uint32_t*>(dpa + (size_t)dir * B * L * 2 +
+                                             ((size_t)b * L + pos) * 2) =
+                    pack_bf16(acc[0][0][e] + acc[0][1][e], acc[0][0][e + 2] + acc[0][1][e + 2]);
+            }
+          }
+        }
+        if (layer == 0 && w == kDwpWarp) {
+#pragma unroll
+          for (int i = 0; i < G / 32; ++i) {
+            const int n = lane + 32 * i;
+            const uint4 vh = *reinterpret_cast<const uint4*>(tile_hi + (size_t)n * 8);
+            const uint4 vl = *reinterpret_cast<const uint4*>(tile_hi + (size_t)(G + n) * 8);
+            const uint32_t wh[4] = {vh.x, vh.y, vh.z, vh.w};
+            const uint32_t wl[4] = {vl.x, vl.y, vl.z, vl.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 fh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wh[e]));
+              const float2 fl = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wl[e]));
+              const float g0 = fh.x + fl.x, g1 = fh.y + fl.y;
+#pragma unroll
+              for (int cc = 0; cc < 2; ++cc) {
+                dwp[i][cc] = fmaf(pc[2 * e][cc], g0, dwp[i][cc]);
+                dwp[i][cc] = fmaf(pc[2 * e + 1][cc], g1, dwp[i][cc]);
+              }
+            }
+          }
+        }
+        if (w == 0 && lane == 0) bulk_wait_read();  // the tile's copy out has read it
+        mbar_arrive(empty_dg + dir * RD + slot);
+      }
+      if (layer == 0 && w == kDwpWarp) {
+#pragma unroll
+        for (int i = 0; i < G / 32; ++i)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc)
+            wsp[((size_t)(tile * 2 + dir) * 2 + cc) * G + lane + 32 * i] = dwp[i][cc];
+      }
+    } else {
+      // ---- the dependent chain ----
+      uint32_t a[KT][4];  // W_hh rows 16w + {2r, 2r+1} (tile rows r, r+8), all 4H columns
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        const uint32_t* lo_row = reinterpret_cast<const uint32_t*>(
+            wq + off.w_hh + (size_t)(16 * w + 2 * r) * G + 16 * kt + 2 * q);
+        const uint32_t* hi_row = lo_row + G / 2;
+        a[kt][0] = __ldg(lo_row);
+        a[kt][1] = __ldg(hi_row);
+        a[kt][2] = __ldg(lo_row + 4);
+        a[kt][3] = __ldg(hi_row + 4);
+      }
+      float dh[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float dgsum[4][4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dgsum[g][j] = 0.0f;
+
+      for (int u = 0; u < L; ++u) {
+        const int it = it0 + u;
+        const int slot_in = it % RI;
+        const int slot = it % RD;
+        const bool has_prev = u + 1 < L;
+        mbar_wait(full_in + dir * RI + slot_in, (it / RI) & 1);
+        if (has_prev) mbar_wait(full_in + dir * RI + (it + 1) % RI, ((it + 1) / RI) & 1);
+        const unsigned char* rows = res_ring + (size_t)(dir * RI + slot_in) * kSampleTile * RS;
+        const unsigned char* prev_rows =
+            res_ring + (size_t)(dir * RI + (it + 1) % RI) * kSampleTile * RS;
+        const unsigned char* dys = dy_ring + (size_t)(dir * RI + slot_in) * 2 * kSampleTile * DS;
+        // This step's factors, independent of the carried dh and dc.
+        // Pair j is unit 16w + 2r + j / 2, sample 2q + j % 2: a sample's two
+        // units are one 32-bit word of each plane.
+        float dyv[4], tc[4], ig[4], fg[4], gg[4], og[4], c_prev[4];
+        const int unit = 16 * w + 2 * r;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int s = 2 * q + e;
+          const uint32_t* row = reinterpret_cast<const uint32_t*>(rows + s * RS) + unit / 2;
+          const auto two = [](uint32_t word) {
+            return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&word));
+          };
+          const float2 cv = two(row[H / 2]), iv = two(row[H]), fv = two(row[3 * H / 2]),
+                       gv = two(row[2 * H]), ov = two(row[5 * H / 2]);
+          const float2 pv =
+              has_prev ? two(reinterpret_cast<const uint32_t*>(prev_rows + s * RS)[(H + unit) / 2])
+                       : make_float2(0.0f, 0.0f);
+          float2 dv = two(reinterpret_cast<const uint32_t*>(dys + s * DS)[unit / 2]);
+          if (!top) {
+            const float2 d2 =
+                two(reinterpret_cast<const uint32_t*>(dys + (kSampleTile + s) * DS)[unit / 2]);
+            dv.x = __bfloat162float(__float2bfloat16_rn(dv.x + d2.x));
+            dv.y = __bfloat162float(__float2bfloat16_rn(dv.y + d2.y));
+          }
+          tc[e] = tanh_fast(cv.x), tc[e + 2] = tanh_fast(cv.y);
+          ig[e] = iv.x, ig[e + 2] = iv.y;
+          fg[e] = fv.x, fg[e + 2] = fv.y;
+          gg[e] = gv.x, gg[e + 2] = gv.y;
+          og[e] = ov.x, og[e + 2] = ov.y;
+          c_prev[e] = pv.x, c_prev[e + 2] = pv.y;
+          dyv[e] = dv.x, dyv[e + 2] = dv.y;
+        }
+        if (u > 0) {
+          // dh = W_hh . dg of the previous step, hi and lo parts, four
+          // independent accumulation chains.
+          const bf16* prev_tile = dg_ring + (size_t)(dir * RD + (it - 1) % RD) * 2 * G * 8;
+          float acc[2][2][4];
+#pragma unroll
+          for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+            for (int par = 0; par < 2; ++par)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[hl][par][e] = 0.0f;
+#pragma unroll
+          for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+            for (int kp = 0; kp < KT / 2; ++kp) {
+              uint32_t bfr[4];
+              ldmatrix_x4_trans(bfr, prev_tile + ((size_t)hl * G + 32 * kp + lane) * 8);
+              mma_bf16(acc[hl][0], a[2 * kp], bfr[0], bfr[1]);
+              mma_bf16(acc[hl][1], a[2 * kp + 1], bfr[2], bfr[3]);
+            }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dh[e] = (acc[0][0][e] + acc[0][1][e]) + (acc[1][0][e] + acc[1][1][e]);
+        }
+        mbar_wait(empty_dg + dir * RD + slot, ((it / RD) & 1) ^ 1);
+        bf16* out_hi = dg_ring + (size_t)(dir * RD + slot) * 2 * G * 8;
+        float v[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float dhv = dh[j] + dyv[j];
+          const float dov = dhv * tc[j];
+          const float dcv = dc[j] + dhv * og[j] * (1.0f - tc[j] * tc[j]);
+          v[0][j] = dcv * gg[j] * ig[j] * (1.0f - ig[j]);
+          v[1][j] = dcv * c_prev[j] * fg[j] * (1.0f - fg[j]);
+          v[2][j] = dcv * ig[j] * (1.0f - gg[j] * gg[j]);
+          v[3][j] = dov * og[j] * (1.0f - og[j]);
+          dc[j] = dcv * fg[j];
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            bf16 h0, l0, h1, l1;
+            split_bf16(v[g][2 * half], h0, l0);
+            split_bf16(v[g][2 * half + 1], h1, l1);
+            const int n = g * H + 16 * w + 2 * r + half;
+            // Samples 2q and 2q+1 of gate row n: one 32-bit store each.
+            reinterpret_cast<uint32_t*>(out_hi + (size_t)n * 8)[q] = pack_bf16(h0, h1);
+            reinterpret_cast<uint32_t*>(out_hi + (size_t)(G + n) * 8)[q] = pack_bf16(l0, l1);
+            dgsum[g][2 * half] += v[g][2 * half];
+            dgsum[g][2 * half + 1] += v[g][2 * half + 1];
+          }
+        fence_async_shared();
+        mbar_arrive(full_dg + dir * RD + slot);   // to the side warps
+        named_barrier(1 + dir, kDirThreads);      // the chain's own exchange of the tile
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          sums[((size_t)dir * G + g * H + 16 * w + 2 * r + (j >> 1)) * kSampleTile + 2 * q +
+               (j & 1)] = dgsum[g][j];
+    }
+    __threadfence();
+    fence_async_all();  // the dx rows written here are bulk-loaded by the layer below
+    __syncthreads();
+    // The bias gradient's part of this tile: the sum over its samples.
+    for (int i = tid; i < 2 * G; i += nthreads) {
+      float s = 0.0f;
+#pragma unroll
+      for (int e = 0; e < kSampleTile; ++e) s += sums[(size_t)i * kSampleTile + e];
+      wsb[((size_t)tile * layers * 2 + layer * 2 + i / G) * G + i % G] = s;
+    }
+    if (layer == 0) {
+      // dz = W_z . sum_t dg per sample, and this tile's part of dW_z = z^T . sum_t dg.
+      for (int i = tid; i < kSampleTile * Z; i += nthreads) {
+        const int s = i / Z, k = i % Z;
+        if (s >= nb) continue;
+        float acc = 0.0f;
+        for (int d = 0; d < 2; ++d) {
+          const bf16* wrow = wq + cell_offsets(0, d, H, Z).w_ih + (size_t)(2 + k) * G;
+          const float* v = sums + (size_t)d * G * kSampleTile + s;
+          for (int n = 0; n < G; ++n)
+            acc = fmaf(__bfloat162float(__ldg(wrow + n)), v[n * kSampleTile], acc);
+        }
+        dz[(size_t)(b0 + s) * Z + k] = acc;
+      }
+      for (int i = tid; i < 2 * Z * G; i += nthreads) {
+        const int d = i / (Z * G), k = (i / G) % Z, n = i % G;
+        float acc = 0.0f;
+        for (int s = 0; s < nb; ++s)
+          acc = fmaf(__bfloat162float(__ldg(zq + (size_t)(b0 + s) * Z + k)),
+                     sums[((size_t)d * G + n) * kSampleTile + s], acc);
+        wsz[(size_t)tile * 2 * Z * G + i] = acc;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int kWgStages = 3;    // cp.async ring of the weight-gradient product
+constexpr int kWgRows = 64;     // rows of the sum per stage: four k-steps of 16
+constexpr int kWgThreads = 384; // 3 row groups (the operand's parts) x 4 column groups
+
+template <int HT>
+constexpr size_t wgrad_mma_smem_bytes() {
+  constexpr int H = 16 * HT;
+  return (size_t)kWgStages * (3 * kWgRows * (H * 2 + 16) + (kWgRows / 8) * 2 * 4 * H * 16);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst_smem, const void* src, bool valid) {
+  const int bytes = valid ? 16 : 0;  // 0: the 16 bytes are filled with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst_smem)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3, pass 2, tensor-core path. Per (layer, direction) kd and split of
+// the positions: ws[split, kd] (3H x 4H) = lhs^T . (dg_hi + dg_lo) over the
+// split's rows r = pos * B + b, where lhs = [h of the layer below, forward |
+// the same, backward | this layer's h one step earlier]: the h planes of
+// consecutive residual rows, copied 16 bytes at a time (rows past the ends
+// zero-filled), never gathered by element. Both operands have the summed
+// index as their slow one: lhs^T comes out of shared memory through
+// ldmatrix.trans, and dg was stored by the sweep with its 8 samples
+// innermost, which is the B fragment's order. Layer 1's input parts (the
+// prototype, z) are summed by the sweep itself.
+// Grid (layers * 2, splits); warp (part, ng) owns rows part*H.. and a quarter
+// of the 4H columns.
+// ---------------------------------------------------------------------------
+template <int HT>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    train_bwd_wgrad_mma_kernel(const bf16* __restrict__ res, const bf16* __restrict__ dg,
+                               float* __restrict__ ws, int B, int L, int tiles,
+                               int pos_per_split) {
+  constexpr int H = 16 * HT, G = 4 * H;
+  constexpr int AS = H * 2 + 16;                // bytes per staged lhs row
+  constexpr int A_STAGE = 3 * kWgRows * AS;
+  constexpr int B_TILE = 2 * G * 16;            // one 8-sample tile: hi and lo planes
+  constexpr int STAGE = A_STAGE + (kWgRows / 8) * B_TILE;
+  constexpr int NT = 2 * HT;                    // 8-column tiles per warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int part = wid >> 2, ng = wid & 3;
+  const int r = lane >> 2, q = lane & 3;
+  const int kd = blockIdx.x;
+  const int layer = kd >> 1, dir = kd & 1;
+  const int split = blockIdx.y;
+  const int p_begin = split * pos_per_split;
+  const int p_end = min(L, p_begin + pos_per_split);
+  const int chunks = (B + kWgRows - 1) / kWgRows;
+  const int n_iter = max(0, p_end - p_begin) * chunks;
+  const bool active = layer > 0 || part == 2;
+
+  auto load = [&](int iter) {
+    unsigned char* st = smem_raw + (size_t)(iter % kWgStages) * STAGE;
+    const int pos = p_begin + iter / chunks;
+    const int c = iter % chunks;
+    for (int i = tid; i < 3 * kWgRows * NT; i += kWgThreads) {
+      const int p = i / (kWgRows * NT);
+      const int row = (i / NT) % kWgRows;
+      const int ch = i % NT;
+      const int b = c * kWgRows + row;
+      bool valid = b < B;
+      size_t src = 0;
+      if (p < 2) {
+        valid = valid && layer > 0;
+        if (valid) src = res_row(layer - 1, p, pos, b, L, B, H);
+      } else {
+        const int prev = dir ? pos + 1 : pos - 1;
+        valid = valid && prev >= 0 && prev < L;
+        if (valid) src = res_row(layer, dir, prev, b, L, B, H);
+      }
+      cp_async16(st + (size_t)(p * kWgRows + row) * AS + ch * 16, res + src + ch * 8, valid);
+    }
+    for (int i = tid; i < (kWgRows / 8) * 2 * G; i += kWgThreads) {
+      const int t8 = i / (2 * G);
+      const int rem = i % (2 * G);
+      const int tl = c * (kWgRows / 8) + t8;
+      const bool valid = tl < tiles;
+      const size_t src = valid ? ((((size_t)kd * L + pos) * tiles + tl) * 2 * G + rem) * 8 : 0;
+      cp_async16(st + A_STAGE + (size_t)i * 16, dg + src, valid);
+    }
+  };
+
+  float acc[HT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < HT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < n_iter) load(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int iter = 0; iter < n_iter; ++iter) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kWgStages - 2) : "memory");
+    __syncthreads();  // stage iter has landed; stage iter - 1 is free
+    if (iter + kWgStages - 1 < n_iter) load(iter + kWgStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (!active) continue;
+    const unsigned char* st = smem_raw + (size_t)(iter % kWgStages) * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 16; ++kk) {
+      uint32_t af[HT][4];
+#pragma unroll
+      for (int mt = 0; mt < HT; ++mt)
+        ldmatrix_x4_trans(af[mt], st + (size_t)(part * kWgRows + 16 * kk + (lane & 7) +
+                                                ((lane >> 4) << 3)) * AS +
+                                          (16 * mt + ((lane >> 3) & 1) * 8) * 2);
+      const unsigned char* t0 = st + A_STAGE + (size_t)(2 * kk) * B_TILE;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = (ng * NT + nt) * 8 + r;
+#pragma unroll
+        for (int hl = 0; hl < 2; ++hl) {
+          const uint32_t b0 =
+              *reinterpret_cast<const uint32_t*>(t0 + (size_t)(hl * G + n) * 16 + q * 4);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(t0 + B_TILE +
+                                                                 (size_t)(hl * G + n) * 16 + q * 4);
+#pragma unroll
+          for (int mt = 0; mt < HT; ++mt) mma_bf16(acc[mt][nt], af[mt], b0, b1);
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  float* out = ws + ((size_t)split * gridDim.x + kd) * 3 * H * G;
+#pragma unroll
+  for (int mt = 0; mt < HT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = part * H + 16 * mt + r + 8 * half;
+        const int n = (ng * NT + nt) * 8 + 2 * q;
+        *reinterpret_cast<float2*>(out + (size_t)m * G + n) =
+            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
+}
+
+// Kernel 3, pass 3, tensor-core path: dw = every partial sum added in a fixed
+// order (splits of pass 2; sample tiles of the sweep's bias, prototype and z
+// parts), laid out per layer and direction as [dW_ih; dW_hh; db] x 4H.
+__global__ void train_bwd_assemble_kernel(const float* __restrict__ ws,
+                                          const float* __restrict__ wsb,
+                                          const float* __restrict__ wsp,
+                                          const float* __restrict__ wsz, float* __restrict__ dw,
+                                          int H, int Z, int layers, int splits, int tiles) {
+  const int G = 4 * H;
+  const size_t first = (size_t)2 * (2 + Z + H + 1) * G;
+  const size_t rest = (size_t)2 * (3 * H + 1) * G;
+  const size_t total = first + (layers - 1) * rest;
+  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    const int layer = idx < first ? 0 : 1 + (int)((idx - first) / rest);
+    const size_t rem = idx < first ? idx : (idx - first) % rest;
+    const int din = layer == 0 ? 2 + Z : 2 * H;
+    const int M = din + H + 1;
+    const int dir = (int)(rem / ((size_t)M * G));
+    const int m = (int)((rem % ((size_t)M * G)) / G);
+    const int n = (int)(rem % G);
+    const int kd = layer * 2 + dir;
+    float s = 0.0f;
+    if (m == din + H) {
+      for (int t = 0; t < tiles; ++t) s += wsb[((size_t)t * layers * 2 + kd) * G + n];
+    } else if (layer == 0 && m < 2) {
+      for (int t = 0; t < tiles; ++t) s += wsp[((size_t)(t * 2 + dir) * 2 + m) * G + n];
+    } else if (layer == 0 && m < din) {
+      for (int t = 0; t < tiles; ++t) s += wsz[((size_t)(t * 2 + dir) * Z + m - 2) * G + n];
+    } else {
+      const int row = m < din ? m : 2 * H + m - din;
+      for (int z = 0; z < splits; ++z)
+        s += ws[(((size_t)z * layers * 2 + kd) * 3 * H + row) * G + n];
+    }
+    dw[idx] = s;
+  }
+}
+
+template <int HT>
+int launch_fwd_mma(const void* proto, const float* z, const void* wq, const float* wf, void* res,
+                   void* out, int B, int L, int Z, int layers, cudaStream_t stream) {
+  const size_t smem = fwd_mma_smem_bytes<HT>();
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_mma_kernel<HT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (B + kSampleTile - 1) / kSampleTile;
+  train_fwd_mma_kernel<HT><<<tiles, 128 * HT, smem, stream>>>(
+      static_cast<const bf16*>(proto), z, static_cast<const bf16*>(wq), wf,
+      static_cast<bf16*>(res), static_cast<bf16*>(out), B, L, Z, layers);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HT>
+int launch_bwd_mma(const void* res, const void* dyT, const void* proto, const void* zq,
+                   const void* wq, void* dg, void* dxbuf, void* dpa, float* dz, float* ws,
+                   float* wsb, float* wsp, float* wsz, float* dw, int B, int L, int Z, int layers,
+                   int splits, cudaStream_t stream) {
+  constexpr int H = 16 * HT;
+  const int tiles = (B + kSampleTile - 1) / kSampleTile;
+  const bf16* res_t = static_cast<const bf16*>(res);
+  {
+    const size_t smem = sweep_mma_smem_bytes<HT>();
+    cudaError_t err = cudaFuncSetAttribute(train_bwd_sweep_mma_kernel<HT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    train_bwd_sweep_mma_kernel<HT><<<tiles, 128 * HT, smem, stream>>>(
+        res_t, static_cast<const bf16*>(dyT), static_cast<const bf16*>(proto),
+        static_cast<const bf16*>(zq), static_cast<const bf16*>(wq), static_cast<bf16*>(dg),
+        static_cast<bf16*>(dxbuf), static_cast<bf16*>(dpa), dz, wsb, wsp, wsz, B, L, Z, layers);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  {
+    const size_t smem = wgrad_mma_smem_bytes<HT>();
+    cudaError_t err = cudaFuncSetAttribute(train_bwd_wgrad_mma_kernel<HT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int pos_per_split = (L + splits - 1) / splits;
+    train_bwd_wgrad_mma_kernel<HT><<<dim3(layers * 2, splits), kWgThreads, smem, stream>>>(
+        res_t, static_cast<const bf16*>(dg), ws, B, L, tiles, pos_per_split);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t total =
+      (size_t)2 * ((2 + Z + H + 1) + (size_t)(layers - 1) * (3 * H + 1)) * 4 * H;
+  const size_t wanted = (total + 255) / 256;
+  const int blocks = wanted < 4096 ? (int)wanted : 4096;
+  train_bwd_assemble_kernel<<<blocks, 256, 0, stream>>>(ws, wsb, wsp, wsz, dw, H, Z, layers,
+                                                        splits, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_shape(int B, int L, int H, int Z, int layers) {
   return B < 1 || L < 1 || H < 1 || Z < 0 || layers < 1 || 2 * H * kSampleGroups > 1024;
 }
@@ -678,6 +1584,72 @@ int wgg_bilstm_train_bwd(const void* res, const void* dy, const void* proto, con
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(res, dy, proto, zq, whhT, wihT, wpT, wz, gates, dxbuf, dpa,
                                      dz, ws, dw, B, L, H, Z, layers, splits, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core path: bfloat16 only, H in {16, 32, 48} (the wrapper's
+// dispatch rule; anything else returns cudaErrorInvalidValue). wq / wf are the
+// packed weights (bilstm_step.cuh) in bf16 and f32.
+int wgg_bilstm_train_fwd_mma(const void* proto, const float* z, const void* wq, const float* wf,
+                             void* res, void* out, int B, int L, int H, int Z, int layers,
+                             void* stream) {
+  if (bad_shape(B, L, H, Z, layers)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H == 16) return launch_fwd_mma<1>(proto, z, wq, wf, res, out, B, L, Z, layers, s);
+  if (H == 32) return launch_fwd_mma<2>(proto, z, wq, wf, res, out, B, L, Z, layers, s);
+  if (H == 48) return launch_fwd_mma<3>(proto, z, wq, wf, res, out, B, L, Z, layers, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dyT (L, B, 2H) bf16; dg (layers*2, L, tiles, 2, 4H, 8) bf16 with tiles =
+// ceil(B / 8); ws (splits, layers*2, 3H, 4H) f32, splits <= L; wsb (tiles,
+// layers*2, 4H), wsp (tiles, 2, 2, 4H), wsz (tiles, 2, Z, 4H) f32; dw as for
+// wgg_bilstm_train_bwd.
+int wgg_bilstm_train_bwd_mma(const void* res, const void* dyT, const void* proto, const void* zq,
+                             const void* wq, void* dg, void* dxbuf, void* dpa, float* dz,
+                             float* ws, float* wsb, float* wsp, float* wsz, float* dw, int B,
+                             int L, int H, int Z, int layers, int splits, void* stream) {
+  if (bad_shape(B, L, H, Z, layers) || splits < 1 || splits > L ||
+      (long long)L * B > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WGG_BWD_MMA(HT)                                                                        \
+  return launch_bwd_mma<HT>(res, dyT, proto, zq, wq, dg, dxbuf, dpa, dz, ws, wsb, wsp, wsz, dw, \
+                            B, L, Z, layers, splits, s)
+  if (H == 16) WGG_BWD_MMA(1);
+  if (H == 32) WGG_BWD_MMA(2);
+  if (H == 48) WGG_BWD_MMA(3);
+#undef WGG_BWD_MMA
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory per CTA (info[0]), threads per CTA (info[1]) and
+// resident CTAs per SM (info[2]) of a tensor-core kernel: 0 = forward,
+// 1 = sweep, 2 = weight-gradient product. Returns a cudaError_t.
+int wgg_bilstm_train_mma_info(int H, int kernel, int* info) {
+#define WGG_INFO(FN, SMEM, THREADS)                                                            \
+  {                                                                                            \
+    info[0] = (int)(SMEM);                                                                     \
+    info[1] = (THREADS);                                                                       \
+    cudaError_t err =                                                                          \
+        cudaFuncSetAttribute(FN, cudaFuncAttributeMaxDynamicSharedMemorySize, info[0]);        \
+    if (err == cudaSuccess)                                                                    \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], FN, info[1], info[0]);     \
+    return static_cast<int>(err);                                                              \
+  }
+#define WGG_INFO_HT(HT)                                                                        \
+  {                                                                                            \
+    if (kernel == 0) WGG_INFO(train_fwd_mma_kernel<HT>, fwd_mma_smem_bytes<HT>(), 128 * HT)    \
+    if (kernel == 1)                                                                           \
+      WGG_INFO(train_bwd_sweep_mma_kernel<HT>, sweep_mma_smem_bytes<HT>(), 128 * HT)           \
+    if (kernel == 2)                                                                           \
+      WGG_INFO(train_bwd_wgrad_mma_kernel<HT>, wgrad_mma_smem_bytes<HT>(), kWgThreads)         \
+  }
+  if (H == 16) WGG_INFO_HT(1)
+  if (H == 32) WGG_INFO_HT(2)
+  if (H == 48) WGG_INFO_HT(3)
+#undef WGG_INFO_HT
+#undef WGG_INFO
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

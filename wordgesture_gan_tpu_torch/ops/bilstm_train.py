@@ -6,8 +6,9 @@ ties them together.
 Port of the JAX package's ``ops/bilstm_train.py`` (the Pallas TPU kernels
 ``_fwd_kernel``, launched by ``_fwd_call``, and ``_bwd_kernel``, launched by
 ``_bwd_call``, under the ``jax.custom_vjp`` ``_train_core``). The CUDA
-kernels are in ``csrc/bilstm_train.cu``; its source note says what bounds
-them on an H100 and how they are laid out.
+kernels are in ``csrc/bilstm_train.cu`` (the forward step they share with
+the next inference kernel in ``csrc/bilstm_step.cuh``); the source notes say
+what bounds them on an H100 and how they are laid out.
 
 Casting contract (the TPU pair's):
 
@@ -15,7 +16,8 @@ Casting contract (the TPU pair's):
   gate sums, nonlinearities and the carried cell state float32, h rounded to
   the compute dtype every step, the layer-1 latent projection float32; every
   residual row [h | c | i | f | g | o] is stored rounded to the compute dtype.
-  The output equals the inference kernel's;
+  The output agrees with the inference kernel's within the kernels'
+  tolerance (the two sum in different orders);
 * backward — dy is rounded to the compute dtype; every gradient product runs
   in float32 with the weights rounded to the compute dtype (the static-z rows
   too); c_prev and h_prev come from the stored, rounded residuals; the
@@ -30,13 +32,29 @@ step), planes [h | c | i | f | g | o].
 
 Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
 kernels, and a build or launch failure raises. There is no other path.
+
+Two kernel paths, chosen by ``kernel_path`` from the compute dtype and the
+shape alone (never by trying one and falling back):
+
+* ``"mma"`` — bfloat16 with H in {16, 32, 48} (the flagship recipe: H=48),
+  any B, L, Z and depth: the tensor-core kernels (``mma.sync`` bf16 with
+  float32 accumulation), weights held on chip for a whole layer, residual
+  rows and gate gradients moved as whole blocks. The backward's float32 gate
+  gradients enter the tensor cores split in two bfloat16 terms
+  (``split_hi_lo``), both products accumulated in float32, so the products
+  stay float32 products of rounded weights/residuals to about 2^-17;
+* ``"general"`` — float32, and bfloat16 at any other H <= 256: the CUDA-core
+  kernels, every product in full float32.
+
+``bilstm_train_fwd.launches`` / ``bilstm_train_bwd.launches`` count all
+launches, ``.launches_by_path`` the launches of each path.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -48,6 +66,11 @@ _DIRS = ("fwd", "bwd")
 # Rows of the backward's weight-gradient product per split of the (L·B) sum.
 _ROWS_PER_SPLIT = 2048
 _MAX_SPLITS = 16
+# The tensor-core path: hidden sizes its kernels are instantiated for, samples
+# per CTA, and how many CTAs the weight-gradient product should fill.
+MMA_HIDDEN = (16, 32, 48)
+_SAMPLE_TILE = 8
+_WGRAD_CTAS = 132
 
 
 # ---------------------------------------------------------------------------
@@ -63,15 +86,20 @@ def bilstm_train_fwd_plain(layers: List[Dict], x: torch.Tensor, static: torch.Te
 
 
 def bilstm_train_bwd_plain(layers: List[Dict], x: torch.Tensor, static: torch.Tensor,
-                           res: torch.Tensor, dy: torch.Tensor, hidden: int,
-                           dtype: torch.dtype) -> Tuple[List[Dict], torch.Tensor, torch.Tensor]:
+                           res: torch.Tensor, dy: torch.Tensor, hidden: int, dtype: torch.dtype,
+                           gate_grads: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                           ) -> Tuple[List[Dict], torch.Tensor, torch.Tensor]:
     """Kernel 3's function: the stack's gradients from the forward's
     residuals and the output cotangent ``dy`` (B, L, 2H).
 
     Returns (per-layer gradient tree in the weights' layout, float32;
     d prototype (B, L, 2) float32; d static (B, Z) float32). Step by step as
     the kernel: the reverse sweep of both directions together, top layer
-    first; the sums over (time, batch) are taken after each layer's sweep."""
+    first; the sums over (time, batch) are taken after each layer's sweep.
+
+    ``gate_grads``, if given, maps each step's float32 gate gradients to the
+    values that enter the products (the tensor-core path feeds them as
+    ``hi + lo`` of ``split_hi_lo``); the default is the float32 values."""
     f32 = torch.float32
     H = hidden
     n, _, L, B, _ = res.shape
@@ -105,6 +133,8 @@ def bilstm_train_bwd_plain(layers: List[Dict], x: torch.Tensor, static: torch.Te
             dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
             dg = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
                             dc * i * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)   # (2, B, 4H)
+            if gate_grads is not None:
+                dg = gate_grads(dg)
             dc = dc * f
             dh = torch.bmm(dg, whh.transpose(1, 2))
             dG[0, L - 1 - u] = dg[0]
@@ -151,6 +181,12 @@ def _library() -> ctypes.CDLL:
     lib.wgg_bilstm_train_fwd.restype = i
     lib.wgg_bilstm_train_bwd.argtypes = [p] * 14 + [i] * 7 + [p]
     lib.wgg_bilstm_train_bwd.restype = i
+    lib.wgg_bilstm_train_fwd_mma.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.wgg_bilstm_train_fwd_mma.restype = i
+    lib.wgg_bilstm_train_bwd_mma.argtypes = [p] * 14 + [i] * 6 + [p]
+    lib.wgg_bilstm_train_bwd_mma.restype = i
+    lib.wgg_bilstm_train_mma_info.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wgg_bilstm_train_mma_info.restype = i
     lib.wgg_cuda_error_string.argtypes = [i]
     lib.wgg_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -197,6 +233,150 @@ def _splits(rows: int) -> int:
     return max(1, min(_MAX_SPLITS, rows // _ROWS_PER_SPLIT))
 
 
+def kernel_path(dtype: torch.dtype, hidden: int, seq: int, layers: int) -> str:
+    """Which kernels a CUDA call takes: ``"mma"`` (tensor cores) for bfloat16
+    with H in ``MMA_HIDDEN``, ``"general"`` (CUDA cores) otherwise. A pure
+    function of the dtype and the shape; every sequence length and depth is
+    served by both paths, so ``seq`` and ``layers`` do not change the answer."""
+    if seq < 1 or layers < 1:
+        raise ValueError(f"need at least one position and one layer, got L={seq}, {layers} layers")
+    return "mma" if dtype == torch.bfloat16 and hidden in MMA_HIDDEN else "general"
+
+
+def packed_sizes(hidden: int, latent: int, n_layers: int) -> List[Tuple[int, ...]]:
+    """Shapes of the packed weights' tensors, in their order: per layer, per
+    direction, w_ih (din, 4H), w_hh (H, 4H), b_ih (4H,), b_hh (4H,), with
+    din = 2 + Z for layer 1 and 2H above (``csrc/bilstm_step.cuh``:
+    ``cell_offsets``)."""
+    shapes = []
+    for k in range(n_layers):
+        din = 2 + latent if k == 0 else 2 * hidden
+        for _ in _DIRS:
+            shapes += [(din, 4 * hidden), (hidden, 4 * hidden), (4 * hidden,), (4 * hidden,)]
+    return shapes
+
+
+def packed_weights(layers: List[Dict], dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stack's weights for the tensor-core kernels: one flat float32
+    buffer of every tensor in the model's own (row-major) layout and order,
+    and the same buffer rounded to ``dtype``. No padding and no transposition:
+    the kernels build their register fragments from this layout once per
+    layer. Two small launches (one concatenation, one cast)."""
+    flat = torch.cat([layer[d][name].reshape(-1).to(torch.float32)
+                      for layer in layers for d in _DIRS for name in _CELL])
+    return flat, flat.to(dtype)
+
+
+def unpack_weights(flat: torch.Tensor, hidden: int, latent: int, n_layers: int) -> List[Dict]:
+    """The inverse of ``packed_weights``: views of ``flat`` as the model's tree."""
+    shapes = packed_sizes(hidden, latent, n_layers)
+    sizes = [int(torch.Size(shape).numel()) for shape in shapes]
+    if flat.numel() != sum(sizes):
+        raise ValueError(f"packed weights hold {flat.numel()} values, the stack {sum(sizes)}")
+    parts = iter(t.view(shape) for t, shape in zip(flat.split(sizes), shapes))
+    return _unflatten(parts, n_layers)
+
+
+def split_hi_lo(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float32 tensor as two bfloat16 terms, ``hi = bf16(t)`` and ``lo =
+    bf16(t - hi)``: ``hi + lo`` reproduces ``t`` to about 2^-17 relative. The
+    form in which the tensor-core backward feeds its float32 gate gradients to
+    bf16 products (both terms' products accumulate in float32)."""
+    hi = t.to(torch.bfloat16)
+    lo = (t - hi.to(torch.float32)).to(torch.bfloat16)
+    return hi, lo
+
+
+def mma_kernel_info(hidden: int) -> Dict[str, Dict[str, int]]:
+    """What the tensor-core kernels occupy on the current CUDA device, asked
+    of the built library: dynamic shared memory per CTA, threads per CTA and
+    resident CTAs per SM, for the forward, the sweep and the weight-gradient
+    product at this hidden size."""
+    lib = _library()
+    info = {}
+    for code, name in enumerate(("train_fwd_mma", "train_bwd_sweep_mma", "train_bwd_wgrad_mma")):
+        out = (ctypes.c_int * 3)()
+        _raise_on(lib, lib.wgg_bilstm_train_mma_info(hidden, code, out), name)
+        info[name] = {"smem_bytes_per_cta": out[0], "threads_per_cta": out[1],
+                      "ctas_per_sm": out[2]}
+    return info
+
+
+def _wgrad_splits(seq: int, n_layers: int) -> int:
+    """Parts the positions are cut into for the tensor-core weight-gradient
+    product (one CTA per (layer, direction, part)); no part is empty."""
+    per_split = -(-seq // max(1, min(seq, _WGRAD_CTAS // (2 * n_layers))))
+    return -(-seq // per_split)
+
+
+def _gradient_tree(dw: torch.Tensor, n: int, H: int, Z: int) -> List[Dict]:
+    """The kernels' packed [dW_ih; dW_hh; db] matrices as the gradient tree."""
+    grads, offset = [], 0
+    for k in range(n):
+        din = 2 + Z if k == 0 else 2 * H
+        cells = {}
+        for d in _DIRS:
+            mat = dw[offset:offset + (din + H + 1) * 4 * H].view(din + H + 1, 4 * H)
+            offset += mat.numel()
+            cells[d] = {"w_ih": mat[:din], "w_hh": mat[din:din + H], "b_ih": mat[din + H],
+                        "b_hh": mat[din + H].clone()}
+        grads.append(cells)
+    return grads
+
+
+def _launch_fwd_mma(layers, x, static, hidden, dtype):
+    lib = _library()
+    device = x.device
+    B, L, _ = x.shape
+    n = len(layers)
+    wf, wq = packed_weights(layers, dtype)
+    proto = x.to(dtype).contiguous()
+    z = static.to(torch.float32).contiguous()
+    res = torch.empty((n, 2, L, B, 6 * hidden), dtype=dtype, device=device)
+    out = torch.empty((B, L, 2 * hidden), dtype=dtype, device=device)
+    ptrs = _pointers([proto, z, wq, wf, res, out], device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.wgg_bilstm_train_fwd_mma(*ptrs, B, L, hidden, static.shape[1], n, stream)
+    _raise_on(lib, err, "bilstm_train_fwd (tensor-core path)")
+    return out, res
+
+
+def _launch_bwd_mma(layers, x, static, res, dy, hidden, dtype):
+    lib = _library()
+    device = x.device
+    n, _, L, B, _ = res.shape
+    H, Z = hidden, static.shape[1]
+    f32 = torch.float32
+    tiles = -(-B // _SAMPLE_TILE)
+    splits = _wgrad_splits(L, n)
+    m_first, m_rest = 2 + Z + H + 1, 3 * H + 1
+
+    def empty(shape, dt=f32):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    operands = [
+        res.contiguous(),
+        empty((L, B, 2 * H), dtype).copy_(dy.transpose(0, 1)),                   # dy, position-major
+        x.to(dtype).contiguous(), static.to(dtype).contiguous(), packed_weights(layers, dtype)[1],
+        empty((n * 2, L, tiles, 2, 4 * H, _SAMPLE_TILE), dtype),                 # split gate grads
+        empty((2, 2, L, B, 2 * H) if n > 1 else (8,), dtype),                    # input gradients
+        empty((2, B, L, 2), dtype),                                              # dx streams
+        empty((B, max(Z, 1))),                                                   # dz
+        empty((splits, 2 * n, 3 * H, 4 * H)),                                    # product partials
+        empty((tiles, 2 * n, 4 * H)), empty((tiles, 2, 2, 4 * H)),               # bias, prototype
+        empty((tiles, 2, max(Z, 1), 4 * H)),                                     # z rows
+        empty((2 * (m_first + (n - 1) * m_rest) * 4 * H,)),
+    ]
+    ptrs = _pointers(operands, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.wgg_bilstm_train_bwd_mma(*ptrs, B, L, H, Z, n, splits, stream)
+    _raise_on(lib, err, "bilstm_train_bwd (tensor-core path)")
+    dpa, dz, dw = operands[7], operands[8], operands[13]
+    return _gradient_tree(dw, n, H, Z), (dpa[0] + dpa[1]).to(f32), dz[:, :Z]
+
+
 def _launch_fwd(layers, x, static, hidden, dtype):
     lib = _library()
     device = x.device
@@ -214,7 +394,6 @@ def _launch_fwd(layers, x, static, hidden, dtype):
         err = lib.wgg_bilstm_train_fwd(*ptrs, B, L, hidden, static.shape[1], n,
                                        _DTYPE_CODES[dtype], stream)
     _raise_on(lib, err, "bilstm_train_fwd")
-    bilstm_train_fwd.launches += 1
     return out, res
 
 
@@ -243,19 +422,16 @@ def _launch_bwd(layers, x, static, res, dy, hidden, dtype):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.wgg_bilstm_train_bwd(*ptrs, B, L, H, Z, n, splits, _DTYPE_CODES[dtype], stream)
     _raise_on(lib, err, "bilstm_train_bwd")
-    bilstm_train_bwd.launches += 1
     dpa, dz, dw = operands[10], operands[11], operands[13]
-    grads, offset = [], 0
-    for k in range(n):
-        din = 2 + Z if k == 0 else 2 * H
-        cells = {}
-        for d in _DIRS:
-            mat = dw[offset:offset + (din + H + 1) * 4 * H].view(din + H + 1, 4 * H)
-            offset += mat.numel()
-            cells[d] = {"w_ih": mat[:din], "w_hh": mat[din:din + H], "b_ih": mat[din + H],
-                        "b_hh": mat[din + H].clone()}
-        grads.append(cells)
-    return grads, (dpa[0] + dpa[1]).to(f32), dz
+    return _gradient_tree(dw, n, H, Z), (dpa[0] + dpa[1]).to(f32), dz
+
+
+_LAUNCHERS = {"mma": (_launch_fwd_mma, _launch_bwd_mma), "general": (_launch_fwd, _launch_bwd)}
+
+
+def _count(wrapper, path: str) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_path[path] += 1
 
 
 def _dispatch(x: torch.Tensor) -> bool:
@@ -269,30 +445,40 @@ def _dispatch(x: torch.Tensor) -> bool:
 def bilstm_train_fwd(layers: List[Dict], x: torch.Tensor, static: torch.Tensor, hidden: int,
                      dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 2 on a CUDA ``x`` (``bilstm_train_fwd.launches`` counts the
-    launches), ``bilstm_train_fwd_plain`` on a CPU one. Not differentiated."""
+    launches; the path is ``kernel_path``'s), ``bilstm_train_fwd_plain`` on a
+    CPU one. Not differentiated."""
     _check(layers, x, hidden, static, dtype)
     with torch.no_grad():
         if _dispatch(x):
-            return _launch_fwd(layers, x, static, hidden, dtype)
+            path = kernel_path(dtype, hidden, x.shape[1], len(layers))
+            result = _LAUNCHERS[path][0](layers, x, static, hidden, dtype)
+            _count(bilstm_train_fwd, path)
+            return result
         return bilstm_train_fwd_plain(layers, x, static, hidden, dtype)
 
 
 def bilstm_train_bwd(layers: List[Dict], x: torch.Tensor, static: torch.Tensor,
                      res: torch.Tensor, dy: torch.Tensor, hidden: int, dtype: torch.dtype):
     """Kernel 3 on CUDA tensors (``bilstm_train_bwd.launches`` counts the
-    launches), ``bilstm_train_bwd_plain`` on CPU ones. Not differentiated."""
+    launches; the path is ``kernel_path``'s), ``bilstm_train_bwd_plain`` on
+    CPU ones. Not differentiated."""
     if res.shape != (len(layers), 2, x.shape[1], x.shape[0], 6 * hidden) or res.dtype != dtype:
         raise ValueError(f"residuals {tuple(res.shape)} {res.dtype} do not fit the stack")
     if dy.shape != (x.shape[0], x.shape[1], 2 * hidden):
         raise ValueError(f"dy must be (B, L, 2H), got {tuple(dy.shape)}")
     with torch.no_grad():
         if _dispatch(x):
-            return _launch_bwd(layers, x, static, res, dy, hidden, dtype)
+            path = kernel_path(dtype, hidden, x.shape[1], len(layers))
+            result = _LAUNCHERS[path][1](layers, x, static, res, dy, hidden, dtype)
+            _count(bilstm_train_bwd, path)
+            return result
         return bilstm_train_bwd_plain(layers, x, static, res, dy, hidden, dtype)
 
 
 bilstm_train_fwd.launches = 0
 bilstm_train_bwd.launches = 0
+bilstm_train_fwd.launches_by_path = {"mma": 0, "general": 0}
+bilstm_train_bwd.launches_by_path = {"mma": 0, "general": 0}
 
 
 # ---------------------------------------------------------------------------

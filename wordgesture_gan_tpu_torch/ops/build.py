@@ -3,8 +3,9 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface. ``nvcc``
 compiles it for Hopper (``sm_90a``) into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused. The library is loaded with ``ctypes``. Nothing is compiled when this
+source, of every header ``csrc/*.cuh`` (sources include them with ``-I csrc``)
+and of the flags, so an edited source or header is rebuilt and an unchanged
+one is reused. The library is loaded with ``ctypes``. Nothing is compiled when this
 module is imported; a build starts at a kernel's first use, or when a caller
 asks for ``build(...)`` of several kernels at once (one ``nvcc`` process per
 source, all started together).
@@ -42,9 +43,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where kernel ``name``'s library lives: the name carries a hash of the
+    source, the shared headers (by file name and content) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -61,7 +66,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             continue
         nvcc = nvcc or find_nvcc()
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                           text=True), tmp, target)
     logs, failures = {}, []
