@@ -8,17 +8,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from ``wordgesture_gan_tpu_torch/csrc``
    (one nvcc per source, started together) and print ptxas' register report
-   and the tensor-core training kernels' shared memory and CTAs per SM;
+   and the tensor-core and float32-inference kernels' shared memory and CTAs
+   per SM;
 3. hold each kernel against its plain PyTorch version on the card at the
    flagship generator's full width (4 layers, H=48, L=128, Z=32) for
-   B in {1, 131, 512, 2048} (kernels 2 and 3 also at 7, 8 and 9, around their
-   8-sample tile), float32 with TF32 off and bfloat16:
+   B in {1, 7, 8, 9, 131, 512, 2048} (around the 8- and 4-sample tiles),
+   float32 with TF32 off and bfloat16:
    kernel 4 (exact batched DTW, float32 only): aligned pairs at P in
    {1, 131, 8192}, D in {2, 3}, L=128 on gesture-like walks, the matrix entry
    at 64x64, 37x13, a short length and L=1 against the plain version and
    against aligned pairs, and four pairs against a float64 recurrence on
    the host, each distance relative to its own size, 1e-4;
-   kernel 1 (inference forward): 1e-4 / 2e-2 abs;
+   kernel 1 (inference forward): 1e-4 / 2e-2 abs; every full-width call must
+   have taken the tensor-core kernel (bfloat16) or the float32 cluster kernel
+   (launches counted per path), two launches on the same inputs give
+   bit-equal outputs, and a stack at H=8 holds the general-shape kernel
+   against the plain version too;
    kernels 2 and 3 (training forward with residuals, backward through
    time): the output, every residual plane and every gradient (dW_ih,
    dW_hh, db, dz, dx), each as max |err| / max |want|, 1e-4 / 2e-2; kernel
@@ -34,7 +39,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    weights written as a JAX-layout npz, 8192 gestures over a word list at
    --batch 512, bfloat16, monotone time head. The output must be (N, 128, 3),
    finite, |x|, |y| <= 1, t monotone from 0 to 1, and kernel 1's launch
-   count (set to 0 just before) must show the run went through it. A small
+   counts (set to 0 just before) must show the run went through it, every
+   launch on the tensor-core path. A small
    batch with injected noise is then compared with the CPU's plain path,
    and one sampling call is profiled;
 5. train through ``train.gan_loop.train_gan(..., device="cuda")``: the
@@ -42,8 +48,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    λ_dtc 4) on 4096 smoke gestures made in numpy from keyboard prototypes,
    2 epochs of 8 steps with a checkpoint each, then a resumed third epoch
    with every launch count set to 0 just before: 5 kernel-1, 3 kernel-2 and
-   3 kernel-3 launches per step, kernels 2 and 3 all on the tensor-core
-   path; losses finite; one steady step profiled;
+   3 kernel-3 launches per step, all on the tensor-core paths; losses
+   finite; one steady step profiled;
 6. one step on the card against the CPU's plain path from the same state,
    batch and injected noise (B=32, full width, float32, n_critic 5), for
    the reference recipe and the flagship one: losses, the gradients (Adam
@@ -57,11 +63,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    again for the minimum-jerk baseline, whose pass must reuse the real side
    (``cached_real``); the FID autoencoders train 5 epochs instead of 100.
    Every metric finite, precision and recall in [0, 1], FID >= 0,
-   DTW-Wasserstein > 0, launches counted from 0 (2 kernel-4, 4 kernel-1);
+   DTW-Wasserstein > 0, launches counted from 0 (2 kernel-4, 4 kernel-1 on
+   its float32 path);
    4096 sampled entries of the DTW matrix no larger than their diagonal
    path's cost; a small evaluation (n=64) on the card against the CPU; the
    suite profiled once;
-8. time kernel 1, kernels 2 and 3 (with one profiled call of the pair at one
+8. time kernel 1 (at B=512 and at the train step's 2B=1024; in float32 also
+   with the sample tile the dispatch rule does not pick at that batch),
+   kernels 2 and 3 (with one profiled call of the pair at one
    layer and at full depth), their plain versions and cuDNN
    ``torch.nn.LSTM`` on the same weights (a yardstick the port never calls;
    the training yardstick is its float32 forward and backward) at B=512 in
@@ -100,7 +109,9 @@ from wordgesture_gan_tpu_torch.keyboard import QWERTYKeyboard
 from wordgesture_gan_tpu_torch.metrics.suite import evaluate_all_metrics
 from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance
 from wordgesture_gan_tpu_torch.ops import build as kernel_build
-from wordgesture_gan_tpu_torch.ops.bilstm_fused import fused_bilstm_fwd, fused_bilstm_fwd_plain
+from wordgesture_gan_tpu_torch.ops import bilstm_fused
+from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
+                                                        fused_kernel_info, sample_tile)
 from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_bwd, bilstm_train_bwd_plain,
                                                         bilstm_train_fwd, bilstm_train_fwd_plain,
                                                         kernel_path, mma_kernel_info)
@@ -114,12 +125,16 @@ from wordgesture_gan_tpu_torch.utils.chunking import chunk_layout
 from wordgesture_gan_tpu_torch.utils.tree import tree_leaves
 
 HIDDEN, SEQ, LAYERS, LATENT = 48, 128, 4, 32
-CHECK_BATCHES = (1, 131, 512, 2048)
-# Kernels 2 and 3 also around the tensor-core path's tile of 8 samples.
-TRAIN_CHECK_BATCHES = (1, 7, 8, 9, 131, 512, 2048)
+# Around the tiles of 8 samples (tensor-core kernels) and 4 (kernel 1's float32
+# kernel at a small batch), a batch no tile divides, and two and more waves.
+CHECK_BATCHES = (1, 7, 8, 9, 131, 512, 2048)
+TRAIN_CHECK_BATCHES = CHECK_BATCHES
+# A stack off kernel 1's new paths: the general-shape kernel is still checked.
+GENERAL_SHAPE = dict(hidden=8, seq=16, layers=3, latent=4, batches=(1, 37))
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 SERVE_N, SERVE_BATCH = 8192, 512
 TIME_BATCH = 512
+TRAIN_CALL_BATCH = 1024     # the train step's kernel-1 call: both fakes, 2B
 # Training phase: the flagship recipe on smoke data (see smoke_dataset).
 TRAIN_N = 4096
 FLAGSHIP_TRAIN = dict(batch_size=512, n_critic=5, lambda_speed=2.0, lambda_div=0.3,
@@ -219,29 +234,55 @@ def bilstm_bound_ms(batch: int, seq: int, hidden: int, layers: int, latent: int,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def reset_launches(*wrappers) -> None:
+    """Every launch count of the given kernel wrappers back to 0."""
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "launches_by_path"):
+            w.launches_by_path = dict.fromkeys(w.launches_by_path, 0)
+
+
+def only_path(wrapper, path: str, count: int) -> dict:
+    """The per-path counts of ``wrapper`` if all ``count`` launches took ``path``."""
+    return {**dict.fromkeys(wrapper.launches_by_path, 0), path: count}
+
+
 def check_kernel(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LATENT,
                  batches=CHECK_BATCHES) -> list:
-    """Phase 3: the kernel against its plain version, on the same inputs."""
+    """Phase 3: kernel 1 against its plain version, on the same inputs; the
+    path each call took (``bilstm_fused.kernel_path``: a function of dtype and
+    shape); two launches give the same bits."""
     tree = random_generator_tree(hidden, layers, latent, seed=1)
     stack = stack_on(tree, device)
     results = []
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        path = bilstm_fused.kernel_path(dtype, hidden, seq, layers)
         for batch in batches:
             x, z = random_inputs(batch, seq, latent, seed=batch, device=device)
+            before = dict(fused_bilstm_fwd.launches_by_path)
             got = fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype)
+            again = fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype)
             want = fused_bilstm_fwd_plain(stack, x, hidden, z, dtype=dtype)
             if device.type == "cuda":
                 torch.cuda.synchronize()
+                took = {k: fused_bilstm_fwd.launches_by_path[k] - before[k] for k in before}
+                if took != only_path(fused_bilstm_fwd, path, 2):
+                    raise AssertionError(f"{dtype_name} B={batch} H={hidden}: launches by path "
+                                         f"{took}, expected both on {path}")
             if got.shape != (batch, seq, 2 * hidden) or got.dtype != dtype:
                 raise AssertionError(f"kernel output {tuple(got.shape)} {got.dtype}")
             err = (got.float() - want.float()).abs().max().item()
-            results.append({"dtype": dtype_name, "batch": batch, "max_abs_err": err,
-                            "tolerance": TOLERANCE[dtype_name]})
+            results.append({"dtype": dtype_name, "batch": batch, "hidden": hidden, "path": path,
+                            "sample_tile": sample_tile(dtype, batch) if path != "general" else 4,
+                            "max_abs_err": err, "tolerance": TOLERANCE[dtype_name],
+                            "bit_equal_across_two_launches": torch.equal(got, again)})
             print(json.dumps({"check": "bilstm_fused vs plain", **results[-1]}), flush=True)
             if not err <= TOLERANCE[dtype_name]:
                 raise AssertionError(f"bilstm_fused disagrees with its plain version: "
                                      f"{dtype_name} B={batch} max |err| {err} > "
                                      f"{TOLERANCE[dtype_name]}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"bilstm_fused is not deterministic: {dtype_name} B={batch}")
     return results
 
 
@@ -273,17 +314,21 @@ def serve(device, workdir: Path, n=SERVE_N, batch=SERVE_BATCH, hidden=HIDDEN, ru
             "--device", device.type]
     stats = []
     for run in range(runs):
-        fused_bilstm_fwd.launches = 0
+        reset_launches(fused_bilstm_fwd)
         stats.append(generate.main(argv))
         if run == 0:
             launches = fused_bilstm_fwd.launches
+            by_path = dict(fused_bilstm_fwd.launches_by_path)
     with np.load(out) as data:
         if set(data.files) != {"gestures", "words", "prototypes"}:
             raise AssertionError(f"npz keys {data.files}")
         check_gestures(data["gestures"], n, SEQ)
     expected = chunk_layout(n, batch)[1]
-    if device.type == "cuda" and launches != expected:
-        raise AssertionError(f"bilstm_fused launched {launches} times, expected {expected}")
+    path = bilstm_fused.kernel_path(torch.bfloat16, hidden, SEQ, LAYERS)
+    if device.type == "cuda" and (launches != expected
+                                  or by_path != only_path(fused_bilstm_fwd, path, expected)):
+        raise AssertionError(f"bilstm_fused launched {launches} times ({by_path}), expected "
+                             f"{expected} on {path}")
 
     # A small request with injected noise against the CPU's plain path.
     config = ModelConfig(time_head="monotone", compute_dtype="bfloat16", gen_hidden_dim=hidden)
@@ -305,7 +350,7 @@ def serve(device, workdir: Path, n=SERVE_N, batch=SERVE_BATCH, hidden=HIDDEN, ru
         kb_protos = np.stack([kb.get_word_prototype(WORDS[i % len(WORDS)], SEQ)
                               for i in range(n)])
         profile_serving(model, kb_protos, batch, device)
-    return {"launches": launches, "chunks": expected, "runs": stats}
+    return {"launches": launches, "launches_by_path": by_path, "chunks": expected, "runs": stats}
 
 
 def device_profile(run, label: str, **extra) -> dict:
@@ -362,12 +407,25 @@ def cudnn_lstm(tree: dict, latent: int, dtype: torch.dtype, device) -> torch.nn.
 
 def time_kernel(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ,
                 layers=LAYERS, latent=LATENT) -> dict:
-    """Phase 8: kernel 1, its plain version and cuDNN LSTM at one shape."""
+    """Phase 8: kernel 1, its plain version and cuDNN LSTM at one shape; in
+    float32 also the cluster kernel with the other sample tile (4 or 8) than
+    the one the dispatch rule picks at this batch."""
     dtype = getattr(torch, dtype_name)
     tree = random_generator_tree(hidden, layers, latent, seed=2)
     stack = stack_on(tree, device)
     x, z = random_inputs(batch, seq, latent, seed=3, device=device)
     ms = time_ms(lambda: fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype), iters=20)
+    path = bilstm_fused.kernel_path(dtype, hidden, seq, layers)
+    tile = sample_tile(dtype, batch)
+    other = {}
+    if path == "fp32":
+        other_tile = 12 - tile
+        got = bilstm_fused._launch_packed(stack, x, hidden, z, dtype, tile=other_tile)
+        want = fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype)
+        other = {"other_tile": other_tile,
+                 "other_tile_ms": time_ms(lambda: bilstm_fused._launch_packed(
+                     stack, x, hidden, z, dtype, tile=other_tile), iters=20),
+                 "other_tile_max_abs_diff": (got - want).abs().max().item()}
     plain_ms = time_ms(lambda: fused_bilstm_fwd_plain(stack, x, hidden, z, dtype=dtype),
                        iters=2, warmup=1)
     lstm = cudnn_lstm(tree, latent, dtype, device)
@@ -377,9 +435,11 @@ def time_kernel(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SE
         lib_err = (lstm(seq_in)[0].float()
                    - fused_bilstm_fwd_plain(stack, x, hidden, z, dtype=dtype).float()).abs().max()
     bound_ms, bound_by = bilstm_bound_ms(batch, seq, hidden, layers, latent, dtype_name)
-    row = {"dtype": dtype_name, "batch": batch, "ms": ms, "plain_ms": plain_ms,
+    row = {"dtype": dtype_name, "batch": batch, "path": path, "sample_tile": tile, "ms": ms,
+           **other, "plain_ms": plain_ms,
            "library_ms": library_ms, "library_max_abs_diff": lib_err.item(),
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "us_per_dependent_step": ms * 1e3 / (layers * seq)}
     print(json.dumps({"timing": "bilstm_fused", **row}), flush=True)
     return row
 
@@ -451,7 +511,8 @@ def check_train_kernels(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LA
                         batches=TRAIN_CHECK_BATCHES) -> list:
     """Phase 3, kernels 2 and 3: each against its plain version on the same
     inputs (kernel 3 and its plain version both read kernel 2's residuals),
-    kernel 2's output against kernel 1's, the kernel path every call took
+    kernel 2's output against kernel 1's (the two sum in different orders in
+    either dtype: a tolerance, not bit equality), the kernel path every call took
     (tensor cores in bfloat16 at this width, CUDA cores in float32), and
     kernel 3 launched twice on the same inputs (bit-equal gradients)."""
     stack = stack_on(random_generator_tree(hidden, layers, latent, seed=4), device)
@@ -518,7 +579,7 @@ OWN_KERNELS = ("train_fwd", "train_bwd", "bilstm_fused")
 def count_small_launches(device, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ, layers=LAYERS,
                          latent=LATENT) -> dict:
     """Phase 3: the PyTorch launches (casts, copies, concatenations, adds)
-    each training wrapper makes around its own kernels in one call, counted
+    each BiLSTM wrapper makes around its own kernels in one call, counted
     as device events under torch.profiler, per dtype (hence per kernel path).
     They add to the train step's launch count."""
     stack = stack_on(random_generator_tree(hidden, layers, latent, seed=2), device)
@@ -530,9 +591,11 @@ def count_small_launches(device, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ, layer
         dtype = getattr(torch, dtype_name)
         _, res = bilstm_train_fwd(stack, x, z, hidden, dtype)                  # warm
         bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)
+        fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype)
         counts = {}
         for name, call in (("fwd", lambda: bilstm_train_fwd(stack, x, z, hidden, dtype)),
-                           ("bwd", lambda: bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype))):
+                           ("bwd", lambda: bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)),
+                           ("inference", lambda: fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype))):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 call()
                 torch.cuda.synchronize()
@@ -540,7 +603,9 @@ def count_small_launches(device, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ, layer
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
             own = sum(e.count for e in events if any(k in e.key for k in OWN_KERNELS))
             counts[name] = {"own_kernels": own, "small_launches": sum(e.count for e in events) - own}
-        line[dtype_name] = {"path": kernel_path(dtype, hidden, seq, layers), **counts}
+        line[dtype_name] = {"path": kernel_path(dtype, hidden, seq, layers),
+                            "inference_path": bilstm_fused.kernel_path(dtype, hidden, seq, layers),
+                            **counts}
     print(json.dumps(line), flush=True)
     return line
 
@@ -788,14 +853,10 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
         raise AssertionError("the first two epochs were not checkpointed")
     counters = {"bilstm_fused": fused_bilstm_fwd, "bilstm_train_fwd": bilstm_train_fwd,
                 "bilstm_train_bwd": bilstm_train_bwd}
-    for c in counters.values():
-        c.launches = 0
-    for c in (bilstm_train_fwd, bilstm_train_bwd):
-        c.launches_by_path = dict.fromkeys(c.launches_by_path, 0)
+    reset_launches(*counters.values())
     third = train_gan(ds, mcfg, tcfg, num_epochs=3, checkpoint_dir=str(workdir), device=device)
     launches = {name: c.launches for name, c in counters.items()}
-    by_path = {name: dict(counters[name].launches_by_path)
-               for name in ("bilstm_train_fwd", "bilstm_train_bwd")}
+    by_path = {name: dict(c.launches_by_path) for name, c in counters.items()}
     if len(third.history) != 1 or third.state["epoch"] != 3 or latest_epoch(str(workdir)) != 3:
         raise AssertionError("the run did not resume for exactly one epoch")
     for losses in first.history + third.history:
@@ -805,18 +866,23 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
     expected = {name: per * steps for name, per in PER_STEP.items()}
     if device.type == "cuda" and launches != expected:
         raise AssertionError(f"launches in the resumed epoch {launches}, expected {expected}")
-    # Every kernel-2 and kernel-3 launch of the recipe's width and dtype took
-    # the path the dispatch rule names (the tensor-core one at full width).
-    path = kernel_path(getattr(torch, mcfg.compute_dtype), mcfg.gen_hidden_dim, mcfg.seq_length, 1)
+    # Every launch of the recipe's width and dtype took the path its dispatch
+    # rule names (the tensor-core ones at full width).
+    shape = (getattr(torch, mcfg.compute_dtype), mcfg.gen_hidden_dim, mcfg.seq_length, 1)
+    path = kernel_path(*shape)
+    paths = {name: bilstm_fused.kernel_path(*shape) if name == "bilstm_fused" else path
+             for name in counters}
     for name, counts in by_path.items():
-        if device.type == "cuda" and counts != {"mma": 0, "general": 0, path: expected[name]}:
-            raise AssertionError(f"{name} launches by path {counts}, expected all on {path}")
+        if device.type == "cuda" and counts != only_path(counters[name], paths[name],
+                                                         expected[name]):
+            raise AssertionError(f"{name} launches by path {counts}, expected all on "
+                                 f"{paths[name]}")
     seconds = first.epoch_seconds + third.epoch_seconds
     line = {"training": "train_gan", "n": n, "batch": tcfg.batch_size, "steps_per_epoch": steps,
             "dtype": "bfloat16", "epoch_seconds": seconds,
             "gestures_per_s": [first.gestures_per_epoch / t for t in seconds],
             "ms_per_step": [t / steps * 1e3 for t in seconds],
-            "launches_resumed_epoch": launches, "kernel_path": path,
+            "launches_resumed_epoch": launches, "kernel_path": paths,
             "launches_by_path": by_path, "losses_last_epoch": third.history[-1]}
     print(json.dumps(line), flush=True)
     if device.type == "cuda":   # where a steady step's time goes
@@ -944,13 +1010,13 @@ def evaluate(device, workdir: Path, users=EVAL_USERS, n=EVAL_N, train_epochs=EVA
         raise AssertionError("train_cli did not train and checkpoint the requested epochs")
 
     counters = {"dtw": dtw_matrix, "dtw_aligned_pairs": dtw_pairs, "bilstm_fused": fused_bilstm_fwd}
-    for c in counters.values():
-        c.launches = 0
+    reset_launches(*counters.values())
     t0 = time.perf_counter()
     out = eval_cli.main(["--model", "both", "--n-samples", str(n), "--fid-epochs",
                          str(fid_epochs), *data])
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
+    fused_by_path = dict(fused_bilstm_fwd.launches_by_path)
 
     if out["n"] != n:
         raise AssertionError(f"the test split gave {out['n']} samples, not {n}")
@@ -967,11 +1033,22 @@ def evaluate(device, workdir: Path, users=EVAL_USERS, n=EVAL_N, train_epochs=EVA
     expected = {"dtw": 2, "dtw_aligned_pairs": 0, "bilstm_fused": chunk_layout(n, 512)[1]}
     if device.type == "cuda" and launches != expected:
         raise AssertionError(f"launches on the evaluation path {launches}, expected {expected}")
+    # The evaluation samples in the checkpoint's compute dtype (float32 unless
+    # trained otherwise): its kernel-1 launches take that dtype's path.
+    eval_dtype = torch.bfloat16 if "bfloat16" in model_args else torch.float32
+    eval_hidden = int(model_args[model_args.index("--gen-hidden") + 1]) \
+        if "--gen-hidden" in model_args else HIDDEN
+    eval_path = bilstm_fused.kernel_path(eval_dtype, eval_hidden, SEQ, LAYERS)
+    if device.type == "cuda" and fused_by_path != only_path(fused_bilstm_fwd, eval_path,
+                                                            expected["bilstm_fused"]):
+        raise AssertionError(f"bilstm_fused launches by path {fused_by_path}, expected all on "
+                             f"{eval_path}")
     line = {"evaluation": "eval_cli.main", "model": "both", "n": n, "pairs_per_matrix": n * n,
             "synthetic_users": users, "generator": f"train_cli.main, {train_epochs} epochs",
             "train_cli_seconds": train_seconds, "fid_epochs": fid_epochs,
             "fid_epochs_default": EvaluationConfig().fid_autoencoder_epochs,
             "seconds": wall, "stage_seconds": stages, "launches": launches,
+            "bilstm_fused_launches_by_path": fused_by_path,
             "gan": {k: out["gan"][k] for k in EVAL_SCALARS},
             "minjerk": {k: out["minjerk"][k] for k in EVAL_SCALARS}}
     print(json.dumps(line), flush=True)
@@ -1013,6 +1090,7 @@ def evaluate(device, workdir: Path, users=EVAL_USERS, n=EVAL_N, train_epochs=EVA
                                          verbose=False, device=device),
             "evaluate_all_metrics", n=n, fid_epochs=fid_epochs)
     line["launches"] = launches
+    line["bilstm_fused_launches_by_path"] = fused_by_path
     return line
 
 
@@ -1065,8 +1143,8 @@ def main() -> int:
         kernel = ""
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw)_\w+?kernel)"
-                              r"(?:ILi(\d)E|I(f|13__nv_bfloat16))?", line)
-            if entry:   # the mangled name: kernel, then its H/16 or type template argument
+                              r"(?:ILi(\d)E(?:Li(\d)E)?|I(f|13__nv_bfloat16))?", line)
+            if entry:   # the mangled name: kernel, then its H/16 (and tile) or type arguments
                 kernel = entry.group(1) + "".join(f"<{g.replace('13__nv_', '')}>"
                                                   for g in entry.groups()[1:] if g)
             if "registers" in line or "spill" in line:
@@ -1074,8 +1152,11 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"occupancy": "bilstm_train tensor-core kernels", "hidden": HIDDEN,
                       **mma_kernel_info(HIDDEN)}), flush=True)
+    print(json.dumps({"occupancy": "bilstm_fused tensor-core and float32 kernels",
+                      "hidden": HIDDEN, **fused_kernel_info(HIDDEN)}), flush=True)
 
     checks = check_kernel(device)
+    checks += check_kernel(device, **GENERAL_SHAPE)
     train_checks = check_train_kernels(device)
     count_small_launches(device)
     dtw_checks = check_dtw(device)
@@ -1094,6 +1175,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         evaluated = evaluate(device, Path(tmp))
     timings = {name: time_kernel(device, name) for name in ("bfloat16", "float32")}
+    for name in ("bfloat16", "float32"):
+        time_kernel(device, name, batch=TRAIN_CALL_BATCH)
     pair = {name: time_train_pair(device, name) for name in ("bfloat16", "float32")}
     profile_train_pair(device)
     dtw_t = time_dtw(device)
@@ -1102,7 +1185,10 @@ def main() -> int:
     main_t, main_p = timings["bfloat16"], pair["bfloat16"]
     launches = trained["launches"]
     kernels = [{
-        "name": "bilstm_fused", "route": "cuda",
+        "name": "bilstm_fused", "route": "cuda", "path": main_t["path"],
+        "launches_by_path": {k: served["launches_by_path"][k] + trained["launches_by_path"][
+            "bilstm_fused"][k] + evaluated["bilstm_fused_launches_by_path"][k]
+            for k in served["launches_by_path"]},
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_fused.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_fused.py:54",
         "launches": served["launches"] + launches["bilstm_fused"]

@@ -4,7 +4,9 @@ Inputs come from numpy seeds and go through both stacks; weights move from
 the JAX tree with ``generator_from_jax``. Tolerances: float32 paths agree to
 1e-5 abs (same math, different summation order); the bf16 plain version is
 held to the Pallas kernel run in interpret mode at 2e-2 abs (bf16 rounding of
-h at every step). The CUDA kernel's own tests are in test_torch_cuda.py.
+h at every step). The CUDA kernels' own tests are in test_torch_cuda.py; the
+plain version is their oracle there, so it is held to the JAX package here at
+every hidden size the tensor-core and float32 kernels are built for.
 """
 
 import jax
@@ -13,14 +15,20 @@ import numpy as np
 import pytest
 import torch
 
+from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig
+from wordgesture_gan_tpu.models.gan import generator_apply, generator_init
 from wordgesture_gan_tpu.models.layers import bilstm_apply as jax_bilstm_apply
 from wordgesture_gan_tpu.models.layers import bilstm_init
 from wordgesture_gan_tpu.ops.bilstm_fused import fused_bilstm_fwd as jax_fused_bilstm_fwd
+from wordgesture_gan_tpu_torch.configs import ModelConfig
 from wordgesture_gan_tpu_torch.interop.from_jax import generator_from_jax
+from wordgesture_gan_tpu_torch.models.gan import Generator
 from wordgesture_gan_tpu_torch.models.layers import (BiLSTM, bilstm_apply, dense_init,
                                                      lstm_cell_init)
-from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd,
-                                                        fused_bilstm_fwd_plain, kernel_weights)
+from wordgesture_gan_tpu_torch.ops.bilstm_fused import (MMA_HIDDEN, fused_bilstm_fwd,
+                                                        fused_bilstm_fwd_plain, kernel_path,
+                                                        kernel_weights)
+from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures
 
 
 def _stacks(seed, in_dim, hidden, num_layers):
@@ -93,6 +101,53 @@ def test_fused_plain_bf16_matches_pallas_interpret(num_layers):
                                  dtype=torch.bfloat16)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=2e-2)
+
+
+@pytest.mark.parametrize("hidden", MMA_HIDDEN)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_plain_matches_jax_at_the_kernel_widths(dtype, hidden):
+    """The oracle of the tensor-core ("mma") and float32 ("fp32") kernels at
+    each hidden size they are built for, 3 layers, a batch no tile divides:
+    float32 against the JAX scan (1e-5), bfloat16 against the Pallas kernel in
+    interpret mode (2e-2: h rounded to bf16 every step)."""
+    Z, B, L, layers = 8, 9, 12, 3
+    assert kernel_path(getattr(torch, dtype), hidden, L, layers) == \
+        ("mma" if dtype == "bfloat16" else "fp32")
+    jl, tl = _stacks(20 + hidden, 2 + Z, hidden, layers)
+    x, z = _inputs(21, B, L, 2, Z)
+    out = fused_bilstm_fwd_plain(tl, torch.from_numpy(x), hidden, torch.from_numpy(z),
+                                 dtype=getattr(torch, dtype))
+    assert out.shape == (B, L, 2 * hidden) and out.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        ref = jax_bilstm_apply(jl, jnp.asarray(x), hidden, static=jnp.asarray(z))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    else:
+        ref = jax_fused_bilstm_fwd(jl, jnp.asarray(x), hidden, jnp.asarray(z),
+                                   dtype=jnp.bfloat16, interpret=True)
+        np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_gestures_matches_jax_in_both_dtypes(dtype):
+    """The serving path as a whole at a width on the new kernel paths (H=16,
+    2 layers): chunked generation with injected z against the JAX package's
+    ``generator_apply(inference=True)`` on the same weights. float32 1e-5;
+    bfloat16 2e-2 (the JAX scan on the CPU rounds where the port's fused
+    contract keeps float32: bf16 ulps of outputs in [-1, 1]; 1.4e-3 seen)."""
+    fields = dict(seq_length=32, gen_hidden_dim=16, gen_num_layers=2, latent_dim=8,
+                  time_head="monotone", compute_dtype=dtype)
+    params = jax.device_get(generator_init(jax.random.PRNGKey(3), JaxModelConfig(**fields)))
+    model = Generator(ModelConfig(**fields))
+    model.load_state_dict(generator_from_jax(params))
+    rng = np.random.default_rng(4)
+    protos = rng.uniform(-1, 1, (7, 32, 3)).astype(np.float32)
+    z = rng.normal(size=(7, 8)).astype(np.float32)
+    out = generate_gestures(model, protos, model.config, batch=4, device="cpu", z=z)
+    ref = generator_apply(params, jnp.asarray(protos), jnp.asarray(z), JaxModelConfig(**fields),
+                          inference=True)
+    assert out.shape == (7, 32, 3) and out.dtype == np.float32
+    np.testing.assert_allclose(out, np.asarray(ref, np.float32),
+                               atol=1e-5 if dtype == "float32" else 2e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

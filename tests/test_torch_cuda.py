@@ -13,7 +13,10 @@ kernels 2 and 3 relative to the largest magnitude of each compared tensor,
 because their gradients span orders of magnitude between leaves. Kernels 2
 and 3 have two paths (``ops/bilstm_train.py:kernel_path``): bfloat16 at H in
 {16, 32, 48} runs on the tensor cores in tiles of 8 samples, everything else
-on the CUDA cores; both are covered below. Kernel 4
+on the CUDA cores; kernel 1 has three (``ops/bilstm_fused.py:kernel_path``):
+the tensor-core kernel for bfloat16 and a float32 cluster kernel (tiles of 4
+or 8 samples) at those H, the general CUDA-core kernel elsewhere; all are
+covered below. Kernel 4
 (DTW, float32 only) is held to 1e-4 of each distance: it adds costs along the
 path where the plain version subtracts prefix sums.
 """
@@ -25,7 +28,9 @@ import torch
 from wordgesture_gan_tpu_torch.configs import ModelConfig
 from wordgesture_gan_tpu_torch.models.gan import Generator
 from wordgesture_gan_tpu_torch.models.layers import BiLSTM
-from wordgesture_gan_tpu_torch.ops.bilstm_fused import fused_bilstm_fwd, fused_bilstm_fwd_plain
+from wordgesture_gan_tpu_torch.ops import bilstm_fused
+from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
+                                                        sample_tile)
 from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_apply, bilstm_train_bwd,
                                                         bilstm_train_bwd_plain, bilstm_train_fwd,
                                                         bilstm_train_fwd_plain, kernel_path)
@@ -66,6 +71,65 @@ def test_kernel_matches_plain_full_width(cuda_device, dtype, batch):
     assert fused_bilstm_fwd.launches == before + 1
     want = fused_bilstm_fwd_plain(layers, x, 48, z, dtype=dtype)
     assert got.dtype == dtype and got.shape == (batch, 128, 96)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("batch", [7, 8, 9, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_around_its_tiles(cuda_device, dtype, batch):
+    """Batches around the 8-sample tile (and the float32 kernel's 4-sample
+    one), and two waves of CTAs; the launch is counted on the new path and a
+    second launch gives the same bits."""
+    layers, x, z = _case(cuda_device, batch, 128, 48, 4, 32, seed=batch)
+    path = "mma" if dtype == torch.bfloat16 else "fp32"
+    assert bilstm_fused.kernel_path(dtype, 48, 128, 4) == path
+    before = dict(fused_bilstm_fwd.launches_by_path)
+    got = fused_bilstm_fwd(layers, x, 48, z, dtype=dtype)
+    again = fused_bilstm_fwd(layers, x, 48, z, dtype=dtype)
+    torch.cuda.synchronize()
+    took = {k: fused_bilstm_fwd.launches_by_path[k] - before[k] for k in before}
+    assert took == {"mma": 0, "fp32": 0, "general": 0, path: 2}
+    want = fused_bilstm_fwd_plain(layers, x, 48, z, dtype=dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("batch", [5, 131, 512])
+def test_float32_kernel_with_either_sample_tile(cuda_device, batch):
+    """The float32 cluster kernel with 4 and with 8 samples per cluster (the
+    wrapper picks one from the batch; the other is launched directly): both
+    agree with the plain version."""
+    layers, x, z = _case(cuda_device, batch, 128, 48, 4, 32, seed=batch)
+    want = fused_bilstm_fwd_plain(layers, x, 48, z, dtype=torch.float32)
+    assert sample_tile(torch.float32, batch) == (4 if batch <= 264 else 8)
+    for tile in (4, 8):
+        got = bilstm_fused._launch_packed(layers, x, 48, z, torch.float32, tile=tile)
+        torch.testing.assert_close(got, want, atol=ATOL[torch.float32], rtol=0)
+
+
+@pytest.mark.parametrize("hidden,path", [(8, "general"), (16, "new"), (32, "new"), (64, "general")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_the_path_its_dtype_and_shape_name(cuda_device, dtype, hidden, path):
+    if path == "new":
+        path = "mma" if dtype == torch.bfloat16 else "fp32"
+    stack, x, z = _case(cuda_device, 19, 24, hidden, 3, 6, seed=hidden)
+    assert bilstm_fused.kernel_path(dtype, hidden, 24, 3) == path
+    before = dict(fused_bilstm_fwd.launches_by_path)
+    got = fused_bilstm_fwd(stack, x, hidden, z, dtype=dtype)
+    torch.cuda.synchronize()
+    took = {k: fused_bilstm_fwd.launches_by_path[k] - before[k] for k in before}
+    assert took == {"mma": 0, "fp32": 0, "general": 0, path: 1}
+    want = fused_bilstm_fwd_plain(stack, x, hidden, z, dtype=dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("layers", [1, 2, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_depths_alternate_the_scratch_buffers(cuda_device, dtype, layers):
+    """One layer (no scratch), two (one buffer), and odd and even depths above."""
+    stack, x, z = _case(cuda_device, 11, 20, 16, layers, 4, seed=layers)
+    got = fused_bilstm_fwd(stack, x, 16, z, dtype=dtype)
+    want = fused_bilstm_fwd_plain(stack, x, 16, z, dtype=dtype)
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
 
 
@@ -153,15 +217,18 @@ def test_train_pair_matches_plain_small_shapes(cuda_device, dtype, seq, hidden, 
 
 def test_train_forward_equals_inference_kernel(cuda_device):
     """Kernel 2's output against kernel 1's: the same function, summed in
-    another order (kernel 2's bfloat16 path on the tensor cores), so equal
-    within kernel 1's tolerance; the CUDA-core float32 pair is bit-equal."""
+    another order in either dtype (the float32 pair too since kernel 1 has
+    its own float32 kernel: four partial sums per gate added by shuffles), so
+    equal within kernel 1's tolerance. At H=8 both take their general kernels,
+    which sum in one order: bit-equal."""
     stack, x, z = _case(cuda_device, 64, 128, 48, 4, 32, seed=5)
     for dtype in (torch.float32, torch.bfloat16):
         y, _ = bilstm_train_fwd(stack, x, z, 48, dtype)
         torch.testing.assert_close(y.float(), fused_bilstm_fwd(stack, x, 48, z, dtype=dtype).float(),
                                    atol=ATOL[dtype], rtol=0)
-    y, _ = bilstm_train_fwd(stack, x, z, 48, torch.float32)
-    torch.testing.assert_close(y, fused_bilstm_fwd(stack, x, 48, z, dtype=torch.float32),
+    stack, x, z = _case(cuda_device, 9, 16, 8, 2, 4, seed=6)
+    y, _ = bilstm_train_fwd(stack, x, z, 8, torch.float32)
+    torch.testing.assert_close(y, fused_bilstm_fwd(stack, x, 8, z, dtype=torch.float32),
                                atol=0, rtol=0)
 
 

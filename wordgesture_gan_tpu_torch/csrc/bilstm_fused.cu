@@ -14,38 +14,82 @@
 // Output: the last layer's (B, L, 2H) hidden rows in T.
 //
 // What bounds it on this card. At the serving shape (B=512, L=128, H=48,
-// 4 layers) the stack is ~24 GFLOP and ~13 MB of compulsory traffic, i.e.
-// ~25 us on the bf16 tensor cores and ~4 us of HBM time. Neither is the
-// limit: the recurrence is a chain of 4 x 128 dependent steps, each a small
-// (4H x 3H) by (3H x tile) product followed by the gate nonlinearities, and
-// every step of every CTA reads its layer's weights again (110 KB in bf16,
-// 221 KB in fp32). So this first version is bound by the load path from
-// L1/L2 into the FMA units and by the per-step barrier latency.
+// 4 layers) the stack is ~24 GFLOP and ~13 MB of compulsory traffic: ~25 us
+// on the bf16 tensor cores (0.36 ms on the fp32 CUDA cores) and ~4 us of HBM
+// time. Neither is the limit. The recurrence is a chain of layers x L = 512
+// dependent steps, so the time of one step, times 512, is the kernel's time,
+// and the design is about what is left on that chain.
 //
-// Design (simple and right first):
-//   * one CTA owns a tile of samples for ALL layers, so layer k+1 needs no
-//     cross-CTA synchronisation to see both directions of layer k;
-//   * threadIdx.x = dir * H + unit: one thread computes the four gates of one
-//     hidden unit of one direction for kSamplesPerThread samples, so the
-//     cell update needs no gate exchange, and each weight load serves
-//     several samples; threadIdx.y splits the tile into sample groups;
-//   * the two directions advance together (forward at t, backward at L-1-t);
-//   * weights are laid out (input row, dir, unit, gate) so one thread's four
-//     gate weights are one 16-byte (fp32) or 8-byte (bf16) load and a warp's
-//     loads are contiguous; they are read through the read-only cache, which
-//     the launcher asks to be as large as possible (shared memory use is a
-//     few KB: this step's input rows and the previous h, as float);
-//   * the layer below's hidden rows go through a global buffer: the last
-//     layer writes `out`, the layers under it alternate between `scratch`
-//     and `out`, and each CTA only reads rows of its own tile.
-// Later versions: weights resident in shared memory and the step product on
-// the tensor cores (wgmma), as ROADMAP.md queues.
+// Three kernels, chosen by the wrapper from the dtype and the shape alone
+// (ops/bilstm_fused.py:kernel_path):
+//
+// A. `bilstm_fused_mma_kernel<HT>`: bf16 at H = 16 HT in {16, 32, 48}. The
+//    tensor-core step of bilstm_step.cuh, the one the training forward
+//    (bilstm_train.cu) runs, without its residual rows:
+//   * one CTA owns 8 samples (the n of `mma.sync.m16n8k16`) through all
+//     layers, both directions, so nothing is synchronised between CTAs;
+//   * W_hh stays in the chain warps' registers as A fragments for the whole
+//     layer; a step of the chain is: take the position's gate sums from the
+//     ring, h fragments from shared memory, HT x 4 `mma`, the cell update, h
+//     back to shared memory (double-buffered), one named barrier per
+//     direction;
+//   * the input projection is off the chain: producer warps compute
+//     x_t . W_ih + b (layer 1: z . W_z + b once in fp32, then two multiply-adds
+//     per position) kGxStages positions ahead and hand the sums over through
+//     an mbarrier ring;
+//   * no residual staging: the chain threads store h straight to global
+//     memory with 32-bit stores. The rows of the layers under the top one go
+//     through two scratch buffers that alternate by layer, laid out
+//     [tile][position][sample][2H] so a CTA's 192 KB stay together and L2
+//     resident and the producers' B-fragment loads are two 32-bit words per
+//     k-tile; the tile's last samples past the batch are computed from zeros
+//     and stay in the scratch. The top layer writes `out` (B, L, 2H);
+//   * grid: ceil(B / 8) CTAs of 128 HT threads, one per SM by registers.
+//     B=512 is 64 CTAs on 132 SMs, the train step's 2B=1024 call 128 CTAs
+//     (one wave), B=2048 two waves. The tile is not shrunk to fill the card
+//     at B=512: the chain is latency bound, so 64 CTAs lose nothing.
+//
+// B. `bilstm_fused_fp32_kernel<HT, S>`: float32 at the same H, full float32
+//    products on the CUDA cores (no TF32), expf / tanhf. The same structure
+//    where the hardware allows:
+//   * a cluster of two CTAs owns a tile of S samples (8, or 4 for a small
+//     batch), one direction per CTA, so a layer's weights fit in the
+//     registers of one SM: 4H chain threads and 4H producer threads per CTA;
+//   * thread (unit, quarter) holds the unit's four gate rows of W_hh over a
+//     quarter of k (H registers; the producers W_ih over a quarter of its 2H
+//     rows, 2H registers): one 16-byte broadcast load of h or x from shared
+//     memory feeds 16 multiply-adds. Two shuffle rounds add the four quarters
+//     and leave each thread the four gates of its unit for S / 4 samples, so
+//     the cell update needs no further exchange; sums are added in a fixed
+//     order;
+//   * only h . W_hh is on the chain; the producers run kGxStages positions
+//     ahead through the same kind of mbarrier ring; their x rows (the layer
+//     below, both directions) arrive by one bulk copy per position into a
+//     second ring, so no thread waits on L2;
+//   * the rows pass between layers through the two alternating scratch
+//     buffers in [tile][position][sample][2H] float32; the two CTAs of a
+//     cluster write disjoint halves of a row and meet at a cluster barrier at
+//     each layer boundary;
+//   * weights in registers rather than shared memory: both directions' W_hh
+//     and W_ih in float32 are 221 KB at H=48, which leaves no room for the
+//     rings, and a register operand costs no load slot on the chain.
+//
+// C. `bilstm_fused_kernel<T>`: every other shape (any H <= 256, either
+//    dtype), the first version of this port: one CTA owns a 4-sample tile
+//    through all layers; thread (dir, unit) computes the unit's four gates
+//    for two samples; weights are re-read through L1 every step and the input
+//    projection sits on the chain, which sets its speed (about 12,000 clocks
+//    a step at H=48 on an H100).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilstm_step.cuh"
+
 namespace {
+
+using namespace wgg;
 
 constexpr int kSamplesPerThread = 2;
 constexpr int kSampleGroups = 2;  // blockDim.y
@@ -259,19 +303,459 @@ int launch(const void* proto, const float* z, const void* wseq1, const float* wz
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ===========================================================================
+// A. The tensor-core kernel: bf16, H = 16 * HT (HT = 1, 2, 3).
+// ===========================================================================
+
+template <int HT>
+constexpr size_t fused_mma_smem_bytes() {
+  constexpr int H = 16 * HT;
+  return (size_t)2 * kGxStages * HT * 128 * 16        // gx ring (float4)
+         + (size_t)2 * 2 * kSampleTile * (H + 8) * 2  // h tiles
+         + (size_t)4 * kGxStages * 8;                 // mbarriers
+}
+
+// One CTA = 8 samples through all layers; per direction HT chain warps (the
+// recurrence) and HT producer warps (the input projection, kGxStages
+// positions ahead).
+//   proto (B, L, 2) bf16; z (B, Z) f32; wq / wf: the packed weights in bf16
+//   and f32; out (B, L, 2H) bf16; scratch (min(layers - 1, 2), tiles, L, 8, 2H)
+//   bf16, tiles = gridDim.x.
+template <int HT>
+__global__ void __launch_bounds__(128 * HT, 1)
+    bilstm_fused_mma_kernel(const bf16* __restrict__ proto, const float* __restrict__ z,
+                            const bf16* __restrict__ wq, const float* __restrict__ wf, bf16* out,
+                            bf16* scratch, int B, int L, int Z, int layers) {
+  constexpr int H = 16 * HT, HS = H + 8, R = kGxStages;
+  constexpr int kDirThreads = 32 * HT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float4* gx = reinterpret_cast<float4*>(smem_raw);                              // [2][R][HT][4][32]
+  bf16* hs = reinterpret_cast<bf16*>(gx + 2 * R * HT * 128);                     // [2][2][8][HS]
+  uint64_t* full = reinterpret_cast<uint64_t*>(hs + 2 * 2 * kSampleTile * HS);   // [2][R]
+  uint64_t* empty = full + 2 * R;                                                // [2][R]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int dir = wid / (2 * HT);
+  const int within = wid % (2 * HT);
+  const bool producer = within >= HT;
+  const int w = within % HT;
+  const int r = lane >> 2, q = lane & 3;
+  const int b0 = blockIdx.x * kSampleTile;
+  // A tile's rows in one scratch buffer, and one buffer.
+  const size_t tile_rows = (size_t)L * kSampleTile * 2 * H;
+  const size_t buffer = (size_t)gridDim.x * tile_rows;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 * R; ++i) {
+      mbar_init(full + i, kDirThreads);
+      mbar_init(empty + i, kDirThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  float4* gx_d = gx + (size_t)dir * R * HT * 128;
+  uint64_t* full_d = full + dir * R;
+  uint64_t* empty_d = empty + dir * R;
+  for (int layer = 0; layer < layers; ++layer) {
+    const CellOffsets off = cell_offsets(layer, dir, H, Z);
+    const int it0 = layer * L;
+    // Layer k under the top writes buffer k & 1 and reads buffer (k - 1) & 1.
+    bf16* dst = scratch + (size_t)(layer & 1) * buffer + blockIdx.x * tile_rows;
+    const bf16* src = scratch + (size_t)((layer + 1) & 1) * buffer + blockIdx.x * tile_rows;
+    if (producer) {
+      // ---- the input projection of this layer, in the chain's order ----
+      if (layer == 0) {
+        produce_first_layer<HT>(proto, z, wq, wf, off, b0, B, L, Z, dir, w, lane, gx_d, full_d,
+                                empty_d, it0);
+      } else {
+        // x^T fragments: sample r's [fwd | bwd] row of the layer below, features
+        // 16kt + {2q, 2q+1, 2q+8, 2q+9}. Read at L2: another layer's reads may
+        // have left older lines of this buffer in L1.
+        produce_upper_layer<HT>(
+            wq, wf, off, L, dir, w, lane, gx_d, full_d, empty_d, it0,
+            [&](int pos, uint32_t (&bx)[2 * HT][2]) {
+              const uint32_t* row = reinterpret_cast<const uint32_t*>(
+                                        src + ((size_t)pos * kSampleTile + r) * 2 * H) + q;
+#pragma unroll
+              for (int kt = 0; kt < 2 * HT; ++kt) {
+                bx[kt][0] = __ldcg(row + kt * 8);
+                bx[kt][1] = __ldcg(row + kt * 8 + 4);
+              }
+            });
+      }
+    } else {
+      // ---- the recurrence ----
+      const bool top = layer == layers - 1;
+      uint32_t a[4][HT][4];
+      load_gate_fragments<HT>(a, wq + off.w_hh, H, 16 * w, lane);
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      bf16* hs_d = hs + dir * 2 * kSampleTile * HS;
+      for (int i = w * 32 + lane; i < kSampleTile * HS; i += kDirThreads)
+        hs_d[i] = __float2bfloat16_rn(0.0f);
+      named_barrier(1 + dir, kDirThreads);
+      const int unit = 16 * w + 2 * r;  // and unit + 1: pairs j and j + 2
+      for (int t = 0; t < L; ++t) {
+        const int pos = dir ? L - 1 - t : t;
+        float acc[4][4];
+        gx_take<HT>(gx_d, full_d, empty_d, it0 + t, w, lane, acc);
+        uint32_t bh[HT][2];
+        load_h_fragments<HT>(bh, hs_d + (t & 1) * kSampleTile * HS, lane);
+        gate_product<HT>(acc, a, bh);
+        bf16 h[4];
+        lstm_cell(acc, c, h);
+        bf16* hn = hs_d + ((t + 1) & 1) * kSampleTile * HS;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int s = 2 * q + e;
+          const uint32_t hh = pack_bf16(h[e], h[e + 2]);
+          *reinterpret_cast<uint32_t*>(hn + s * HS + unit) = hh;
+          if (!top)
+            *reinterpret_cast<uint32_t*>(dst + ((size_t)pos * kSampleTile + s) * 2 * H + dir * H +
+                                         unit) = hh;
+          else if (b0 + s < B)
+            *reinterpret_cast<uint32_t*>(out + ((size_t)(b0 + s) * L + pos) * 2 * H + dir * H +
+                                         unit) = hh;
+        }
+        named_barrier(1 + dir, kDirThreads);
+      }
+    }
+    __threadfence();
+    __syncthreads();  // the layer above reads both directions at every position
+  }
+}
+
+template <int HT>
+int launch_mma(const void* proto, const float* z, const void* wq, const float* wf, void* out,
+               void* scratch, int B, int L, int Z, int layers, cudaStream_t stream) {
+  const size_t smem = fused_mma_smem_bytes<HT>();
+  cudaError_t err = cudaFuncSetAttribute(bilstm_fused_mma_kernel<HT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (B + kSampleTile - 1) / kSampleTile;
+  bilstm_fused_mma_kernel<HT><<<tiles, 128 * HT, smem, stream>>>(
+      static_cast<const bf16*>(proto), z, static_cast<const bf16*>(wq), wf,
+      static_cast<bf16*>(out), static_cast<bf16*>(scratch), B, L, Z, layers);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ===========================================================================
+// B. The float32 kernel: H = 16 * HT, S samples per cluster of two CTAs.
+// ===========================================================================
+
+constexpr int kXStages = 4;  // ring of the layer below's rows ahead of the producers
+
+template <int HT, int S>
+constexpr size_t fused_fp32_smem_bytes() {
+  constexpr int H = 16 * HT;
+  return (size_t)kGxStages * S * H * 16         // gx ring: [stage][sample][unit] float4
+         + (size_t)kXStages * S * 2 * H * 4     // x ring: [stage][sample][2H] float
+         + (size_t)2 * S * (H + 4) * 4          // h tiles
+         + (size_t)2 * (kGxStages + kXStages) * 8;  // mbarriers
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The four k-quarters' partial gate sums (threads kq = 0..3 of a unit, four
+// neighbouring lanes) added in two shuffle rounds; each thread is left the
+// full sums of S / 4 samples, the first of them (S / 2) (kq & 1) + (S / 4)
+// (kq >> 1).
+template <int S>
+__device__ __forceinline__ void reduce_quarters(const float (&acc)[4][S], int kq,
+                                                float (&red)[4][S / 4]) {
+  const bool upper0 = kq & 1, upper1 = kq & 2;
+  float half[4][S / 2];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int j = 0; j < S / 2; ++j) {
+      const float keep = upper0 ? acc[g][j + S / 2] : acc[g][j];
+      const float send = upper0 ? acc[g][j] : acc[g][j + S / 2];
+      half[g][j] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+    }
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int j = 0; j < S / 4; ++j) {
+      const float keep = upper1 ? half[g][j + S / 4] : half[g][j];
+      const float send = upper1 ? half[g][j] : half[g][j + S / 4];
+      red[g][j] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+    }
+}
+
+// acc[g][s] += sum_i w[g][i] * x[s * stride + i], i < K (K a multiple of 4;
+// x 16-byte aligned, in shared memory).
+template <int K, int S>
+__device__ __forceinline__ void quarter_product(float (&acc)[4][S], const float (&w)[4][K],
+                                                const float* x, int stride) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int c = 0; c < K / 4; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(x + s * stride + 4 * c);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        acc[g][s] = fmaf(w[g][4 * c], v.x, acc[g][s]);
+        acc[g][s] = fmaf(w[g][4 * c + 1], v.y, acc[g][s]);
+        acc[g][s] = fmaf(w[g][4 * c + 2], v.z, acc[g][s]);
+        acc[g][s] = fmaf(w[g][4 * c + 3], v.w, acc[g][s]);
+      }
+    }
+}
+
+// Rows kq * K .. kq * K + K of a (rows, 4H) weight matrix, the four gate
+// columns of `unit`.
+template <int K>
+__device__ __forceinline__ void load_quarter(float (&w)[4][K], const float* m, int H, int unit,
+                                             int kq) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      w[g][i] = __ldg(m + (size_t)(kq * K + i) * 4 * H + (size_t)g * H + unit);
+}
+
+// A cluster of two CTAs = S samples through all layers, CTA rank = direction.
+// Threads 0 .. 4H-1 are the chain, 4H .. 8H-1 the producers; thread (unit,
+// kq) = (index / 4, index % 4) within either.
+//   proto (B, L, 2) f32; z (B, Z) f32; wf: the packed weights in f32; out
+//   (B, L, 2H) f32; scratch (min(layers - 1, 2), tiles, L, S, 2H) f32, tiles =
+//   gridDim.x / 2.
+template <int HT, int S>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 * HT, 1)
+    bilstm_fused_fp32_kernel(const float* __restrict__ proto, const float* __restrict__ z,
+                             const float* __restrict__ wf, float* out, float* scratch, int B,
+                             int L, int Z, int layers) {
+  constexpr int H = 16 * HT, G = 4 * H, KQ = H / 4, KX = H / 2, HS = H + 4, SQ = S / 4;
+  constexpr int R = kGxStages, RX = kXStages;
+  constexpr int kRole = 4 * H;  // threads of either role
+  constexpr uint32_t kXBytes = S * 2 * H * 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float4* gx = reinterpret_cast<float4*>(smem_raw);               // [R][S][H]
+  float* xs = reinterpret_cast<float*>(gx + R * S * H);           // [RX][S][2H]
+  float* hs = xs + RX * S * 2 * H;                                // [2][S][HS]
+  uint64_t* full = reinterpret_cast<uint64_t*>(hs + 2 * S * HS);  // [R]
+  uint64_t* empty = full + R;                                     // [R]
+  uint64_t* xfull = empty + R;                                    // [RX]
+  uint64_t* xempty = xfull + RX;                                  // [RX]
+
+  const int tid = threadIdx.x;
+  const bool producer = tid >= kRole;
+  const int rt = producer ? tid - kRole : tid;
+  const int unit = rt >> 2, kq = rt & 3;
+  const int dir = blockIdx.x & 1;
+  const int tile = blockIdx.x >> 1;
+  const int b0 = tile * S;
+  const int s0 = (S / 2) * (kq & 1) + SQ * (kq >> 1);  // the thread's first sample
+  const size_t tile_rows = (size_t)L * S * 2 * H;
+  const size_t buffer = (size_t)(gridDim.x >> 1) * tile_rows;
+
+  if (tid == 0) {
+    for (int i = 0; i < R; ++i) {
+      mbar_init(full + i, kRole);
+      mbar_init(empty + i, kRole);
+    }
+    for (int i = 0; i < RX; ++i) {
+      mbar_init(xfull + i, 1);
+      mbar_init(xempty + i, kRole);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Hands the thread's gate sums of one position to the chain.
+  auto publish = [&](int it, const float (&v)[4][SQ]) {
+    const int slot = it % R;
+    mbar_wait(empty + slot, ((it / R) & 1) ^ 1);
+#pragma unroll
+    for (int j = 0; j < SQ; ++j)
+      gx[((size_t)slot * S + s0 + j) * H + unit] = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    mbar_arrive(full + slot);
+  };
+
+  for (int layer = 0; layer < layers; ++layer) {
+    const CellOffsets off = cell_offsets(layer, dir, H, Z);
+    const int it0 = layer * L;
+    // Layer k under the top writes buffer k & 1 and reads buffer (k - 1) & 1.
+    float* dst = scratch + (size_t)(layer & 1) * buffer + tile * tile_rows;
+    const float* src = scratch + (size_t)((layer + 1) & 1) * buffer + tile * tile_rows;
+    if (producer) {
+      // ---- the input projection of this layer, in the chain's order ----
+      float bias[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        bias[g] = __ldg(wf + off.b_ih + g * H + unit) + __ldg(wf + off.b_hh + g * H + unit);
+      if (layer == 0) {
+        // z . W_z + b once, then two multiply-adds per position.
+        float base[4][SQ], wp[2][4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          wp[0][g] = __ldg(wf + off.w_ih + g * H + unit);
+          wp[1][g] = __ldg(wf + off.w_ih + G + g * H + unit);
+#pragma unroll
+          for (int j = 0; j < SQ; ++j) base[g][j] = bias[g];
+        }
+        for (int k = 0; k < Z; ++k) {
+          float zv[SQ];
+#pragma unroll
+          for (int j = 0; j < SQ; ++j)
+            zv[j] = b0 + s0 + j < B ? __ldg(z + (size_t)(b0 + s0 + j) * Z + k) : 0.0f;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float wv = __ldg(wf + off.w_ih + (size_t)(2 + k) * G + g * H + unit);
+#pragma unroll
+            for (int j = 0; j < SQ; ++j) base[g][j] = fmaf(wv, zv[j], base[g][j]);
+          }
+        }
+        for (int t = 0; t < L; ++t) {
+          const int pos = dir ? L - 1 - t : t;
+          float v[4][SQ];
+#pragma unroll
+          for (int j = 0; j < SQ; ++j) {
+            float2 p = make_float2(0.0f, 0.0f);
+            if (b0 + s0 + j < B)
+              p = __ldg(reinterpret_cast<const float2*>(proto + ((size_t)(b0 + s0 + j) * L + pos) * 2));
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              v[g][j] = fmaf(wp[1][g], p.y, fmaf(wp[0][g], p.x, base[g][j]));
+          }
+          publish(it0 + t, v);
+        }
+      } else {
+        float w[4][KX];
+        load_quarter<KX>(w, wf + off.w_ih, H, unit, kq);
+        // One thread keeps the x ring full: one bulk copy per position of the
+        // tile's S rows of the layer below (contiguous in the scratch).
+        const bool issuer = rt == 0;
+        const int itx0 = (layer - 1) * L;
+        auto issue = [&](int t) {
+          const int it = itx0 + t;
+          const int slot = it % RX;
+          mbar_wait(xempty + slot, ((it / RX) & 1) ^ 1);
+          mbar_arrive_expect_tx(xfull + slot, kXBytes);
+          bulk_load(xs + (size_t)slot * S * 2 * H,
+                    src + (size_t)(dir ? L - 1 - t : t) * S * 2 * H, kXBytes, xfull + slot);
+        };
+        if (issuer) {
+          fence_async_all();  // the layer below's rows were written with plain stores
+          for (int t = 0; t < RX - 1 && t < L; ++t) issue(t);
+        }
+        for (int t = 0; t < L; ++t) {
+          if (issuer && t + RX - 1 < L) issue(t + RX - 1);
+          const int it = itx0 + t;
+          const int slot = it % RX;
+          mbar_wait(xfull + slot, (it / RX) & 1);
+          float acc[4][S];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int s = 0; s < S; ++s) acc[g][s] = 0.0f;
+          quarter_product<KX, S>(acc, w, xs + (size_t)slot * S * 2 * H + kq * KX, 2 * H);
+          mbar_arrive(xempty + slot);
+          float v[4][SQ];
+          reduce_quarters<S>(acc, kq, v);
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int j = 0; j < SQ; ++j) v[g][j] += bias[g];
+          publish(it0 + t, v);
+        }
+      }
+    } else {
+      // ---- the recurrence ----
+      const bool top = layer == layers - 1;
+      float w[4][KQ];
+      load_quarter<KQ>(w, wf + off.w_hh, H, unit, kq);
+      float c[SQ];
+#pragma unroll
+      for (int j = 0; j < SQ; ++j) c[j] = 0.0f;
+      for (int i = rt; i < S * HS; i += kRole) hs[i] = 0.0f;
+      named_barrier(1, kRole);
+      for (int t = 0; t < L; ++t) {
+        const int pos = dir ? L - 1 - t : t;
+        float acc[4][S];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int s = 0; s < S; ++s) acc[g][s] = 0.0f;
+        quarter_product<KQ, S>(acc, w, hs + (t & 1) * S * HS + kq * KQ, HS);
+        float v[4][SQ];
+        reduce_quarters<S>(acc, kq, v);
+        const int it = it0 + t;
+        const int slot = it % R;
+        mbar_wait(full + slot, (it / R) & 1);
+#pragma unroll
+        for (int j = 0; j < SQ; ++j) {
+          const float4 x = gx[((size_t)slot * S + s0 + j) * H + unit];
+          v[0][j] += x.x;
+          v[1][j] += x.y;
+          v[2][j] += x.z;
+          v[3][j] += x.w;
+        }
+        mbar_arrive(empty + slot);
+        float* hn = hs + ((t + 1) & 1) * S * HS;
+#pragma unroll
+        for (int j = 0; j < SQ; ++j) {
+          const float ig = sigmoid_f(v[0][j]);
+          const float fg = sigmoid_f(v[1][j]);
+          const float gg = tanhf(v[2][j]);
+          const float og = sigmoid_f(v[3][j]);
+          c[j] = fg * c[j] + ig * gg;
+          const float h = og * tanhf(c[j]);
+          const int s = s0 + j;
+          hn[s * HS + unit] = h;
+          if (!top)
+            dst[((size_t)pos * S + s) * 2 * H + dir * H + unit] = h;
+          else if (b0 + s < B)
+            out[((size_t)(b0 + s) * L + pos) * 2 * H + dir * H + unit] = h;
+        }
+        named_barrier(1, kRole);
+      }
+    }
+    // Both directions' rows are written before either CTA's next layer reads
+    // them (with bulk copies: the async proxy).
+    __threadfence();
+    fence_async_all();
+    cluster_sync();
+  }
+}
+
+template <int HT, int S>
+int launch_fp32(const float* proto, const float* z, const float* wf, float* out, float* scratch,
+                int B, int L, int Z, int layers, cudaStream_t stream) {
+  const size_t smem = fused_fp32_smem_bytes<HT, S>();
+  cudaError_t err = cudaFuncSetAttribute(bilstm_fused_fp32_kernel<HT, S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (B + S - 1) / S;
+  bilstm_fused_fp32_kernel<HT, S><<<2 * tiles, 128 * HT, smem, stream>>>(proto, z, wf, out,
+                                                                        scratch, B, L, Z, layers);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int B, int L, int H, int Z, int layers) {
+  return B < 1 || L < 1 || H < 1 || Z < 0 || layers < 1;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
-// (0 on success); cudaErrorInvalidValue for a shape it does not take
-// (H > 256: 2H threads per sample group). The kernel runs on `stream` and
-// is not synchronised.
+// The general kernel. dtype: 0 = float32, 1 = bfloat16. Returns the
+// cudaError_t of the launch (0 on success); cudaErrorInvalidValue for a shape
+// it does not take (H > 256: 2H threads per sample group). Every kernel here
+// runs on `stream` and is not synchronised; every buffer is the caller's.
 int wgg_bilstm_fused_fwd(const void* proto, const float* z, const void* wseq1, const float* wz,
                          const void* whh, const void* wih, const float* bias, void* out,
                          void* scratch, int B, int L, int H, int Z, int layers, int dtype,
                          void* stream) {
-  if (B < 1 || L < 1 || H < 1 || Z < 0 || layers < 1 || 2 * H * kSampleGroups > 1024)
+  if (bad_shape(B, L, H, Z, layers) || 2 * H * kSampleGroups > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -279,6 +763,72 @@ int wgg_bilstm_fused_fwd(const void* proto, const float* z, const void* wseq1, c
   if (dtype == 1)
     return launch<__nv_bfloat16>(proto, z, wseq1, wz, whh, wih, bias, out, scratch, B, L, H, Z,
                                  layers, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core kernel: bfloat16 only, H in {16, 32, 48} (the wrapper's
+// dispatch rule; anything else returns cudaErrorInvalidValue). wq / wf are the
+// packed weights (bilstm_step.cuh) in bf16 and f32; scratch holds
+// min(layers - 1, 2) buffers of (ceil(B / 8), L, 8, 2H) bf16.
+int wgg_bilstm_fused_fwd_mma(const void* proto, const float* z, const void* wq, const float* wf,
+                             void* out, void* scratch, int B, int L, int H, int Z, int layers,
+                             void* stream) {
+  if (bad_shape(B, L, H, Z, layers)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H == 16) return launch_mma<1>(proto, z, wq, wf, out, scratch, B, L, Z, layers, s);
+  if (H == 32) return launch_mma<2>(proto, z, wq, wf, out, scratch, B, L, Z, layers, s);
+  if (H == 48) return launch_mma<3>(proto, z, wq, wf, out, scratch, B, L, Z, layers, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float32 kernel: H in {16, 32, 48}, `tile` = 4 or 8 samples per cluster
+// (the wrapper's rule); scratch holds min(layers - 1, 2) buffers of
+// (ceil(B / tile), L, tile, 2H) f32.
+int wgg_bilstm_fused_fwd_fp32(const float* proto, const float* z, const float* wf, float* out,
+                              float* scratch, int B, int L, int H, int Z, int layers, int tile,
+                              void* stream) {
+  if (bad_shape(B, L, H, Z, layers)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WGG_FP32(HT)                                                                      \
+  {                                                                                       \
+    if (tile == 8) return launch_fp32<HT, 8>(proto, z, wf, out, scratch, B, L, Z, layers, s); \
+    if (tile == 4) return launch_fp32<HT, 4>(proto, z, wf, out, scratch, B, L, Z, layers, s); \
+  }
+  if (H == 16) WGG_FP32(1)
+  if (H == 32) WGG_FP32(2)
+  if (H == 48) WGG_FP32(3)
+#undef WGG_FP32
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory per CTA (info[0]), threads per CTA (info[1]) and
+// resident CTAs per SM (info[2]) of a kernel at this H: 0 = tensor-core,
+// 1 = float32 with 8 samples per cluster, 2 = float32 with 4. Returns a
+// cudaError_t.
+int wgg_bilstm_fused_info(int H, int kernel, int* info) {
+#define WGG_INFO(FN, SMEM, THREADS)                                                        \
+  {                                                                                        \
+    info[0] = (int)(SMEM);                                                                 \
+    info[1] = (THREADS);                                                                   \
+    cudaError_t err =                                                                      \
+        cudaFuncSetAttribute(FN, cudaFuncAttributeMaxDynamicSharedMemorySize, info[0]);    \
+    if (err == cudaSuccess)                                                                \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], FN, info[1], info[0]); \
+    return static_cast<int>(err);                                                          \
+  }
+#define WGG_INFO_HT(HT)                                                                     \
+  {                                                                                         \
+    if (kernel == 0) WGG_INFO(bilstm_fused_mma_kernel<HT>, fused_mma_smem_bytes<HT>(), 128 * HT) \
+    if (kernel == 1)                                                                        \
+      WGG_INFO((bilstm_fused_fp32_kernel<HT, 8>), (fused_fp32_smem_bytes<HT, 8>()), 128 * HT)   \
+    if (kernel == 2)                                                                        \
+      WGG_INFO((bilstm_fused_fp32_kernel<HT, 4>), (fused_fp32_smem_bytes<HT, 4>()), 128 * HT)   \
+  }
+  if (H == 16) WGG_INFO_HT(1)
+  if (H == 32) WGG_INFO_HT(2)
+  if (H == 48) WGG_INFO_HT(3)
+#undef WGG_INFO_HT
+#undef WGG_INFO
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

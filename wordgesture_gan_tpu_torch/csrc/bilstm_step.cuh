@@ -21,14 +21,19 @@
 //   * h goes back through a double-buffered (8, H+8) bf16 tile in shared
 //     memory (one 32-bit load per B-fragment register, conflict free), one
 //     named barrier per step and direction.
-// The input projection (x_t.W_ih + b, not on the chain) is produced ahead by
-// other warps with the same fragment layout (`gate_product` with the W_ih
-// fragments), handed over in accumulator order.
+// The input projection (x_t.W_ih + b, not on the chain) is produced up to
+// kGxStages positions ahead by other warps with the same fragment layout
+// (`produce_first_layer`, `produce_upper_layer`: `gate_product` with the W_ih
+// fragments) and handed over in accumulator order through an mbarrier ring
+// (`gx_publish`, `gx_take`). The inference kernel (bilstm_fused.cu) and the
+// training forward (bilstm_train.cu) run this step from this one source; they
+// differ in where the layer below's rows come from (`load_x`) and in what the
+// chain stores after a step.
 //
 // Packed weights: one flat buffer holding, for layer 0.., direction fwd, bwd:
 // w_ih (din, 4H), w_hh (H, 4H), b_ih (4H), b_hh (4H), each row-major as the
 // model stores them (din = 2 + Z for layer 0, 2H above); once in float32 and
-// once rounded to bf16 (ops/bilstm_train.py:packed_weights).
+// once rounded to bf16 (ops/bilstm_fused.py:packed_weights).
 
 #pragma once
 
@@ -41,6 +46,7 @@ namespace wgg {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kSampleTile = 8;  // samples per CTA: the n of m16n8k16
+constexpr int kGxStages = 4;    // ring of input projections ahead of the chain
 
 // ---------------------------------------------------------------------------
 // Packed weight layout
@@ -273,6 +279,149 @@ __device__ __forceinline__ void lstm_cell(float (&acc)[4][4], float (&c)[4], bf1
     acc[1][j] = fg;
     acc[2][j] = gg;
     acc[3][j] = og;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The ring of input projections between a direction's producer warps and its
+// chain warps. `gx` is the direction's [kGxStages][HT][4][32] float4 slots,
+// `full` / `empty` its kGxStages mbarriers each (count: the 32 * HT threads of
+// either side); `it` counts positions across layers, so the phase parity
+// carries over the layer boundary.
+// ---------------------------------------------------------------------------
+
+// Hands one position's gate sums to the chain, in accumulator order.
+template <int HT>
+__device__ __forceinline__ void gx_publish(float4* gx, uint64_t* full, uint64_t* empty, int it,
+                                           int w, int lane, const float (&acc)[4][4]) {
+  const int slot = it % kGxStages;
+  mbar_wait(empty + slot, ((it / kGxStages) & 1) ^ 1);
+  float4* dst = gx + ((size_t)slot * HT + w) * 128 + lane;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) dst[g * 32] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  mbar_arrive(full + slot);
+}
+
+// The chain's side: the position's gate sums into the accumulators.
+template <int HT>
+__device__ __forceinline__ void gx_take(const float4* gx, uint64_t* full, uint64_t* empty, int it,
+                                        int w, int lane, float (&acc)[4][4]) {
+  const int slot = it % kGxStages;
+  mbar_wait(full + slot, (it / kGxStages) & 1);
+  const float4* src = gx + ((size_t)slot * HT + w) * 128 + lane;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float4 v = src[g * 32];
+    acc[g][0] = v.x;
+    acc[g][1] = v.y;
+    acc[g][2] = v.z;
+    acc[g][3] = v.w;
+  }
+  mbar_arrive(empty + slot);
+}
+
+// b_ih + b_hh of a thread's gate rows (tile rows r and r + 8 of each gate).
+__device__ __forceinline__ void load_gate_bias(float (&bias)[4][2], const float* wf,
+                                               const CellOffsets& off, int H, int unit0, int lane) {
+  const int r = lane >> 2;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const size_t m = (size_t)g * H + unit0 + 2 * r + half;
+      bias[g][half] = __ldg(wf + off.b_ih + m) + __ldg(wf + off.b_hh + m);
+    }
+}
+
+// Producer warp w of a direction, layer 1: z . W_z + b once per (gate, pair) in
+// fp32, then two multiply-adds per position for the prototype's coordinates.
+//   proto (B, L, 2) bf16; z (B, Z) f32; wq / wf: the packed weights.
+template <int HT>
+__device__ __forceinline__ void produce_first_layer(const bf16* proto, const float* z,
+                                                    const bf16* wq, const float* wf,
+                                                    const CellOffsets& off, int b0, int B, int L,
+                                                    int Z, int dir, int w, int lane, float4* gx,
+                                                    uint64_t* full, uint64_t* empty, int it0) {
+  constexpr int H = 16 * HT, G = 4 * H;
+  const int r = lane >> 2, q = lane & 3;
+  float bias[4][2];
+  load_gate_bias(bias, wf, off, H, 16 * w, lane);
+  float base[4][4], wp[2][4][2];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const size_t m = (size_t)g * H + 16 * w + 2 * r + half;
+      base[g][2 * half] = base[g][2 * half + 1] = bias[g][half];
+      wp[0][g][half] = __bfloat162float(__ldg(wq + off.w_ih + m));
+      wp[1][g][half] = __bfloat162float(__ldg(wq + off.w_ih + G + m));
+    }
+  for (int k = 0; k < Z; ++k) {
+    const float z0 = b0 + 2 * q < B ? __ldg(z + (size_t)(b0 + 2 * q) * Z + k) : 0.0f;
+    const float z1 = b0 + 2 * q + 1 < B ? __ldg(z + (size_t)(b0 + 2 * q + 1) * Z + k) : 0.0f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float wv =
+            __ldg(wf + off.w_ih + (size_t)(2 + k) * G + (size_t)g * H + 16 * w + 2 * r + half);
+        base[g][2 * half] = fmaf(wv, z0, base[g][2 * half]);
+        base[g][2 * half + 1] = fmaf(wv, z1, base[g][2 * half + 1]);
+      }
+  }
+  for (int t = 0; t < L; ++t) {
+    const int pos = dir ? L - 1 - t : t;
+    float p[2][2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int b = b0 + 2 * q + s;
+      p[s][0] = p[s][1] = 0.0f;
+      if (b < B) {
+        const __nv_bfloat162 v =
+            *reinterpret_cast<const __nv_bfloat162*>(proto + ((size_t)b * L + pos) * 2);
+        p[s][0] = __bfloat162float(v.x);
+        p[s][1] = __bfloat162float(v.y);
+      }
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[g][j] = fmaf(wp[0][g][j >> 1], p[j & 1][0], base[g][j]);
+        acc[g][j] = fmaf(wp[1][g][j >> 1], p[j & 1][1], acc[g][j]);
+      }
+    gx_publish<HT>(gx, full, empty, it0 + t, w, lane, acc);
+  }
+}
+
+// Producer warp w of a direction, layers >= 2: x_t . W_ih + b on the tensor
+// cores, W_ih^T held as A fragments for the whole layer. `load_x(pos, bx)`
+// fills the B fragments of x^T at a position: the layer below's [fwd | bwd]
+// hidden row of sample lane / 4 of the tile, features
+// 16kt + {2q, 2q+1} in bx[kt][0] and 16kt + {2q+8, 2q+9} in bx[kt][1]
+// (q = lane % 4), zeros for a sample past the batch.
+template <int HT, typename LoadX>
+__device__ __forceinline__ void produce_upper_layer(const bf16* wq, const float* wf,
+                                                    const CellOffsets& off, int L, int dir, int w,
+                                                    int lane, float4* gx, uint64_t* full,
+                                                    uint64_t* empty, int it0, LoadX load_x) {
+  constexpr int H = 16 * HT;
+  float bias[4][2];
+  load_gate_bias(bias, wf, off, H, 16 * w, lane);
+  uint32_t a[4][2 * HT][4];
+  load_gate_fragments<2 * HT>(a, wq + off.w_ih, H, 16 * w, lane);
+  for (int t = 0; t < L; ++t) {
+    const int pos = dir ? L - 1 - t : t;
+    uint32_t bx[2 * HT][2];
+    load_x(pos, bx);
+    float acc[4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[g][j] = bias[g][j >> 1];
+    gate_product<2 * HT>(acc, a, bx);
+    gx_publish<HT>(gx, full, empty, it0 + t, w, lane, acc);
   }
 }
 

@@ -666,7 +666,6 @@ int launch_bwd(const void* res, const void* dy, const void* proto, const void* z
 // head of this file.
 // ===========================================================================
 
-constexpr int kGxStages = 4;  // ring of input projections ahead of the chain
 constexpr int kInStages = 6;  // ring of residual / dy rows ahead of the sweep
 constexpr int kDgStages = 3;  // ring of gate-gradient tiles behind the sweep
 
@@ -691,7 +690,7 @@ __global__ void __launch_bounds__(128 * HT, 1)
     train_fwd_mma_kernel(const bf16* __restrict__ proto, const float* __restrict__ z,
                          const bf16* __restrict__ wq, const float* __restrict__ wf, bf16* res,
                          bf16* out, int B, int L, int Z, int layers) {
-  constexpr int H = 16 * HT, G = 4 * H, HS = H + 8, ROW = 6 * H, R = kGxStages;
+  constexpr int H = 16 * HT, HS = H + 8, ROW = 6 * H, R = kGxStages;
   constexpr int SROW = ROW + 8;  // staged rows 16 bytes apart from a bank-aligned stride
   constexpr int kDirThreads = 32 * HT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -726,104 +725,33 @@ __global__ void __launch_bounds__(128 * HT, 1)
   for (int layer = 0; layer < layers; ++layer) {
     const CellOffsets off = cell_offsets(layer, dir, H, Z);
     const int it0 = layer * L;
+    float4* gx_d = gx + (size_t)dir * R * HT * 128;
+    uint64_t* full_d = full + dir * R;
+    uint64_t* empty_d = empty + dir * R;
     if (producer) {
       // ---- the input projection of this layer, in the chain's order ----
-      // Hands one position's gate sums to the chain, in accumulator order.
-      auto publish = [&](int t, const float (&acc)[4][4]) {
-        const int it = it0 + t;
-        const int slot = it % R;
-        mbar_wait(empty + dir * R + slot, ((it / R) & 1) ^ 1);
-        float4* dst = gx + ((size_t)(dir * R + slot) * HT + w) * 128 + lane;
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          dst[g * 32] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-        mbar_arrive(full + dir * R + slot);
-      };
-      float bias[4][2];  // b_ih + b_hh of the thread's gate rows
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const size_t m = (size_t)g * H + 16 * w + 2 * r + half;
-          bias[g][half] = __ldg(wf + off.b_ih + m) + __ldg(wf + off.b_hh + m);
-        }
       if (layer == 0) {
-        // Layer 1: z . W_z + b once per (gate, pair) in fp32, then two
-        // multiply-adds per position for the prototype's coordinates.
-        float base[4][4], wp[2][4][2];
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const size_t m = (size_t)g * H + 16 * w + 2 * r + half;
-            base[g][2 * half] = base[g][2 * half + 1] = bias[g][half];
-            wp[0][g][half] = __bfloat162float(__ldg(wq + off.w_ih + m));
-            wp[1][g][half] = __bfloat162float(__ldg(wq + off.w_ih + G + m));
-          }
-        for (int k = 0; k < Z; ++k) {
-          const float z0 = b0 + 2 * q < B ? __ldg(z + (size_t)(b0 + 2 * q) * Z + k) : 0.0f;
-          const float z1 = b0 + 2 * q + 1 < B ? __ldg(z + (size_t)(b0 + 2 * q + 1) * Z + k) : 0.0f;
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const float wv = __ldg(wf + off.w_ih + (size_t)(2 + k) * G + (size_t)g * H + 16 * w +
-                                     2 * r + half);
-              base[g][2 * half] = fmaf(wv, z0, base[g][2 * half]);
-              base[g][2 * half + 1] = fmaf(wv, z1, base[g][2 * half + 1]);
-            }
-        }
-        for (int t = 0; t < L; ++t) {
-          const int pos = dir ? L - 1 - t : t;
-          float p[2][2];
-#pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            const int b = b0 + 2 * q + s;
-            p[s][0] = p[s][1] = 0.0f;
-            if (b < B) {
-              const __nv_bfloat162 v =
-                  *reinterpret_cast<const __nv_bfloat162*>(proto + ((size_t)b * L + pos) * 2);
-              p[s][0] = __bfloat162float(v.x);
-              p[s][1] = __bfloat162float(v.y);
-            }
-          }
-          float acc[4][4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[g][j] = fmaf(wp[0][g][j >> 1], p[j & 1][0], base[g][j]);
-              acc[g][j] = fmaf(wp[1][g][j >> 1], p[j & 1][1], acc[g][j]);
-            }
-          publish(t, acc);
-        }
+        produce_first_layer<HT>(proto, z, wq, wf, off, b0, B, L, Z, dir, w, lane, gx_d, full_d,
+                                empty_d, it0);
       } else {
-        uint32_t a[4][2 * HT][4];
-        load_gate_fragments<2 * HT>(a, wq + off.w_ih, H, 16 * w, lane);
+        // x^T fragments: the h planes of the layer below at this position,
+        // sample r of the tile, features 16kt + {2q, 2q+1, 2q+8, 2q+9}.
         const bool valid = b0 + r < B;
-        for (int t = 0; t < L; ++t) {
-          const int pos = dir ? L - 1 - t : t;
-          // x^T fragments: the h planes of the layer below at this position,
-          // sample r of the tile, features 16kt + {2q, 2q+1, 2q+8, 2q+9}.
-          uint32_t bx[2 * HT][2];
+        produce_upper_layer<HT>(
+            wq, wf, off, L, dir, w, lane, gx_d, full_d, empty_d, it0,
+            [&](int pos, uint32_t (&bx)[2 * HT][2]) {
 #pragma unroll
-          for (int kt = 0; kt < 2 * HT; ++kt) {
-            bx[kt][0] = bx[kt][1] = 0u;
-            if (valid) {
-              const uint32_t* src = reinterpret_cast<const uint32_t*>(
-                  res + res_row(layer - 1, kt / HT, pos, b0 + r, L, B, H) + (kt % HT) * 16 + 2 * q);
-              bx[kt][0] = src[0];
-              bx[kt][1] = src[4];
-            }
-          }
-          float acc[4][4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[g][j] = bias[g][j >> 1];
-          gate_product<2 * HT>(acc, a, bx);
-          publish(t, acc);
-        }
+              for (int kt = 0; kt < 2 * HT; ++kt) {
+                bx[kt][0] = bx[kt][1] = 0u;
+                if (valid) {
+                  const uint32_t* src = reinterpret_cast<const uint32_t*>(
+                      res + res_row(layer - 1, kt / HT, pos, b0 + r, L, B, H) + (kt % HT) * 16 +
+                      2 * q);
+                  bx[kt][0] = src[0];
+                  bx[kt][1] = src[4];
+                }
+              }
+            });
       }
     } else {
       // ---- the recurrence ----
@@ -837,20 +765,8 @@ __global__ void __launch_bounds__(128 * HT, 1)
       named_barrier(1 + dir, kDirThreads);
       for (int t = 0; t < L; ++t) {
         const int pos = dir ? L - 1 - t : t;
-        const int it = it0 + t;
-        const int slot = it % R;
-        mbar_wait(full + dir * R + slot, (it / R) & 1);
         float acc[4][4];
-        const float4* src = gx + ((size_t)(dir * R + slot) * HT + w) * 128 + lane;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float4 v = src[g * 32];
-          acc[g][0] = v.x;
-          acc[g][1] = v.y;
-          acc[g][2] = v.z;
-          acc[g][3] = v.w;
-        }
-        mbar_arrive(empty + dir * R + slot);
+        gx_take<HT>(gx_d, full_d, empty_d, it0 + t, w, lane, acc);
         uint32_t bh[HT][2];
         load_h_fragments<HT>(bh, hs_d + (t & 1) * kSampleTile * HS, lane);
         gate_product<HT>(acc, a, bh);

@@ -1,6 +1,6 @@
-"""Fused whole-stack BiLSTM inference forward: the wrapper of the CUDA kernel
-``csrc/bilstm_fused.cu``, its plain PyTorch version, and the weight layout
-the kernel reads.
+"""Fused whole-stack BiLSTM inference forward: the wrapper of the CUDA kernels
+in ``csrc/bilstm_fused.cu``, its plain PyTorch version, and the weight
+layouts the kernels read.
 
 Port of the JAX package's ``ops/bilstm_fused.py`` (the Pallas TPU kernel
 ``_kernel``, launched by ``_fused_call``, wrapped by ``fused_bilstm_fwd``).
@@ -12,24 +12,140 @@ Casting contract (the fused kernel's, not the plain scan's): gate sums,
 nonlinearities and the cell state are float32; h is rounded to the compute
 dtype every step; the layer-1 latent projection is float32 from float32
 weights and z; sequence and recurrent weights are rounded to the compute
-dtype, biases stay float32. The kernel's source note says what bounds it on
-an H100 and how it is laid out.
+dtype, biases stay float32. The kernels' source note says what bounds them
+on an H100 and how they are laid out.
 
 Dispatch: tensors on the CPU take ``fused_bilstm_fwd_plain``; tensors on a
-CUDA device launch the kernel, and a build or launch failure raises. There
+CUDA device launch a kernel, and a build or launch failure raises. There
 is no other path. Inference only: nothing here is differentiated.
+
+Three kernel paths, chosen by ``kernel_path`` from the compute dtype and the
+shape alone (never by trying one and falling back):
+
+* ``"mma"`` — bfloat16 with H in {16, 32, 48} (the flagship recipe and
+  serving: H=48), any B, L, Z and depth: the tensor-core kernel (``mma.sync``
+  bf16 with float32 accumulation, 8 samples per CTA), W_hh held in registers
+  for a whole layer, the input projection on producer warps ahead of the
+  recurrence; the step the training forward shares (``csrc/bilstm_step.cuh``);
+* ``"fp32"`` — float32 (the default compute dtype) at the same H: full
+  float32 products on the CUDA cores, one direction per CTA of a two-CTA
+  cluster so that a layer's weights stay in registers, the input projection
+  on producer threads fed by bulk copies; ``sample_tile`` samples per cluster;
+* ``"general"`` — any other H <= 256 in either dtype: the first CUDA-core
+  kernel, which reads ``kernel_weights``' re-laid-out weights.
+
+The first two read the packed weights (``packed_weights``: one flat buffer in
+the model's own layout, one concatenation and one cast per call).
+``fused_bilstm_fwd.launches`` counts all launches, ``.launches_by_path`` the
+launches of each path.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 KERNEL = "bilstm_fused"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CELL = ("w_ih", "w_hh", "b_ih", "b_hh")
+_DIRS = ("fwd", "bwd")
+# Hidden sizes the tensor-core kernels (and the float32 inference kernel) are
+# instantiated for, and the samples a CTA of the tensor-core kernels owns.
+MMA_HIDDEN = (16, 32, 48)
+SAMPLE_TILE = 8
+# The float32 inference kernel owns 8 samples per two-CTA cluster, or 4 where
+# 8 would leave more than half of an H100's 132 SMs without a CTA.
+_FP32_SMALL_BATCH = 264
+
+
+# ---------------------------------------------------------------------------
+# Which kernel, and the layouts the kernels read
+# ---------------------------------------------------------------------------
+
+
+def _check_path_shape(seq: int, layers: int) -> None:
+    if seq < 1 or layers < 1:
+        raise ValueError(f"need at least one position and one layer, got L={seq}, {layers} layers")
+
+
+def kernel_path(dtype: torch.dtype, hidden: int, seq: int, layers: int) -> str:
+    """Which kernel a CUDA call of ``fused_bilstm_fwd`` takes: ``"mma"``
+    (tensor cores) for bfloat16 and ``"fp32"`` for float32 with H in
+    ``MMA_HIDDEN``, ``"general"`` otherwise. A pure function of the dtype and
+    the shape; every sequence length and depth is served by all three, so
+    ``seq`` and ``layers`` do not change the answer."""
+    _check_path_shape(seq, layers)
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+    if hidden not in MMA_HIDDEN:
+        return "general"
+    return "mma" if dtype == torch.bfloat16 else "fp32"
+
+
+def sample_tile(dtype: torch.dtype, batch: int) -> int:
+    """Samples per CTA (``"mma"``) or per two-CTA cluster (``"fp32"``): the
+    granularity of the scratch layout. A pure function of dtype and batch."""
+    if dtype == torch.bfloat16:
+        return SAMPLE_TILE
+    return 4 if batch <= _FP32_SMALL_BATCH else 8
+
+
+def scratch_shape(batch: int, seq: int, hidden: int, n_layers: int, tile: int) -> Tuple[int, ...]:
+    """The buffers through which the rows of the layers under the top one pass
+    (``"mma"`` and ``"fp32"`` paths): (buffers, tiles, L, tile, 2H), layer k
+    writing buffer k % 2 and reading buffer (k - 1) % 2. The tiles are whole:
+    samples past the batch are computed from zeros and stay here."""
+    return (min(n_layers - 1, 2), -(-batch // tile), seq, tile, 2 * hidden)
+
+
+def scratch_row_offset(sample: int, pos: int, seq: int, hidden: int, tile: int) -> int:
+    """Offset (in elements, within one buffer) of sample ``sample``'s row at
+    position ``pos``: the kernels' own arithmetic. Each tile's rows are one
+    contiguous block of L·tile·2H elements."""
+    return ((sample // tile * seq + pos) * tile + sample % tile) * 2 * hidden
+
+
+def packed_sizes(hidden: int, latent: int, n_layers: int) -> List[Tuple[int, ...]]:
+    """Shapes of the packed weights' tensors, in their order: per layer, per
+    direction, w_ih (din, 4H), w_hh (H, 4H), b_ih (4H,), b_hh (4H,), with
+    din = 2 + Z for layer 1 and 2H above (``csrc/bilstm_step.cuh``:
+    ``cell_offsets``)."""
+    shapes = []
+    for k in range(n_layers):
+        din = 2 + latent if k == 0 else 2 * hidden
+        for _ in _DIRS:
+            shapes += [(din, 4 * hidden), (hidden, 4 * hidden), (4 * hidden,), (4 * hidden,)]
+    return shapes
+
+
+def packed_weights(layers: List[Dict], dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stack's weights for the ``"mma"`` and ``"fp32"`` kernels (and the
+    tensor-core training kernels): one flat float32 buffer of every tensor in
+    the model's own (row-major) layout and order, and the same buffer rounded
+    to ``dtype``. No padding and no transposition: the kernels build their
+    register operands from this layout once per layer. Two small launches (one
+    concatenation, one cast)."""
+    flat = torch.cat([layer[d][name].reshape(-1).to(torch.float32)
+                      for layer in layers for d in _DIRS for name in _CELL])
+    return flat, flat.to(dtype)
+
+
+def _unflatten(weights, n_layers: int) -> List[Dict]:
+    it = iter(weights)
+    return [{d: {name: next(it) for name in _CELL} for d in _DIRS} for _ in range(n_layers)]
+
+
+def unpack_weights(flat: torch.Tensor, hidden: int, latent: int, n_layers: int) -> List[Dict]:
+    """The inverse of ``packed_weights``: views of ``flat`` as the model's tree."""
+    shapes = packed_sizes(hidden, latent, n_layers)
+    sizes = [int(torch.Size(shape).numel()) for shape in shapes]
+    if flat.numel() != sum(sizes):
+        raise ValueError(f"packed weights hold {flat.numel()} values, the stack {sum(sizes)}")
+    parts = iter(t.view(shape) for t, shape in zip(flat.split(sizes), shapes))
+    return _unflatten(parts, n_layers)
 
 
 def _gate_layout(w_fwd: torch.Tensor, w_bwd: torch.Tensor, hidden: int) -> torch.Tensor:
@@ -40,8 +156,8 @@ def _gate_layout(w_fwd: torch.Tensor, w_bwd: torch.Tensor, hidden: int) -> torch
 
 
 def kernel_weights(layers: List[Dict], hidden: int, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """The stack's weights in the kernel's layout and types (see the shapes
-    listed in ``csrc/bilstm_fused.cu``)."""
+    """The stack's weights in the general kernels' layout and types (see the
+    shapes listed in ``csrc/bilstm_fused.cu``)."""
     l0 = layers[0]
     fwd = [layer["fwd"] for layer in layers]
     bwd = [layer["bwd"] for layer in layers]
@@ -144,43 +260,104 @@ def _check(layers: List[Dict], x: torch.Tensor, hidden: int, static: torch.Tenso
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The kernel's library (built at first use) with its C signatures declared."""
+    """The kernels' library (built at first use) with its C signatures declared."""
     from .build import load
 
     lib = load(KERNEL)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wgg_bilstm_fused_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.wgg_bilstm_fused_fwd.restype = i
+    lib.wgg_bilstm_fused_fwd_mma.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.wgg_bilstm_fused_fwd_mma.restype = i
+    lib.wgg_bilstm_fused_fwd_fp32.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.wgg_bilstm_fused_fwd_fp32.restype = i
+    lib.wgg_bilstm_fused_info.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wgg_bilstm_fused_info.restype = i
     lib.wgg_cuda_error_string.argtypes = [i]
     lib.wgg_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(layers: List[Dict], x: torch.Tensor, hidden: int, static: torch.Tensor,
-            dtype: torch.dtype) -> torch.Tensor:
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.wgg_cuda_error_string(err).decode()} (cudaError {err})")
+
+
+def _pointers(tensors: List[torch.Tensor], device: torch.device) -> List[int]:
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"kernel operand on {t.device}, the prototype on {device}")
+        if t.data_ptr() % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
+    return [t.data_ptr() for t in tensors]
+
+
+def fused_kernel_info(hidden: int) -> Dict[str, Dict[str, int]]:
+    """What the ``"mma"`` and ``"fp32"`` kernels occupy on the current CUDA
+    device, asked of the built library: dynamic shared memory per CTA, threads
+    per CTA and resident CTAs per SM at this hidden size."""
+    lib = _library()
+    info = {}
+    for code, name in enumerate(("bilstm_fused_mma", "bilstm_fused_fp32_tile8",
+                                 "bilstm_fused_fp32_tile4")):
+        out = (ctypes.c_int * 3)()
+        _raise_on(lib, lib.wgg_bilstm_fused_info(hidden, code, out), name)
+        info[name] = {"smem_bytes_per_cta": out[0], "threads_per_cta": out[1],
+                      "ctas_per_sm": out[2]}
+    return info
+
+
+def _launch_packed(layers: List[Dict], x: torch.Tensor, hidden: int, static: torch.Tensor,
+                   dtype: torch.dtype, tile: Optional[int] = None) -> torch.Tensor:
+    """The ``"mma"`` (bfloat16) or ``"fp32"`` (float32) kernel. ``tile``
+    overrides ``sample_tile`` (a measurement of the float32 kernel's other
+    tile; ``fused_bilstm_fwd`` never passes it)."""
+    lib = _library()
+    device = x.device
+    B, L, _ = x.shape
+    n = len(layers)
+    tile = tile or sample_tile(dtype, B)
+    wf, wq = packed_weights(layers, dtype)
+    proto = x.to(dtype).contiguous()
+    z = static.to(torch.float32).contiguous()
+    out = torch.empty((B, L, 2 * hidden), dtype=dtype, device=device)
+    scratch = torch.empty(scratch_shape(B, L, hidden, n, tile) if n > 1 else (8,), dtype=dtype,
+                          device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if dtype == torch.bfloat16:
+            ptrs = _pointers([proto, z, wq, wf, out, scratch], device)
+            err = lib.wgg_bilstm_fused_fwd_mma(*ptrs, B, L, hidden, static.shape[1], n, stream)
+        else:
+            ptrs = _pointers([proto, z, wf, out, scratch], device)
+            err = lib.wgg_bilstm_fused_fwd_fp32(*ptrs, B, L, hidden, static.shape[1], n, tile,
+                                                stream)
+    _raise_on(lib, err, f"bilstm_fused ({kernel_path(dtype, hidden, L, n)} path)")
+    return out
+
+
+def _launch_general(layers: List[Dict], x: torch.Tensor, hidden: int, static: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
     lib = _library()
     device = x.device
     B, L, _ = x.shape
     w = kernel_weights(layers, hidden, dtype)
-    for name, t in [("static", static), *w.items()]:
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, the prototype on {device}")
     proto = x.to(dtype).contiguous()
     z = static.to(torch.float32).contiguous()
     out = torch.empty((B, L, 2 * hidden), dtype=dtype, device=device)
     scratch = torch.empty_like(out) if len(layers) > 1 else out
-    args = [proto, z, w["wseq1"], w["wz"], w["whh"], w["wih"], w["bias"], out, scratch]
-    if any(t.data_ptr() % 16 for t in args):
-        raise ValueError("kernel operands must be 16-byte aligned")
+    ptrs = _pointers([proto, z, w["wseq1"], w["wz"], w["whh"], w["wih"], w["bias"], out, scratch],
+                     device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.wgg_bilstm_fused_fwd(*[t.data_ptr() for t in args], B, L, hidden,
-                                       static.shape[1], len(layers), _DTYPE_CODES[dtype], stream)
-    if err:
-        raise RuntimeError(f"bilstm_fused kernel launch failed: "
-                           f"{lib.wgg_cuda_error_string(err).decode()} (cudaError {err})")
-    fused_bilstm_fwd.launches += 1
+        err = lib.wgg_bilstm_fused_fwd(*ptrs, B, L, hidden, static.shape[1], len(layers),
+                                       _DTYPE_CODES[dtype], stream)
+    _raise_on(lib, err, "bilstm_fused")
     return out
+
+
+_LAUNCHERS = {"mma": _launch_packed, "fp32": _launch_packed, "general": _launch_general}
 
 
 def fused_bilstm_fwd(layers: List[Dict], x: torch.Tensor, hidden: int,
@@ -190,7 +367,8 @@ def fused_bilstm_fwd(layers: List[Dict], x: torch.Tensor, hidden: int,
 
     ``layers`` is the JAX-layout tree ``[k]["fwd" | "bwd"]["w_ih" | "w_hh" |
     "b_ih" | "b_hh"]`` (``BiLSTM.params()``). A CUDA ``x`` launches the kernel
-    (``fused_bilstm_fwd.launches`` counts the launches); a CPU ``x`` runs
+    ``kernel_path`` names (``fused_bilstm_fwd.launches`` counts the launches,
+    ``.launches_by_path`` those of each path); a CPU ``x`` runs
     ``fused_bilstm_fwd_plain``."""
     _check(layers, x, hidden, static, dtype)
     with torch.no_grad():
@@ -198,7 +376,12 @@ def fused_bilstm_fwd(layers: List[Dict], x: torch.Tensor, hidden: int,
             return fused_bilstm_fwd_plain(layers, x, hidden, static, dtype)
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
-        return _launch(layers, x, hidden, static, dtype)
+        path = kernel_path(dtype, hidden, x.shape[1], len(layers))
+        out = _LAUNCHERS[path](layers, x, hidden, static, dtype)
+        fused_bilstm_fwd.launches += 1
+        fused_bilstm_fwd.launches_by_path[path] += 1
+        return out
 
 
 fused_bilstm_fwd.launches = 0
+fused_bilstm_fwd.launches_by_path = {"mma": 0, "fp32": 0, "general": 0}

@@ -7,7 +7,7 @@ Port of the JAX package's ``ops/bilstm_train.py`` (the Pallas TPU kernels
 ``_fwd_kernel``, launched by ``_fwd_call``, and ``_bwd_kernel``, launched by
 ``_bwd_call``, under the ``jax.custom_vjp`` ``_train_core``). The CUDA
 kernels are in ``csrc/bilstm_train.cu`` (the forward step they share with
-the next inference kernel in ``csrc/bilstm_step.cuh``); the source notes say
+the inference kernel in ``csrc/bilstm_step.cuh``); the source notes say
 what bounds them on an H100 and how they are laid out.
 
 Casting contract (the TPU pair's):
@@ -58,18 +58,20 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .bilstm_fused import _DTYPE_CODES, _check, kernel_weights, plain_stack
+from .bilstm_fused import (_CELL, _DIRS, _DTYPE_CODES, MMA_HIDDEN, SAMPLE_TILE, _check,
+                           _check_path_shape, _pointers, _raise_on, _unflatten, kernel_weights,
+                           packed_sizes, packed_weights, plain_stack, unpack_weights)
+
+__all__ = ["MMA_HIDDEN", "backward_weights", "bilstm_train_apply", "bilstm_train_bwd",
+           "bilstm_train_bwd_plain", "bilstm_train_fwd", "bilstm_train_fwd_plain", "kernel_path",
+           "mma_kernel_info", "packed_sizes", "packed_weights", "split_hi_lo", "unpack_weights"]
 
 KERNEL = "bilstm_train"
-_CELL = ("w_ih", "w_hh", "b_ih", "b_hh")
-_DIRS = ("fwd", "bwd")
 # Rows of the backward's weight-gradient product per split of the (L·B) sum.
 _ROWS_PER_SPLIT = 2048
 _MAX_SPLITS = 16
-# The tensor-core path: hidden sizes its kernels are instantiated for, samples
-# per CTA, and how many CTAs the weight-gradient product should fill.
-MMA_HIDDEN = (16, 32, 48)
-_SAMPLE_TILE = 8
+# The tensor-core path (hidden sizes ``MMA_HIDDEN``, ``SAMPLE_TILE`` samples per
+# CTA: ops/bilstm_fused.py): how many CTAs the weight-gradient product should fill.
 _WGRAD_CTAS = 132
 
 
@@ -192,21 +194,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(lib, err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.wgg_cuda_error_string(err).decode()} (cudaError {err})")
-
-
-def _pointers(tensors: List[torch.Tensor], device: torch.device) -> List[int]:
-    for t in tensors:
-        if t.device != device:
-            raise ValueError(f"kernel operand on {t.device}, the prototype on {device}")
-        if t.data_ptr() % 16:
-            raise ValueError("kernel operands must be 16-byte aligned")
-    return [t.data_ptr() for t in tensors]
-
-
 def backward_weights(layers: List[Dict], hidden: int, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """The weights kernel 3 reads, rounded to ``dtype``, laid out so that a
     warp's threads (consecutive hidden units) read consecutive addresses:
@@ -238,43 +225,8 @@ def kernel_path(dtype: torch.dtype, hidden: int, seq: int, layers: int) -> str:
     with H in ``MMA_HIDDEN``, ``"general"`` (CUDA cores) otherwise. A pure
     function of the dtype and the shape; every sequence length and depth is
     served by both paths, so ``seq`` and ``layers`` do not change the answer."""
-    if seq < 1 or layers < 1:
-        raise ValueError(f"need at least one position and one layer, got L={seq}, {layers} layers")
+    _check_path_shape(seq, layers)
     return "mma" if dtype == torch.bfloat16 and hidden in MMA_HIDDEN else "general"
-
-
-def packed_sizes(hidden: int, latent: int, n_layers: int) -> List[Tuple[int, ...]]:
-    """Shapes of the packed weights' tensors, in their order: per layer, per
-    direction, w_ih (din, 4H), w_hh (H, 4H), b_ih (4H,), b_hh (4H,), with
-    din = 2 + Z for layer 1 and 2H above (``csrc/bilstm_step.cuh``:
-    ``cell_offsets``)."""
-    shapes = []
-    for k in range(n_layers):
-        din = 2 + latent if k == 0 else 2 * hidden
-        for _ in _DIRS:
-            shapes += [(din, 4 * hidden), (hidden, 4 * hidden), (4 * hidden,), (4 * hidden,)]
-    return shapes
-
-
-def packed_weights(layers: List[Dict], dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The stack's weights for the tensor-core kernels: one flat float32
-    buffer of every tensor in the model's own (row-major) layout and order,
-    and the same buffer rounded to ``dtype``. No padding and no transposition:
-    the kernels build their register fragments from this layout once per
-    layer. Two small launches (one concatenation, one cast)."""
-    flat = torch.cat([layer[d][name].reshape(-1).to(torch.float32)
-                      for layer in layers for d in _DIRS for name in _CELL])
-    return flat, flat.to(dtype)
-
-
-def unpack_weights(flat: torch.Tensor, hidden: int, latent: int, n_layers: int) -> List[Dict]:
-    """The inverse of ``packed_weights``: views of ``flat`` as the model's tree."""
-    shapes = packed_sizes(hidden, latent, n_layers)
-    sizes = [int(torch.Size(shape).numel()) for shape in shapes]
-    if flat.numel() != sum(sizes):
-        raise ValueError(f"packed weights hold {flat.numel()} values, the stack {sum(sizes)}")
-    parts = iter(t.view(shape) for t, shape in zip(flat.split(sizes), shapes))
-    return _unflatten(parts, n_layers)
 
 
 def split_hi_lo(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -348,7 +300,7 @@ def _launch_bwd_mma(layers, x, static, res, dy, hidden, dtype):
     n, _, L, B, _ = res.shape
     H, Z = hidden, static.shape[1]
     f32 = torch.float32
-    tiles = -(-B // _SAMPLE_TILE)
+    tiles = -(-B // SAMPLE_TILE)
     splits = _wgrad_splits(L, n)
     m_first, m_rest = 2 + Z + H + 1, 3 * H + 1
 
@@ -359,7 +311,7 @@ def _launch_bwd_mma(layers, x, static, res, dy, hidden, dtype):
         res.contiguous(),
         empty((L, B, 2 * H), dtype).copy_(dy.transpose(0, 1)),                   # dy, position-major
         x.to(dtype).contiguous(), static.to(dtype).contiguous(), packed_weights(layers, dtype)[1],
-        empty((n * 2, L, tiles, 2, 4 * H, _SAMPLE_TILE), dtype),                 # split gate grads
+        empty((n * 2, L, tiles, 2, 4 * H, SAMPLE_TILE), dtype),                 # split gate grads
         empty((2, 2, L, B, 2 * H) if n > 1 else (8,), dtype),                    # input gradients
         empty((2, B, L, 2), dtype),                                              # dx streams
         empty((B, max(Z, 1))),                                                   # dz
@@ -484,11 +436,6 @@ bilstm_train_bwd.launches_by_path = {"mma": 0, "general": 0}
 # ---------------------------------------------------------------------------
 # The autograd Function
 # ---------------------------------------------------------------------------
-
-
-def _unflatten(weights, n_layers: int) -> List[Dict]:
-    it = iter(weights)
-    return [{d: {name: next(it) for name in _CELL} for d in _DIRS} for _ in range(n_layers)]
 
 
 class _BiLSTMTrain(torch.autograd.Function):
