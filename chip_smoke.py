@@ -43,6 +43,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    launch on the tensor-core path. A small
    batch with injected noise is then compared with the CPU's plain path,
    and one sampling call is profiled;
+4b. serve the MLP and the transformer generators the same way
+   (``generate.main --generator mlp|transformer``, full width, bf16, 8192
+   gestures, batch 512): shape, range and clock checked, no kernel launched
+   (their layers are matrix products), a small batch with injected noise
+   against the CPU, one sampling call profiled;
 5. train through ``train.gan_loop.train_gan(..., device="cuda")``: the
    flagship recipe (bf16, batch 512, n_critic 5, λ_speed 2, λ_div 0.3,
    λ_dtc 4) on 4096 smoke gestures made in numpy from keyboard prototypes,
@@ -68,6 +73,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    4096 sampled entries of the DTW matrix no larger than their diagonal
    path's cost; a small evaluation (n=64) on the card against the CPU; the
    suite profiled once;
+7b. on the same corpus, ``train_cli.main --variable-length`` (the masked
+   transformer step, bf16, batch 512) for 2 epochs, checkpointed, losses
+   finite, one steady masked step profiled;
+7c. one float32 masked step (full-width transformer, B=32, n_critic 5, a mask
+   of varied lengths) on the card against the CPU from the same state and
+   injected noise, with phase 6's tolerances;
+7d. ``eval_cli.main --variable-length --n-samples 2000`` on 7b's checkpoint,
+   DTW on: masked sampling, resampling onto the 128-point grid on the card
+   (held against the CPU's, 1e-4), the suite; launches counted from 0: one
+   kernel-4 matrix of 4·10^6 pairs, no BiLSTM kernel; every metric finite,
+   precision and recall in [0, 1], DTW-Wasserstein > 0;
 8. time kernel 1 (at B=512 and at the train step's 2B=1024; in float32 also
    with the sample tile the dispatch rule does not pick at that batch),
    kernels 2 and 3 (with one profiled call of the pair at one
@@ -101,12 +117,15 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from wordgesture_gan_tpu_torch import eval_cli, generate, train_cli
-from wordgesture_gan_tpu_torch.cli_common import load_split
+from wordgesture_gan_tpu_torch.cli_common import load_split, resolve_dataset_zip
 from wordgesture_gan_tpu_torch.configs import EvaluationConfig, ModelConfig, TrainingConfig
 from wordgesture_gan_tpu_torch.data.pipeline import GestureArrays
+from wordgesture_gan_tpu_torch.data.variable_length import (create_variable_split,
+                                                            load_variable_dataset_from_zip)
 from wordgesture_gan_tpu_torch.interop.from_jax import write_generator_npz
 from wordgesture_gan_tpu_torch.keyboard import QWERTYKeyboard
 from wordgesture_gan_tpu_torch.metrics.suite import evaluate_all_metrics
+from wordgesture_gan_tpu_torch.models.gan import generator_init
 from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance
 from wordgesture_gan_tpu_torch.ops import build as kernel_build
 from wordgesture_gan_tpu_torch.ops import bilstm_fused
@@ -116,13 +135,16 @@ from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_bwd, bilstm
                                                         bilstm_train_fwd, bilstm_train_fwd_plain,
                                                         kernel_path, mma_kernel_info)
 from wordgesture_gan_tpu_torch.ops.dtw import dtw_matrix, dtw_pairs, dtw_pairs_plain
+from wordgesture_gan_tpu_torch.ops.resample import batched_arclength_resample
 from wordgesture_gan_tpu_torch.train.checkpoint import (find_checkpoint, latest_epoch,
                                                         load_generator)
 from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures, train_gan
 from wordgesture_gan_tpu_torch.train.gan_step import gan_train_step
+from wordgesture_gan_tpu_torch.train.masked_step import METRIC_KEYS as MASKED_METRIC_KEYS
+from wordgesture_gan_tpu_torch.train.masked_step import gan_train_step_masked
 from wordgesture_gan_tpu_torch.train.state import MODELS, init_gan_state
 from wordgesture_gan_tpu_torch.utils.chunking import chunk_layout
-from wordgesture_gan_tpu_torch.utils.tree import tree_leaves
+from wordgesture_gan_tpu_torch.utils.tree import tree_leaves, tree_map
 
 HIDDEN, SEQ, LAYERS, LATENT = 48, 128, 4, 32
 # Around the tiles of 8 samples (tensor-core kernels) and 4 (kernel 1's float32
@@ -922,18 +944,34 @@ def step_vs_cpu_recipe(device, recipe: str, batch=STEP_BATCH, model: dict = None
     ds = smoke_dataset(batch, mcfg.seq_length, seed=3)
     data = {"gesture": torch.from_numpy(ds.gestures), "prototype": torch.from_numpy(ds.prototypes)}
     noise = _step_noise(batch, mcfg.latent_dim, tcfg.n_critic, seed=6)
-    worst = {"loss": 0.0, "grad_rel": 0.0, "param_in_lr": 0.0}
+    worst = compare_step(device, gan_train_step, mcfg, tcfg, data, noise, grad_tol)
+    line = {"check": "gan_train_step on the card vs CPU plain path", "recipe": recipe,
+            "batch": batch, "dtype": "float32", **worst,
+            "tolerances": {"loss": STEP_LOSS_TOL, "grad": grad_tol,
+                           "param_in_lr_per_adam_step": 2}}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def compare_step(device, step, mcfg, tcfg, data: dict, noise: dict, grad_tol: float) -> dict:
+    """``step(state, batch, lr, mcfg, tcfg, noise=)`` on the card and on the
+    CPU from one fresh state, at lr=0 (Adam's moments: the gradients, each
+    leaf relative to its largest, within ``grad_tol``) and at lr=2e-4 (the
+    parameters within 2·lr per Adam step); losses within STEP_LOSS_TOL of
+    max(1, |loss|). Returns the worst errors."""
+    worst = {"max_loss_err_rel": 0.0, "max_grad_err_rel": 0.0,
+             "max_param_err_in_lr_per_adam_step": 0.0}
     for lr in (0.0, STEP_LR):
         runs = []
         for dev in (device, torch.device("cpu")):
             state = init_gan_state(0, mcfg, device=dev)
-            _, metrics = gan_train_step(state, {k: v.to(dev) for k, v in data.items()}, lr, mcfg,
-                                        tcfg, noise={k: v.to(dev) for k, v in noise.items()})
+            _, metrics = step(state, {k: v.to(dev) for k, v in data.items()}, lr, mcfg, tcfg,
+                              noise={k: v.to(dev) for k, v in noise.items()})
             runs.append((state, {k: v.item() for k, v in metrics.items()}))
         (gpu, gm), (cpu, cm) = runs
         for k, want in cm.items():
             err = abs(gm[k] - want) / max(1.0, abs(want))
-            worst["loss"] = max(worst["loss"], err)
+            worst["max_loss_err_rel"] = max(worst["max_loss_err_rel"], err)
             if not err <= STEP_LOSS_TOL:
                 raise AssertionError(f"step loss {k} on the card {gm[k]} vs CPU {want}")
         for m in MODELS:
@@ -941,24 +979,18 @@ def step_vs_cpu_recipe(device, recipe: str, batch=STEP_BATCH, model: dict = None
                 for part in ("mu", "nu"):
                     for a, b in zip(tree_leaves(gpu[m]["opt"][part]), tree_leaves(cpu[m]["opt"][part])):
                         err = _rel_err(a.cpu(), b)[0]
-                        worst["grad_rel"] = max(worst["grad_rel"], err)
+                        worst["max_grad_err_rel"] = max(worst["max_grad_err_rel"], err)
                         if not err <= grad_tol:
                             raise AssertionError(f"{m} {part} on the card vs CPU: {err}")
             else:
                 adam_steps = tcfg.n_critic if m in ("d1", "d2") else 1
                 for a, b in zip(tree_leaves(gpu[m]["params"]), tree_leaves(cpu[m]["params"])):
                     err = (a.detach().cpu() - b.detach()).abs().max().item() / lr
-                    worst["param_in_lr"] = max(worst["param_in_lr"], err / adam_steps)
+                    worst["max_param_err_in_lr_per_adam_step"] = max(
+                        worst["max_param_err_in_lr_per_adam_step"], err / adam_steps)
                     if not err <= 2 * adam_steps:
                         raise AssertionError(f"{m} parameters on the card vs CPU: {err} lr")
-    line = {"check": "gan_train_step on the card vs CPU plain path", "recipe": recipe,
-            "batch": batch, "dtype": "float32", "max_loss_err_rel": worst["loss"],
-            "max_grad_err_rel": worst["grad_rel"],
-            "max_param_err_in_lr_per_adam_step": worst["param_in_lr"],
-            "tolerances": {"loss": STEP_LOSS_TOL, "grad": grad_tol,
-                           "param_in_lr_per_adam_step": 2}}
-    print(json.dumps(line), flush=True)
-    return line
+    return worst
 
 # -- evaluation through the entry points --------------------------------------------------
 
@@ -1121,6 +1153,196 @@ def small_eval_vs_cpu(device, real, fake, train, mcfg, n=SMALL_EVAL_N, n_train=S
     return line
 
 
+# -- the MLP and transformer generators, and the variable-length path ---------------------
+
+FAMILIES = ("mlp", "transformer")
+VL_TRAIN_EPOCHS = 2            # variable-length training: 2 epochs at batch 512
+VL_STEP_LENGTHS = (8, 128)     # true lengths of the masked step's batch, drawn in this range
+# The masked step against the CPU: the reference recipe (no auxiliaries),
+# float32; gradients (Adam's moments at lr=0) within 1e-3 of each leaf's
+# largest, as for the BiLSTM step; losses and parameters as STEP_*.
+VL_STEP_GRAD_TOL = 1e-3
+# Card vs CPU arc-length resampling, abs: the float32 cumulative arc length
+# of up to 127 segments sums in another order on the card (measured 9.2e-6
+# on an H100 over 2000 traces), which moves the targets' fractions.
+RESAMPLE_TOL = 1e-4
+
+
+def serve_family(device, workdir: Path, family: str, n=SERVE_N, batch=SERVE_BATCH,
+                 runs=2) -> dict:
+    """Phase 4b: the MLP or transformer generator through ``generate.main`` at
+    full width (seeded PyTorch-default weights written as a JAX-layout npz),
+    bfloat16, monotone time head: the gestures' shape, range and clock, then
+    a small request with injected noise against the CPU. These families run
+    no hand-written kernel; the first run's kernel-1 launches must be 0."""
+    config = ModelConfig(generator_type=family, time_head="monotone", compute_dtype="bfloat16")
+    tree = generator_init(config, torch.Generator().manual_seed(0))
+    weights = workdir / f"{family}.npz"
+    write_generator_npz(tree_map(lambda t: t.detach().numpy(), tree), str(weights))
+    out = workdir / f"{family}_gestures.npz"
+    argv = ["--words", ",".join(WORDS), "--n", str(n), "--batch", str(batch),
+            "--precision", "bfloat16", "--time-head", "monotone", "--generator", family,
+            "--seed", "0", "--weights", str(weights), "--checkpoint-dir", str(workdir),
+            "--out", str(out), "--device", device.type]
+    stats = []
+    for run in range(runs):
+        reset_launches(fused_bilstm_fwd)
+        stats.append(generate.main(argv))
+        if run == 0 and fused_bilstm_fwd.launches:
+            raise AssertionError(f"the {family} generator launched the BiLSTM kernel")
+    with np.load(out) as data:
+        check_gestures(data["gestures"], n, SEQ)
+
+    rng = np.random.default_rng(7)
+    kb = QWERTYKeyboard()
+    protos = np.stack([kb.get_word_prototype(WORDS[i], SEQ)
+                       for i in rng.integers(0, len(WORDS), 48)])
+    z = rng.normal(size=(len(protos), LATENT)).astype(np.float32)
+    got, want = [generate_gestures(load_generator(str(weights), config, device=dev), protos,
+                                   config, batch=32, device=dev, z=z) for dev in (device, "cpu")]
+    err = float(np.abs(got - want).max())
+    line = {"serving": "generate.main", "generator": family, "n": n, "batch": batch,
+            "dtype": "bfloat16", "chunks": chunk_layout(n, batch)[1],
+            "gestures_per_s_first_run": stats[0]["gestures_per_s"],
+            "gestures_per_s": stats[-1]["gestures_per_s"], "seconds": stats[-1]["seconds"],
+            "vs_cpu": {"n": len(protos), "max_abs_err": err,
+                       "tolerance": TOLERANCE["bfloat16"]}}
+    print(json.dumps(line), flush=True)
+    if not err <= TOLERANCE["bfloat16"]:
+        raise AssertionError(f"{family}: served gestures differ from the CPU path by {err}")
+    if device.type == "cuda":
+        model = load_generator(str(weights), config, device=device)
+        kb_protos = np.stack([kb.get_word_prototype(WORDS[i % len(WORDS)], SEQ) for i in range(n)])
+        generate_gestures(model, kb_protos, config, batch=batch, device=device)     # warm
+        line["profile"] = device_profile(
+            lambda: generate_gestures(model, kb_protos, config, batch=batch, device=device),
+            "generate_gestures", generator=family, n=n, batch=batch)
+    return line
+
+
+def variable_data(workdir: Path, users=EVAL_USERS, checkpoint_dir: str = "checkpoints_vl") -> list:
+    """The CLI flags of the variable-length phases: the evaluation's synthetic
+    corpus (written there by phase 7, read from its cache here)."""
+    return ["--synthetic", "--synthetic-users", str(users), "--data",
+            str(workdir / "swipelogs.zip"), "--checkpoint-dir", str(workdir / checkpoint_dir)]
+
+
+def train_variable(device, workdir: Path, users=EVAL_USERS, epochs=VL_TRAIN_EPOCHS,
+                   batch_size=512) -> dict:
+    """Phase 9: ``train_cli.main --variable-length`` (the masked transformer
+    step, bfloat16, default recipe) on the synthetic corpus; losses finite,
+    every epoch checkpointed; one steady masked step profiled."""
+    data = [*variable_data(workdir, users), "--device", device.type]
+    t0 = time.perf_counter()
+    result = train_cli.main(["--variable-length", "--epochs", str(epochs),
+                             "--batch-size", str(batch_size), *data])
+    wall = time.perf_counter() - t0
+    ckpt = data[data.index("--checkpoint-dir") + 1]
+    if latest_epoch(ckpt) != epochs or len(result.history) != epochs:
+        raise AssertionError("train_cli --variable-length did not train the requested epochs")
+    for losses in result.history:
+        bad = [k for k, v in losses.items() if not np.isfinite(v)]
+        if bad or set(losses) != set(MASKED_METRIC_KEYS) | {"lr"}:
+            raise AssertionError(f"variable-length losses {losses}")
+    steps = result.gestures_per_epoch // batch_size
+    seconds = result.epoch_seconds
+    line = {"training": "train_cli.main --variable-length", "synthetic_users": users,
+            "n": result.gestures_per_epoch, "batch": batch_size, "steps_per_epoch": steps,
+            "dtype": "bfloat16", "epoch_seconds": seconds,
+            "gestures_per_s": [result.gestures_per_epoch / t for t in seconds],
+            "ms_per_step": [t / steps * 1e3 for t in seconds], "wall_seconds": wall,
+            "seconds_outside_epochs": wall - sum(seconds), "losses_last_epoch": result.history[-1]}
+    print(json.dumps(line), flush=True)
+    if device.type == "cuda":
+        args = train_cli.build_parser().parse_args(data)
+        mcfg = ModelConfig(generator_type="transformer", time_head="monotone",
+                           compute_dtype="bfloat16")
+        tcfg = TrainingConfig(batch_size=batch_size)
+        by_word, _ = load_variable_dataset_from_zip(resolve_dataset_zip(args), QWERTYKeyboard(),
+                                                    seed=args.seed, verbose=False)
+        train_ds, _ = create_variable_split(by_word, QWERTYKeyboard(), seed=args.seed,
+                                            verbose=False)
+        batch = {"gesture": train_ds.gestures[:batch_size],
+                 "prototype": train_ds.prototypes[:batch_size],
+                 "mask": train_ds.masks()[:batch_size]}
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        gan_train_step_masked(result.state, batch, 1e-5, mcfg, tcfg)        # warm
+        line["profile"] = device_profile(
+            lambda: gan_train_step_masked(result.state, batch, 1e-5, mcfg, tcfg),
+            "gan_train_step_masked", batch=batch_size, dtype="bfloat16")
+    return line
+
+
+def masked_step_vs_cpu(device, batch=STEP_BATCH, model: dict = None) -> dict:
+    """Phase 10: one float32 masked step (full-width transformer, n_critic 5,
+    the reference recipe) on the card and on the CPU from the same state,
+    batch, mask and injected noise. ``model`` overrides configuration fields
+    (a rehearsal on the CPU at a tiny size)."""
+    mcfg = ModelConfig(**{"generator_type": "transformer", "time_head": "monotone",
+                          **(model or {})})
+    tcfg = TrainingConfig(batch_size=batch, n_critic=5)
+    ds = smoke_dataset(batch, mcfg.seq_length, seed=4)
+    rng = np.random.default_rng(8)
+    lengths = rng.integers(min(VL_STEP_LENGTHS[0], mcfg.seq_length), mcfg.seq_length + 1, batch)
+    lengths[0] = mcfg.seq_length
+    mask = (np.arange(mcfg.seq_length)[None, :] < lengths[:, None]).astype(np.float32)
+    data = {"gesture": torch.from_numpy(ds.gestures), "prototype": torch.from_numpy(ds.prototypes),
+            "mask": torch.from_numpy(mask)}
+    noise = _step_noise(batch, mcfg.latent_dim, tcfg.n_critic, seed=9)
+    noise.pop("z_ms")
+    worst = compare_step(device, gan_train_step_masked, mcfg, tcfg, data, noise, VL_STEP_GRAD_TOL)
+    line = {"check": "gan_train_step_masked on the card vs CPU", "batch": batch,
+            "dtype": "float32", "lengths": [int(lengths.min()), int(lengths.max())], **worst,
+            "tolerances": {"loss": STEP_LOSS_TOL, "grad": VL_STEP_GRAD_TOL,
+                           "param_in_lr_per_adam_step": 2}}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def evaluate_variable(device, workdir: Path, users=EVAL_USERS, n=EVAL_N,
+                      fid_epochs=EVAL_FID_EPOCHS) -> dict:
+    """Phase 11: ``eval_cli.main --variable-length --n-samples 2000`` with DTW
+    on, on phase 9's checkpoint: masked sampling, resampling onto the
+    128-point grid on the card, the metric suite. Launches counted from 0:
+    one kernel-4 matrix, no BiLSTM kernel. Every metric finite, precision and
+    recall in [0, 1], DTW-Wasserstein > 0; the card's resampling against the
+    CPU's on the real side."""
+    data = [*variable_data(workdir, users), "--device", device.type]
+    counters = {"dtw": dtw_matrix, "dtw_aligned_pairs": dtw_pairs, "bilstm_fused": fused_bilstm_fwd}
+    reset_launches(*counters.values())
+    t0 = time.perf_counter()
+    out = eval_cli.main(["--variable-length", "--n-samples", str(n), "--fid-epochs",
+                         str(fid_epochs), *data])
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    if out["n"] != n:
+        raise AssertionError(f"the variable-length test split gave {out['n']} samples, not {n}")
+    _check_results("variable-length gan", out["gan"])
+    expected = {"dtw": 1, "dtw_aligned_pairs": 0, "bilstm_fused": 0}
+    if device.type == "cuda" and launches != expected:
+        raise AssertionError(f"launches on the variable-length evaluation {launches}, "
+                             f"expected {expected}")
+
+    args = eval_cli.build_parser().parse_args(data)
+    by_word, _ = load_variable_dataset_from_zip(resolve_dataset_zip(args), QWERTYKeyboard(),
+                                                seed=args.seed, verbose=False)
+    _, test_ds = create_variable_split(by_word, QWERTYKeyboard(), seed=args.seed, verbose=False)
+    real, lengths = torch.from_numpy(test_ds.gestures[:n]), torch.from_numpy(test_ds.lengths[:n])
+    got = batched_arclength_resample(real.to(device), lengths.to(device), SEQ).cpu()
+    err = (got - batched_arclength_resample(real, lengths, SEQ)).abs().max().item()
+    if not err <= RESAMPLE_TOL:
+        raise AssertionError(f"resampling on the card differs from the CPU by {err}")
+    line = {"evaluation": "eval_cli.main --variable-length", "n": n, "pairs_per_matrix": n * n,
+            "synthetic_users": users, "generator": "train_cli.main --variable-length",
+            "fid_epochs": fid_epochs, "seconds": wall, "stage_seconds": out["stage_seconds"],
+            "launches": launches, "lengths": [int(test_ds.lengths[:n].min()),
+                                              int(test_ds.lengths[:n].max())],
+            "resample_vs_cpu_max_abs_err": err, "resample_tolerance": RESAMPLE_TOL,
+            "gan": {k: out["gan"][k] for k in EVAL_SCALARS}}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1169,11 +1391,17 @@ def main() -> int:
                       "gestures_per_s_first_run": served["runs"][0]["gestures_per_s"],
                       "gestures_per_s": steady["gestures_per_s"],
                       "seconds": steady["seconds"]}), flush=True)
+    for family in FAMILIES:
+        with tempfile.TemporaryDirectory() as tmp:
+            serve_family(device, Path(tmp), family)
     with tempfile.TemporaryDirectory() as tmp:
         trained = train(device, Path(tmp))
     step_vs_cpu(device)
     with tempfile.TemporaryDirectory() as tmp:
         evaluated = evaluate(device, Path(tmp))
+        train_variable(device, Path(tmp))
+        masked_step_vs_cpu(device)
+        evaluated_vl = evaluate_variable(device, Path(tmp))
     timings = {name: time_kernel(device, name) for name in ("bfloat16", "float32")}
     for name in ("bfloat16", "float32"):
         time_kernel(device, name, batch=TRAIN_CALL_BATCH)
@@ -1219,7 +1447,7 @@ def main() -> int:
         "name": "dtw", "route": "cuda",
         "source": "wordgesture_gan_tpu_torch/csrc/dtw.cu",
         "replaces": "wordgesture_gan_tpu/ops/dtw_pallas.py:53",
-        "launches": evaluated["launches"]["dtw"],
+        "launches": evaluated["launches"]["dtw"] + evaluated_vl["launches"]["dtw"],
         "max_abs_err": max(max(c["max_abs_err"] for c in dtw_checks),
                            dtw_t["max_abs_err_all_pairs"]),
         "max_rel_err": max(max(c["max_rel_err"] for c in dtw_checks),

@@ -22,7 +22,7 @@ from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig
 from wordgesture_gan_tpu.data.pipeline import GestureArrays as JaxGestureArrays
 from wordgesture_gan_tpu.eval import gan_eval as jax_gan_eval
 from wordgesture_gan_tpu.keyboard import QWERTYKeyboard as JaxQWERTYKeyboard
-from wordgesture_gan_tpu_torch import eval_cli, train_cli
+from wordgesture_gan_tpu_torch import eval_cli, generate, train_cli
 from wordgesture_gan_tpu_torch.configs import EvaluationConfig, ModelConfig
 from wordgesture_gan_tpu_torch.data.pipeline import GestureArrays
 from wordgesture_gan_tpu_torch.eval import gan_eval
@@ -237,18 +237,65 @@ def test_eval_cli_without_a_checkpoint(trained, tmp_path, capsys):
     assert "Skipping GAN evaluation" in capsys.readouterr().out
 
 
+def test_generate_serves_what_train_cli_wrote(trained, tmp_path):
+    """``generate --checkpoint-dir D`` without ``--weights`` serves the newest
+    checkpoint ``train_cli`` wrote (``latest.pt``): the same gestures as
+    sampling that checkpoint directly (bit-equal, same seed and chunks)."""
+    base, _, _ = trained
+    ckpt, out = base / "ckpt", tmp_path / "gestures.npz"
+    assert not (ckpt / "generator.pt").exists()
+    generate.main(["--words", "hello,world,people", "--n", "6", "--checkpoint-dir", str(ckpt),
+                   "--out", str(out), "--device", "cpu", "--precision", "float32"])
+    mcfg = ModelConfig(time_head="monotone", gen_hidden_dim=8)
+    saved = load_generator(str(find_checkpoint(str(ckpt))), mcfg, device="cpu")
+    with np.load(out) as served:
+        np.testing.assert_array_equal(served["gestures"],
+                                      generate_gestures(saved, served["prototypes"], mcfg,
+                                                        device="cpu"))
+
+
 @pytest.mark.parametrize("cli,flags,message", [
-    (eval_cli, ["--variable-length"], "variable-length slice"),
     (eval_cli, ["--large-scale", "1000"], "scale-metrics slice"),
-    (eval_cli, ["--generator", "transformer"], "not ported"),
-    (train_cli, ["--variable-length"], "variable-length slice"),
-    (train_cli, ["--generator", "mlp"], "not ported"),
 ])
 def test_clis_refuse_what_is_not_ported(cli, flags, message, capsys):
     with pytest.raises(SystemExit) as exit_info:
         cli.main([*flags, "--device", "cpu"])
     assert exit_info.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def variable_trained(trained):
+    """One epoch of ``train_cli --variable-length`` on the same corpus: a
+    transformer checkpoint."""
+    base, data, _ = trained
+    data = [str(base / "vl") if a.endswith("ckpt") else a for a in data]
+    train_cli.main(["--variable-length", "--epochs", "1", "--batch-size", "32",
+                    "--precision", "float32", *data])
+    return data
+
+
+@pytest.mark.parametrize("cli,flags", [
+    (eval_cli, ["--variable-length"]),
+    (eval_cli, ["--generator", "transformer"]),
+    (train_cli, ["--variable-length"]),
+    (train_cli, ["--generator", "mlp"]),
+])
+def test_clis_run_what_was_refused(cli, flags, variable_trained, tmp_path):
+    """The flags the port once refused run on the CPU: training one epoch,
+    or scoring the variable-length (transformer) checkpoint."""
+    if cli is train_cli:
+        data = [str(tmp_path) if a.endswith("vl") else a for a in variable_trained]
+        result = train_cli.main([*flags, "--epochs", "1", "--batch-size", "32",
+                                 "--precision", "float32", *data])
+        assert len(result.history) == 1 and all(np.isfinite(v) for v in result.history[0].values())
+        family = "transformer" if "--variable-length" in flags else flags[-1]
+        assert load_run_metadata(str(tmp_path))["generator_type"] == family
+        return
+    out = eval_cli.main([*flags, "--model", "gan", "--n-samples", "8", "--fid-epochs", "1",
+                         "--fast", *variable_trained])
+    assert out["n"] == 8
+    assert all(np.isfinite(out["gan"][k]) for k in NO_AUTOENCODER)
 
 
 @pytest.mark.parametrize("cli", [eval_cli, train_cli])

@@ -124,5 +124,13 @@ def test_generator_state_dict_matches_jax_tree():
 
 @pytest.mark.parametrize("generator_type", ["mlp", "transformer"])
 def test_unported_generators_are_rejected(generator_type):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Generator(ModelConfig(generator_type=generator_type))
+    """The other two families are ported: each builds at full width and
+    samples finite gestures on the CPU (their parity with JAX is
+    ``tests/test_torch_generators.py``)."""
+    model = Generator(ModelConfig(generator_type=generator_type, time_head="monotone"),
+                      torch.Generator().manual_seed(0))
+    proto, z = _inputs(10, 3, 128, 32)
+    with torch.no_grad():
+        out = model(torch.from_numpy(proto), torch.from_numpy(z), inference=True)
+    assert out.shape == (3, 128, 3) and torch.isfinite(out).all()
+    assert torch.all(out[..., 0, 2] == 0) and torch.all(out[..., 1:, 2] >= out[..., :-1, 2])

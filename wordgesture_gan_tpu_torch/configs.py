@@ -24,8 +24,7 @@ class ModelConfig:
     # Latent space
     latent_dim: int = 32
 
-    # Generator family: "bilstm", "mlp" or "transformer". The port serves
-    # "bilstm"; the other two are not ported yet.
+    # Generator family: "bilstm", "mlp" or "transformer" (models/generators.py).
     generator_type: str = "bilstm"
 
     # Generator (bidirectional LSTM)

@@ -3,8 +3,11 @@
 The PyTorch twin of ``eval_gan.py``: the same flags and defaults, plus
 ``--device`` (default ``cuda``) and ``--fid-epochs``. It reads the run
 metadata sidecar and the newest checkpoint (``latest.pt``) that
-``train_cli`` writes into ``--checkpoint-dir``. ``--variable-length`` and
-``--large-scale`` are not ported yet and are refused.
+``train_cli`` writes into ``--checkpoint-dir``, for any generator family.
+``--variable-length`` scores a masked transformer checkpoint: real,
+generated and training traces are resampled onto the common 128-point
+arc-length grid on the device (``ops/resample.py``) and run through the
+metric suite. ``--large-scale`` is not ported yet and is refused.
 
 Usage:
     python -m wordgesture_gan_tpu_torch.eval_cli --model both --n-samples 2000 [--synthetic]
@@ -13,6 +16,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import time
 from pathlib import Path
@@ -20,13 +24,18 @@ from typing import Optional, Sequence
 
 import torch
 
-from .cli_common import add_data_args, load_split, maybe_wandb
+from .cli_common import add_data_args, load_split, maybe_wandb, resolve_dataset_zip
 from .configs import EvaluationConfig, ModelConfig, PathsConfig, TrainingConfig
+from .data.variable_length import create_variable_split, load_variable_dataset_from_zip
 from .eval.gan_eval import (PAPER_GAN, PAPER_MINJERK, attach_eval_to_wandb,
                             evaluate_gan_and_minjerk, print_comparison_table,
                             print_results_table)
+from .keyboard import QWERTYKeyboard
+from .metrics.suite import evaluate_all_metrics
+from .ops.resample import batched_arclength_resample
 from .train.checkpoint import find_checkpoint, load_generator, load_run_metadata
 from .train.gan_loop import generate_gestures
+from .train.variable_loop import generate_variable_gestures
 from .utils.logging import log, seed_everything
 
 
@@ -63,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                         default="float32",
                         help="generation compute precision (metrics always fp32)")
     parser.add_argument("--variable-length", action="store_true",
-                        help="evaluate a variable-length checkpoint (not ported yet)")
+                        help="evaluate a variable-length (masked transformer) checkpoint")
     parser.add_argument("--arc-step", type=float, default=0.02,
                         help="arc-length per point for --variable-length")
     parser.add_argument("--save-figures", type=str, default=None,
@@ -81,10 +90,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     per evaluated model."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.variable_length:
-        parser.error("--variable-length is not ported to PyTorch yet: the masked transformer "
-                     "path comes with the variable-length slice of the port")
-    if args.large_scale:
+    if args.large_scale and not args.variable_length:
         parser.error("--large-scale is not ported to PyTorch yet: the sliced-W2 / energy / "
                      "chunked-kNN metrics come with the scale-metrics slice of the port")
 
@@ -93,9 +99,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     meta = load_run_metadata(args.checkpoint_dir)
     generator_type = args.generator or meta.get("generator_type", "bilstm")
-    if generator_type != "bilstm":
-        parser.error(f"--generator {generator_type} is not ported to PyTorch yet; "
-                     f"only the bilstm generator is evaluated")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda but no CUDA device is available; pass --device cpu")
@@ -123,6 +126,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         fid_feature_mode=args.fid_features,
         fid_autoencoder_epochs=args.fid_epochs,
     )
+    if args.variable_length:
+        ignored = [name for name, hit in (("--wandb", args.wandb),
+                                          ("--save-figures", bool(args.save_figures)),
+                                          ("--model min-jerk", args.model == "min-jerk"),
+                                          ("--large-scale", bool(args.large_scale))) if hit]
+        if ignored:
+            log(f"NOTE: --variable-length evaluates the masked transformer path only; "
+                f"ignoring {', '.join(ignored)}")
+        return _run_variable_length(args, model_config, training_config, eval_config, device)
     stage_seconds = {}
 
     log("[1/5] Loading data...")
@@ -209,6 +221,70 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     log("Done.")
     return {"n": n, "gan": gan_results, "minjerk": minjerk_results,
             "stage_seconds": stage_seconds}
+
+
+def _run_variable_length(args, model_config: ModelConfig, training_config: TrainingConfig,
+                         eval_config: EvaluationConfig, device) -> dict:
+    """Score a ``--variable-length`` checkpoint. Real and generated traces
+    live at natural resolution; for comparable metrics each valid segment is
+    resampled onto the common 128-point arc-length grid on ``device``, the
+    time channel riding the interpolation, and the standard suite runs.
+    Returns what ``main`` returns, with ``"minjerk"`` None."""
+    model_config = dataclasses.replace(model_config, generator_type="transformer")
+    stage_seconds = {}
+    log("[1/5] Loading variable-length data...")
+    t0 = time.perf_counter()
+    keyboard = QWERTYKeyboard()
+    by_word, _ = load_variable_dataset_from_zip(
+        resolve_dataset_zip(args), keyboard, max_len=model_config.seq_length,
+        arc_step=args.arc_step, max_samples_per_word=training_config.max_samples_per_word,
+        max_files=args.max_files, seed=args.seed)
+    train_ds, test_ds = create_variable_split(by_word, keyboard, max_len=model_config.seq_length,
+                                              train_ratio=training_config.train_ratio,
+                                              seed=args.seed)
+    stage_seconds["load"] = time.perf_counter() - t0
+
+    log("[2/5] Loading variable-length GAN checkpoint...")
+    path = find_checkpoint(args.checkpoint_dir)
+    if path is None:
+        log(f"  ERROR: No checkpoint found in {args.checkpoint_dir}")
+        raise SystemExit(1)
+    model = load_generator(str(path), model_config, device=device)
+    epoch = torch.load(path, map_location="cpu", weights_only=True).get("epoch")
+    log(f"  Loaded checkpoint from epoch {epoch}")
+
+    n = min(args.n_samples, len(test_ds))
+    log(f"[3/5] Generating {n} masked samples...")
+    t0 = time.perf_counter()
+    fake = generate_variable_gestures(model, test_ds.prototypes[:n], test_ds.masks()[:n],
+                                      model_config, truncation=args.truncation, seed=args.seed,
+                                      device=device)
+    stage_seconds["generate"] = time.perf_counter() - t0
+
+    log("[4/5] Resampling to the common 128-point grid + computing metrics...")
+    t0 = time.perf_counter()
+
+    def grid(traces, lengths):
+        return batched_arclength_resample(torch.from_numpy(traces).to(device),
+                                          torch.from_numpy(lengths).to(device), 128).cpu().numpy()
+
+    lengths = test_ds.lengths[:n]
+    real128 = grid(test_ds.gestures[:n], lengths)
+    fake128 = grid(fake, lengths)
+    train128 = grid(train_ds.gestures, train_ds.lengths)
+    stage_seconds["resample"] = time.perf_counter() - t0
+    results = evaluate_all_metrics(real128, fake128, train128,
+                                   model_config=dataclasses.replace(model_config, seq_length=128),
+                                   eval_config=eval_config, skip_dtw=args.fast,
+                                   cache_dir=args.checkpoint_dir, device=device)
+    results.pop("_cached_real", None)
+    stage_seconds["gan"] = results.pop("_stage_seconds")
+    log("[5/5] Done computing metrics.")
+    log("")
+    log(f"Variable-length traces: test lengths {lengths.min()}-{lengths.max()} "
+        f"(mean {lengths.mean():.1f}); metrics on the common 128-point grid:")
+    print_results_table(results, "GAN (variable-length)", PAPER_GAN, args.precision_k)
+    return {"n": n, "gan": results, "minjerk": None, "stage_seconds": stage_seconds}
 
 
 if __name__ == "__main__":

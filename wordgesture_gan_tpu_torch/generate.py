@@ -1,9 +1,12 @@
 """Bulk gesture synthesis on the GPU: words → prototypes → GAN samples → .npz.
 
 The PyTorch twin of ``generate_gestures.py``: the same flags and the same
-output keys (``gestures``, ``words``, ``prototypes``). Weights come from
-``--weights`` — a port checkpoint (``torch.save`` of a ``Generator`` state
-dict) or a path-keyed JAX generator ``.npz`` (``interop/from_jax.py``) — and
+output keys (``gestures``, ``words``, ``prototypes``), for all three
+generator families (``--generator bilstm|mlp|transformer``). Weights come
+from ``--weights`` — a port checkpoint (a train state, or ``torch.save`` of
+a ``Generator`` state dict) or a path-keyed JAX generator ``.npz``
+(``interop/from_jax.py``) — and default to ``<checkpoint-dir>/generator.pt``,
+else the newest checkpoint ``train_cli`` wrote there (``latest.pt``).
 ``run_meta.json`` in ``--checkpoint-dir`` supplies the defaults of
 ``--generator`` and ``--time-head``.
 
@@ -28,7 +31,7 @@ import numpy as np
 
 from .configs import ModelConfig
 from .keyboard import QWERTYKeyboard
-from .train.checkpoint import load_generator, load_run_metadata
+from .train.checkpoint import find_checkpoint, load_generator, load_run_metadata
 from .train.gan_loop import generate_gestures
 
 
@@ -52,8 +55,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser.add_argument("--checkpoint-dir", type=str, default="checkpoints",
                         help="directory holding run_meta.json (and, by default, the weights)")
     parser.add_argument("--weights", type=str, default=None,
-                        help="generator weights, .pt or JAX .npz "
-                             "(default: <checkpoint-dir>/generator.pt)")
+                        help="generator weights, .pt or JAX .npz (default: "
+                             "<checkpoint-dir>/generator.pt, else the newest checkpoint "
+                             "there)")
     parser.add_argument("--generator", choices=["bilstm", "mlp", "transformer"],
                         default=None, help="default: the checkpoint's run metadata")
     parser.add_argument("--time-head", choices=["tanh", "monotone"], default=None,
@@ -74,11 +78,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     meta = load_run_metadata(args.checkpoint_dir)
     generator_type = args.generator or meta.get("generator_type", "bilstm")
-    if generator_type != "bilstm":
-        parser.error(f"--generator {generator_type} is not ported to PyTorch yet; "
-                     f"only the bilstm generator is served")
-    weights = args.weights or str(Path(args.checkpoint_dir) / "generator.pt")
-    if not Path(weights).exists():
+    weights = args.weights
+    if weights is None:
+        default = Path(args.checkpoint_dir) / "generator.pt"
+        found = default if default.exists() else find_checkpoint(args.checkpoint_dir)
+        if found is None:
+            parser.error(f"no generator weights: neither {str(default)!r} nor a checkpoint in "
+                         f"{args.checkpoint_dir!r} (train first, or pass --weights)")
+        weights = str(found)
+    elif not Path(weights).exists():
         parser.error(f"no generator weights at {weights!r}")
     config = ModelConfig(generator_type=generator_type,
                          time_head=args.time_head or meta.get("time_head", "tanh"),

@@ -1,9 +1,12 @@
 """Weights and train states from the JAX package, without importing JAX.
 
 The JAX generator's parameters (``state["g"]["params"]``) are a tree of
-nested dicts and lists: ``lstm[k].{fwd,bwd}.{w_ih, w_hh, b_ih, b_hh}`` and
-``out.{w, b}``. ``generator_from_jax`` turns that tree, given as numpy
-arrays, into the port's ``Generator`` state dict; ``train_state_from_jax``
+nested dicts and lists, one layout per family: the BiLSTM's
+``lstm[k].{fwd,bwd}.{w_ih, w_hh, b_ih, b_hh}`` and ``out.{w, b}``; the MLP's
+``mlp[i].{w, b}`` and ``out.{w, b}``; the transformer's ``embed``, ``pos``,
+``blocks[i].{ln1, qkv, attn_out, ln2, mlp1, mlp2}``, ``ln_f`` and ``out``.
+``generator_from_jax`` turns such a tree, given as numpy arrays, into the
+port's ``Generator`` state dict; ``train_state_from_jax``
 turns a whole JAX train state (all four models, the critics' spectral-norm
 u vectors and, optionally, the Adam moments) into the port's train state.
 The port keeps the JAX layout, so no weight is transposed.
@@ -73,18 +76,72 @@ def read_generator_npz(path: str):
         return unflatten_tree({k: data[k] for k in data.files})
 
 
-def generator_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """JAX generator params (numpy leaves) → the port's ``Generator`` state
-    dict (float32 tensors, same layout)."""
+def _tensor(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _dense_from_jax(state: Dict[str, torch.Tensor], name: str, layer) -> None:
+    for key in ("w", "b"):
+        state[f"{name}.{key}"] = _tensor(layer[key])
+
+
+def bilstm_generator_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The BiLSTM generator's tree: ``lstm.{k}.{fwd,bwd}.*``, ``out.{w, b}``."""
     state: Dict[str, torch.Tensor] = {}
     for k, layer in enumerate(tree["lstm"]):
         for direction in ("fwd", "bwd"):
             for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
-                state[f"lstm.{k}.{direction}.{name}"] = torch.tensor(
-                    np.asarray(layer[direction][name], np.float32))
-    for name in ("w", "b"):
-        state[f"out.{name}"] = torch.tensor(np.asarray(tree["out"][name], np.float32))
+                state[f"lstm.{k}.{direction}.{name}"] = _tensor(layer[direction][name])
+    _dense_from_jax(state, "out", tree["out"])
     return state
+
+
+def mlp_generator_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The MLP generator's tree: ``mlp.{i}.{w, b}``, ``out.{w, b}``."""
+    state: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(tree["mlp"]):
+        _dense_from_jax(state, f"mlp.{i}", layer)
+    _dense_from_jax(state, "out", tree["out"])
+    return state
+
+
+_BLOCK_DENSE = ("qkv", "attn_out", "mlp1", "mlp2")
+
+
+def transformer_generator_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The transformer generator's tree: ``embed``, ``pos``,
+    ``blocks.{i}.{ln1, qkv, attn_out, ln2, mlp1, mlp2}``, ``ln_f``, ``out``;
+    a layer norm holds ``scale`` and ``bias``."""
+    state: Dict[str, torch.Tensor] = {"pos": _tensor(tree["pos"])}
+    _dense_from_jax(state, "embed", tree["embed"])
+    for i, block in enumerate(tree["blocks"]):
+        for name in ("ln1", "ln2"):
+            for key in ("scale", "bias"):
+                state[f"blocks.{i}.{name}.{key}"] = _tensor(block[name][key])
+        for name in _BLOCK_DENSE:
+            _dense_from_jax(state, f"blocks.{i}.{name}", block[name])
+    for key in ("scale", "bias"):
+        state[f"ln_f.{key}"] = _tensor(tree["ln_f"][key])
+    _dense_from_jax(state, "out", tree["out"])
+    return state
+
+
+def generator_family(tree) -> str:
+    """"bilstm", "mlp" or "transformer", from a generator tree's top level."""
+    for family, key in (("bilstm", "lstm"), ("mlp", "mlp"), ("transformer", "blocks")):
+        if key in tree:
+            return family
+    raise ValueError(f"not a generator tree: top-level keys {sorted(tree)}")
+
+
+_FROM_JAX = {"bilstm": bilstm_generator_from_jax, "mlp": mlp_generator_from_jax,
+             "transformer": transformer_generator_from_jax}
+
+
+def generator_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX generator params (numpy leaves) of any family → the port's
+    ``Generator`` state dict (float32 tensors, same layout)."""
+    return _FROM_JAX[generator_family(tree)](tree)
 
 
 def generator_from_npz(path: str) -> Dict[str, torch.Tensor]:

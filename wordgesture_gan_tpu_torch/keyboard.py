@@ -35,6 +35,15 @@ def compute_key_centers(config: KeyboardConfig = DEFAULT_KEYBOARD_CONFIG) -> Dic
     return centers
 
 
+def key_center_array(config: KeyboardConfig = DEFAULT_KEYBOARD_CONFIG) -> np.ndarray:
+    """(26, 2) float64 key centers indexed by letter (a..z): the static-array
+    form that batched prototype generation (``ops/resample.py``) indexes."""
+    out = np.zeros((26, 2), dtype=np.float64)
+    for letter, (x, y) in compute_key_centers(config).items():
+        out[LETTER_TO_INDEX[letter]] = (x, y)
+    return out
+
+
 def word_to_key_indices(word: str) -> np.ndarray:
     """Letter indices for the keyed characters of a word (non-letters dropped)."""
     return np.array([LETTER_TO_INDEX[c] for c in word.lower() if c in LETTER_TO_INDEX], dtype=np.int32)

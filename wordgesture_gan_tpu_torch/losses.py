@@ -1,5 +1,5 @@
-"""The fixed-length GAN losses (the port of the JAX package's ``losses.py``;
-the masked and contrastive losses are not ported yet). Every loss returns a
+"""The GAN losses, fixed-length and masked (the port of the JAX package's
+``losses.py``; the contrastive loss is not ported yet). Every loss returns a
 float32 scalar tensor."""
 
 from __future__ import annotations
@@ -91,6 +91,58 @@ def speed_profile_loss(real: torch.Tensor, fake: torch.Tensor, eps: float = 1e-4
 def time_delta_corr_loss(real: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
     """1 − mean per-pair Pearson correlation of the Δt patterns."""
     return _pearson_loss(torch.diff(real[:, :, 2], dim=1), torch.diff(fake[:, :, 2], dim=1), 1e-12)
+
+
+# -- masked twins (variable-length training) ----------------------------------------------
+#
+# The same semantics restricted to segments whose BOTH endpoints are valid:
+# segment i is (point i, point i+1), so its weight is mask[:, 1:]·mask[:, :-1],
+# and padded positions add exactly zero to every sum.
+
+
+def _segment_weights(mask: torch.Tensor) -> torch.Tensor:
+    return mask[:, 1:] * mask[:, :-1]
+
+
+def _masked_pearson(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """Per-row Pearson correlation over weighted (0/1) segments."""
+    n = torch.clamp(w.sum(dim=1, keepdim=True), min=1.0)
+    am = (a - (a * w).sum(dim=1, keepdim=True) / n) * w
+    bm = (b - (b * w).sum(dim=1, keepdim=True) / n) * w
+    num = (am * bm).sum(dim=1)
+    den = torch.sqrt((am * am).sum(dim=1) * (bm * bm).sum(dim=1) + eps)
+    return num / den
+
+
+def masked_time_delta_loss(real: torch.Tensor, fake: torch.Tensor,
+                           mask: torch.Tensor) -> torch.Tensor:
+    """``time_delta_loss`` over valid segments, with its per-row SUM of
+    |Δt_fake − Δt_real| semantics, averaged over rows."""
+    w = _segment_weights(mask)
+    d = (torch.diff(fake[:, :, 2], dim=1) - torch.diff(real[:, :, 2], dim=1)).abs()
+    return (w * d).sum(dim=1).mean()
+
+
+def masked_speed_profile_loss(real: torch.Tensor, fake: torch.Tensor, mask: torch.Tensor,
+                              eps: float = 1e-4) -> torch.Tensor:
+    """``speed_profile_loss`` over valid segments (1 − masked Pearson of |v|)."""
+
+    def speeds(g: torch.Tensor) -> torch.Tensor:
+        d = torch.diff(g[:, :, :2], dim=1)
+        seg = torch.sqrt((d * d).sum(dim=-1) + 1e-12)
+        return seg / torch.clamp(torch.diff(g[:, :, 2], dim=1), min=eps)
+
+    corr = _masked_pearson(speeds(real), speeds(fake), _segment_weights(mask), 1e-8)
+    return (1.0 - corr).mean()
+
+
+def masked_time_delta_corr_loss(real: torch.Tensor, fake: torch.Tensor,
+                                mask: torch.Tensor) -> torch.Tensor:
+    """``time_delta_corr_loss`` over valid segments (1 − masked Pearson of Δt)."""
+    corr = _masked_pearson(torch.diff(real[:, :, 2], dim=1), torch.diff(fake[:, :, 2], dim=1),
+                           _segment_weights(mask), 1e-12)
+    return (1.0 - corr).mean()
 
 
 # -- diversity -----------------------------------------------------------------------------

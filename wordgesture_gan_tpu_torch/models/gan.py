@@ -1,6 +1,8 @@
-"""The WordGesture-GAN models: BiLSTM generator and output head, variational
-encoder, MLP and temporal (Conv1D) spectral-norm critics — the port of the
-JAX package's ``models/gan.py``, with the FID feature autoencoder.
+"""The WordGesture-GAN models: the generator (BiLSTM, or the MLP and
+transformer families of ``models/generators.py``) and its output head,
+variational encoder, MLP and temporal (Conv1D) spectral-norm critics — the
+port of the JAX package's ``models/gan.py``, with the FID feature
+autoencoder.
 
 Every model but the serving ``Generator`` module is an init/apply pair over
 an explicit tree of float32 tensors in the JAX layout, so a JAX parameter
@@ -25,6 +27,8 @@ from torch import nn
 from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
 from ..ops.bilstm_fused import fused_bilstm_fwd
 from ..ops.bilstm_train import bilstm_train_apply
+from .generators import (mlp_generator_apply, mlp_generator_init, transformer_generator_apply,
+                         transformer_generator_init)
 from .layers import (BiLSTM, Dense, batched_spectral_normalize, bilstm_apply, cast_floats,
                      conv1d, dense_init, leaky_relu, sn_conv1d_init, sn_dense_init)
 
@@ -64,34 +68,41 @@ def apply_time_head(raw: torch.Tensor, mode: str,
     return torch.cat([xy, t[..., None].to(xy.dtype)], dim=-1)
 
 
-def _require_bilstm(config: ModelConfig) -> None:
-    if config.generator_type != "bilstm":
-        raise NotImplementedError(
-            f"generator_type={config.generator_type!r} is not ported yet; "
-            f"the PyTorch port runs the 'bilstm' generator")
+_FAMILY_INIT = {"mlp": mlp_generator_init, "transformer": transformer_generator_init}
 
 
 def generator_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
                    generator: Optional[torch.Generator] = None) -> Dict:
-    """The generator's parameter tree, JAX layout: ``{"lstm": [{"fwd": cell,
-    "bwd": cell}, ...], "out": {"w", "b"}}``, PyTorch-default init."""
+    """The generator's parameter tree for ``config.generator_type``, JAX
+    layout, PyTorch-default init. The BiLSTM's is ``{"lstm": [{"fwd": cell,
+    "bwd": cell}, ...], "out": {"w", "b"}}``; "mlp" and "transformer" are
+    ``models/generators.py``'s."""
+    if config.generator_type in _FAMILY_INIT:
+        return _FAMILY_INIT[config.generator_type](config, generator)
     return Generator(config, generator).tree()
 
 
 def generator_apply(params: Dict, prototype: torch.Tensor, z: torch.Tensor,
                     config: ModelConfig = DEFAULT_MODEL_CONFIG, *,
-                    inference: bool = False) -> torch.Tensor:
+                    inference: bool = False,
+                    pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(prototype (B, L, 3), z (B, Z)) → gesture (B, L, 3), the port of the JAX
-    package's ``generator_apply``.
+    package's ``generator_apply``, dispatching on ``config.generator_type``.
 
-    ``inference=True`` marks a forward that is never differentiated (serving,
-    the critic loop's fakes): the stack runs through the inference kernel
-    (``ops/bilstm_fused.py``), which carries no gradient. ``inference=False``
-    runs the differentiable training pair (``ops/bilstm_train.py``), whose
-    backward gives every LSTM weight and z their gradients. A prototype with
-    its time channel takes the plain recurrence with the stack cast to the
-    compute dtype (the JAX package's scan path for that option)."""
-    _require_bilstm(config)
+    ``pad_mask`` (B, L) reaches the transformer only (its attention and time
+    head); ``inference`` matters to the BiLSTM only. For the BiLSTM,
+    ``inference=True`` marks a forward that is never differentiated
+    (serving, the critic loop's fakes): the stack runs through the inference
+    kernel (``ops/bilstm_fused.py``), which carries no gradient.
+    ``inference=False`` runs the differentiable training pair
+    (``ops/bilstm_train.py``), whose backward gives every LSTM weight and z
+    their gradients. A prototype with its time channel takes the plain
+    recurrence with the stack cast to the compute dtype (the JAX package's
+    scan path for that option)."""
+    if config.generator_type == "mlp":
+        return mlp_generator_apply(params, prototype, z, config)
+    if config.generator_type == "transformer":
+        return transformer_generator_apply(params, prototype, z, config, pad_mask=pad_mask)
     proto = prototype if config.prototype_has_time else prototype[..., :2]
     dtype = compute_dtype(config)
     layers = params["lstm"]
@@ -107,19 +118,64 @@ def generator_apply(params: Dict, prototype: torch.Tensor, z: torch.Tensor,
     return apply_time_head(h.to(torch.float32) @ out["w"] + out["b"], config.time_head)
 
 
-class Generator(nn.Module):
-    """BiLSTM generator: (prototype (B, L, 3), z (B, Z)) → gesture (B, L, 3).
+def _register_tree(module: nn.Module, tree: Dict) -> None:
+    """Register a parameter tree on ``module``: a dict becomes a submodule, a
+    list an ``nn.ModuleList`` of them, a tensor a parameter, so state-dict
+    names are the tree's paths joined by dots (``blocks.0.qkv.w``)."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            module.add_module(key, _ParamTree(value))
+        elif isinstance(value, (list, tuple)):
+            module.add_module(key, nn.ModuleList(_ParamTree(v) for v in value))
+        else:
+            module.register_parameter(key, nn.Parameter(value))
 
-    Parameter names follow the JAX tree (``lstm.{k}.{fwd,bwd}.{w_ih, w_hh,
-    b_ih, b_hh}``, ``out.{w, b}``), in the JAX layout. Weights are float32;
-    ``generator`` seeds their PyTorch-default initialization."""
+
+def _module_tree(module: nn.Module, keys) -> Dict:
+    """The tree ``_register_tree`` registered, holding the parameters."""
+    out = {}
+    for key in keys:
+        value = getattr(module, key)
+        if isinstance(value, nn.ModuleList):
+            out[key] = [v.tree() for v in value]
+        elif isinstance(value, _ParamTree):
+            out[key] = value.tree()
+        else:
+            out[key] = value
+    return out
+
+
+class _ParamTree(nn.Module):
+    def __init__(self, tree: Dict):
+        super().__init__()
+        self._keys = tuple(tree)
+        _register_tree(self, tree)
+
+    def tree(self) -> Dict:
+        return _module_tree(self, self._keys)
+
+
+class Generator(nn.Module):
+    """The serving generator: (prototype (B, L, 3), z (B, Z)) → gesture (B, L, 3).
+
+    It holds the tree of ``config.generator_type``, with parameter names
+    following the JAX tree: ``lstm.{k}.{fwd,bwd}.{w_ih, w_hh, b_ih, b_hh}``
+    and ``out.{w, b}`` for the BiLSTM; ``mlp.{i}.{w, b}`` and ``out.{w, b}``
+    for the MLP; ``embed``, ``pos``, ``blocks.{i}.{ln1, qkv, attn_out, ln2,
+    mlp1, mlp2}``, ``ln_f`` and ``out`` for the transformer. Weights are
+    float32; ``generator`` seeds their PyTorch-default initialization."""
 
     def __init__(self, config: ModelConfig = DEFAULT_MODEL_CONFIG,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _require_bilstm(config)
         compute_dtype(config)
         self.config = config
+        if config.generator_type in _FAMILY_INIT:
+            tree = _FAMILY_INIT[config.generator_type](config, generator)
+            self._keys = tuple(tree)
+            _register_tree(self, tree)
+            return
+        self._keys = None
         proto_dim = config.input_dim if config.prototype_has_time else 2
         self.lstm = BiLSTM(proto_dim + config.latent_dim, config.gen_hidden_dim,
                            config.gen_num_layers, generator)
@@ -127,13 +183,16 @@ class Generator(nn.Module):
 
     def tree(self) -> Dict:
         """The parameters as the JAX-layout tree ``generator_apply`` takes."""
+        if self._keys is not None:
+            return _module_tree(self, self._keys)
         return {"lstm": self.lstm.params(), "out": {"w": self.out.w, "b": self.out.b}}
 
-    def forward(self, prototype: torch.Tensor, z: torch.Tensor, *,
-                inference: bool = False) -> torch.Tensor:
+    def forward(self, prototype: torch.Tensor, z: torch.Tensor, *, inference: bool = False,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``generator_apply`` on this module's parameters; serving passes
         ``inference=True``."""
-        return generator_apply(self.tree(), prototype, z, self.config, inference=inference)
+        return generator_apply(self.tree(), prototype, z, self.config, inference=inference,
+                               pad_mask=pad_mask)
 
 
 # -- variational encoder ----------------------------------------------------------------

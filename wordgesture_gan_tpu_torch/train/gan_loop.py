@@ -1,13 +1,14 @@
 """The GAN training loop and batched sampling from the generator (the port
 of the JAX package's ``train/gan_loop.py``: ``train_gan`` on one device,
-and ``generate_gestures``)."""
+and ``generate_gestures``), with the epoch loop the variable-length trainer
+shares (``run_epochs``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +20,7 @@ from ..models.gan import Generator
 from ..utils.chunking import chunk_layout, pad_to_chunks
 from ..utils.preemption import PreemptionGuard
 from .checkpoint import restore_checkpoint, save_checkpoint, save_run_metadata
-from .gan_step import gan_train_step, make_epoch_batches
+from .gan_step import METRIC_KEYS, gan_train_step, shuffle_batches
 from .history import append_history, truncate_history
 from .schedules import cosine_annealing_lr
 from .state import init_gan_state
@@ -33,6 +34,11 @@ class TrainResult:
     # the epoch's losses reached the host), and the gestures it trained on.
     epoch_seconds: List[float] = field(default_factory=list)
     gestures_per_epoch: int = 0
+
+
+# The losses each epoch's log line shows, as (label, metric).
+_LOG_FIELDS = (("D1", "d1_loss"), ("D2", "d2_loss"), ("C1", "cycle1_total"),
+               ("C2", "cycle2_total"))
 
 
 def train_gan(
@@ -51,26 +57,41 @@ def train_gan(
 
     Per epoch: the cosine learning rate, a seeded shuffle with drop-last,
     one ``gan_train_step`` per batch, the epoch's mean losses (a non-finite
-    one aborts the run before anything is written), a history line, a log
-    line with gestures/s, ``epoch_callback(epoch, state, losses)``, and a
-    checkpoint every ``save_every`` epochs and after the last. With
-    ``resume`` and a checkpoint in ``checkpoint_dir`` the run continues
-    after the saved epoch. A first SIGTERM/SIGINT stops cleanly after the
-    epoch in flight, with a checkpoint."""
+    one aborts the run before anything is written; an epoch with no batch
+    records every loss at 0.0), a history line, a log line with gestures/s,
+    ``epoch_callback(epoch, state, losses)``, and a checkpoint every
+    ``save_every`` epochs and after the last. With ``resume`` and a
+    checkpoint in ``checkpoint_dir`` the run continues after the saved
+    epoch. A first SIGTERM/SIGINT stops cleanly after the epoch in flight,
+    with a checkpoint."""
     say = print if verbose else (lambda *_: None)
+    if training_config.lambda_div and training_config.div_margin is None:
+        margin = within_word_diversity(train_ds)
+        training_config = dataclasses.replace(training_config, div_margin=margin)
+        say(f"Diversity hinge margin measured from data: {margin:.4f} (mean within-word L1)")
+    arrays = {"gesture": train_ds.gestures, "prototype": train_ds.prototypes}
+    return run_epochs(
+        arrays, lambda s, b, lr: gan_train_step(s, b, lr, model_config, training_config),
+        METRIC_KEYS, _LOG_FIELDS, model_config, training_config, num_epochs, seed,
+        checkpoint_dir, resume, epoch_callback, say, device)
+
+
+def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, metric_keys: Sequence[str],
+               log_fields: Sequence[Tuple[str, str]], model_config: ModelConfig,
+               training_config: TrainingConfig, num_epochs: Optional[int], seed: int,
+               checkpoint_dir: Optional[str], resume: bool,
+               epoch_callback: Optional[Callable], say: Callable, device) -> TrainResult:
+    """The epoch loop ``train_gan`` and ``train_variable_gan`` share:
+    ``arrays`` (the training set, one (n, ...) array per batch key) move to
+    ``device`` once, and ``step(state, batch, lr)`` runs once per batch,
+    returning the metrics ``metric_keys`` names."""
     num_epochs = num_epochs or training_config.num_epochs
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA device is available; pass device='cpu' "
                            "to train on the CPU")
-
-    if training_config.lambda_div and training_config.div_margin is None:
-        margin = within_word_diversity(train_ds)
-        training_config = dataclasses.replace(training_config, div_margin=margin)
-        say(f"Diversity hinge margin measured from data: {margin:.4f} (mean within-word L1)")
-
-    gestures = torch.as_tensor(np.asarray(train_ds.gestures, np.float32), device=device)
-    prototypes = torch.as_tensor(np.asarray(train_ds.prototypes, np.float32), device=device)
+    data = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+            for k, v in arrays.items()}
 
     state = init_gan_state(seed, model_config, device)
     start_epoch = 0
@@ -87,26 +108,30 @@ def train_gan(
         return TrainResult(state=state)
 
     B = training_config.batch_size
-    result = TrainResult(state=state, gestures_per_epoch=(len(train_ds) // B) * B)
+    n_batches = next(iter(data.values())).shape[0] // B
+    result = TrainResult(state=state, gestures_per_epoch=n_batches * B)
     with PreemptionGuard() as preempt:
         for epoch in range(start_epoch, num_epochs):
             lr = float(cosine_annealing_lr(training_config.learning_rate, epoch, num_epochs,
                                            training_config.lr_scheduler_eta_min))
             shuffle = torch.Generator(device=device)
             shuffle.manual_seed((seed ^ 0x5EED) * 1_000_003 + epoch)
-            batches = make_epoch_batches(shuffle, gestures, prototypes, B)
+            batches = shuffle_batches(shuffle, data, B)
 
             t0 = time.perf_counter()
-            traces: Dict[str, List[torch.Tensor]] = {}
-            for i in range(batches["gesture"].shape[0]):
-                _, metrics = gan_train_step(state, {k: v[i] for k, v in batches.items()}, lr,
-                                            model_config, training_config)
-                for k, v in metrics.items():
-                    traces.setdefault(k, []).append(v)
-            # One host transfer per epoch; it waits for the device.
-            keys = list(traces)
-            means = torch.stack([torch.stack(traces[k]).mean() for k in keys]) if keys else None
-            losses = dict(zip(keys, means.cpu().tolist())) if keys else {}
+            traces: Dict[str, List[torch.Tensor]] = {k: [] for k in metric_keys}
+            for i in range(n_batches):
+                _, metrics = step(state, {k: v[i] for k, v in batches.items()}, lr)
+                for k in metric_keys:
+                    traces[k].append(metrics[k])
+            if n_batches:
+                # One host transfer per epoch; it waits for the device.
+                means = torch.stack([torch.stack(traces[k]).mean() for k in metric_keys])
+                losses = dict(zip(metric_keys, means.cpu().tolist()))
+            else:
+                # No batch (fewer samples than batch_size, drop-last): every
+                # loss at 0.0, as in the JAX package, not a non-finite trip.
+                losses = dict.fromkeys(metric_keys, 0.0)
             dt = time.perf_counter() - t0
             state["epoch"] = epoch + 1
             losses["lr"] = lr
@@ -117,12 +142,10 @@ def train_gan(
             result.history.append(losses)
             result.epoch_seconds.append(dt)
             append_history(checkpoint_dir, epoch, losses)
-            if traces:
-                say(f"Epoch {epoch + 1}/{num_epochs} [{dt:.1f}s, "
-                    f"{result.gestures_per_epoch / max(dt, 1e-9):.0f} gestures/s] - "
-                    f"D1:{losses['d1_loss']:.3f} D2:{losses['d2_loss']:.3f} "
-                    f"C1:{losses['cycle1_total']:.3f} C2:{losses['cycle2_total']:.3f} "
-                    f"LR:{lr:.6f}")
+            say(f"Epoch {epoch + 1}/{num_epochs} [{dt:.1f}s, "
+                f"{result.gestures_per_epoch / max(dt, 1e-9):.0f} gestures/s] - "
+                + " ".join(f"{label}:{losses[k]:.3f}" for label, k in log_fields)
+                + f" LR:{lr:.6f}")
             if epoch_callback is not None:
                 epoch_callback(epoch, state, losses)
 
@@ -144,7 +167,8 @@ def train_gan(
 def generate_gestures(generator: Generator, prototypes: np.ndarray,
                       config: ModelConfig = DEFAULT_MODEL_CONFIG, truncation: float = 1.0,
                       seed: int = 0, batch: int = 512, device="cuda",
-                      z: Optional[np.ndarray] = None) -> np.ndarray:
+                      z: Optional[np.ndarray] = None,
+                      masks: Optional[np.ndarray] = None) -> np.ndarray:
     """Sample one gesture per prototype: (n, L, 3) prototypes → (n, L, 3)
     float32, with z ~ N(0, 1)·truncation.
 
@@ -155,6 +179,10 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
     ``device`` seeded with ``seed``. ``z`` (n, Z), if given, replaces those
     draws (it is still scaled by ``truncation``): JAX's random stream cannot
     be reproduced, so a test hands both packages the same noise this way.
+
+    ``masks`` (n, L), 1 = valid, if given, reach the generator as its
+    padding mask (the transformer's), and the output is zeroed where a mask
+    is 0; padding rows of a chunk get an all-zero mask.
 
     ``config`` must be the generator's own configuration; the generator is
     moved to ``device``."""
@@ -171,6 +199,9 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
         if np.shape(z) != (n, config.latent_dim):
             raise ValueError(f"z must be ({n}, {config.latent_dim}), got {np.shape(z)}")
         noise = torch.from_numpy(pad_to_chunks(z, chunk, n_chunks)).to(device)
+    pad = None
+    if masks is not None:
+        pad = torch.from_numpy(pad_to_chunks(masks, chunk, n_chunks)).to(device)
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
     generator = generator.to(device)
@@ -182,5 +213,7 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
                 eps = torch.randn((chunk, config.latent_dim), generator=rng, device=device)
             else:
                 eps = noise[rows]
-            outs.append(generator(protos[rows], eps * truncation, inference=True))
+            mask = None if pad is None else pad[rows]
+            out = generator(protos[rows], eps * truncation, inference=True, pad_mask=mask)
+            outs.append(out if mask is None else out * mask[:, :, None])
     return torch.cat(outs).float().cpu().numpy()[:n]

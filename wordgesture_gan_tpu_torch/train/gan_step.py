@@ -37,13 +37,21 @@ from ..utils.tree import tree_leaves
 from .state import apply_update
 
 
-def _critic_update(disc: Dict, real: torch.Tensor, fake: torch.Tensor, lr: float,
-                   model_config: ModelConfig, training_config: TrainingConfig) -> torch.Tensor:
+# The step's metrics, in order; a zero-batch epoch records each at 0.0.
+METRIC_KEYS = ("d1_loss", "d2_loss", "cycle1_total", "cycle1_wgan", "cycle1_feat", "cycle1_lat",
+               "cycle2_total", "cycle2_wgan", "cycle2_feat", "cycle2_rec", "cycle2_kld")
+
+
+def critic_update(disc: Dict, real: torch.Tensor, fake: torch.Tensor, lr: float,
+                  model_config: ModelConfig, grad_clip_norm: float,
+                  fused: bool = False) -> torch.Tensor:
     """One critic step on (real, detached fake): WGAN loss, clip, Adam.
-    Updates ``disc`` (``{"params", "opt", "sn"}``) in place; returns the loss."""
+    Updates ``disc`` (``{"params", "opt", "sn"}``) in place; returns the loss.
+    Real and fake are two critic forwards, real first, unless ``fused``
+    scores them in one."""
     fake = fake.detach()
     params, sn = disc["params"], disc["sn"]
-    if training_config.fused_critic_forward:
+    if fused:
         scores, _, sn = disc_apply(params, sn, torch.cat([real, fake]), True, model_config)
         real_scores, fake_scores = scores[:real.shape[0]], scores[real.shape[0]:]
     else:
@@ -51,7 +59,7 @@ def _critic_update(disc: Dict, real: torch.Tensor, fake: torch.Tensor, lr: float
         fake_scores, _, sn = disc_apply(params, sn, fake, True, model_config)
     loss = wgan_critic_loss(real_scores, fake_scores)
     grads = torch.autograd.grad(loss, tree_leaves(params))
-    apply_update(params, grads, disc["opt"], lr, training_config.grad_clip_norm)
+    apply_update(params, grads, disc["opt"], lr, grad_clip_norm)
     disc["sn"] = sn
     return loss.detach()
 
@@ -95,8 +103,10 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
             with torch.no_grad():
                 fakes = generator_apply(g_params, proto2, torch.cat([z_rands[i], z_encs[i]]),
                                         model_config, inference=True)
-            d1_loss = _critic_update(d1, real, fakes[:B], lr, model_config, tc)
-            d2_loss = _critic_update(d2, real, fakes[B:], lr, model_config, tc)
+            d1_loss = critic_update(d1, real, fakes[:B], lr, model_config, tc.grad_clip_norm,
+                                    tc.fused_critic_forward)
+            d2_loss = critic_update(d2, real, fakes[B:], lr, model_config, tc.grad_clip_norm,
+                                    tc.fused_critic_forward)
 
     # -- joint G + E step.
     z = draw("z1", (B, Z))
@@ -153,21 +163,26 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
     apply_update(e_params, grads[len(g_leaves):], state["e"]["opt"], lr, tc.grad_clip_norm)
     d1["sn"], d2["sn"] = d1_sn, d2_sn
 
-    metrics = {"d1_loss": d1_loss, "d2_loss": d2_loss, "cycle1_total": c1_total,
-               "cycle1_wgan": c1_wgan, "cycle1_feat": c1_feat, "cycle1_lat": c1_lat,
-               "cycle2_total": c2_total, "cycle2_wgan": c2_wgan, "cycle2_feat": c2_feat,
-               "cycle2_rec": c2_rec, "cycle2_kld": c2_kld}
-    return state, {k: v.detach().to(torch.float32) for k, v in metrics.items()}
+    values = (d1_loss, d2_loss, c1_total, c1_wgan, c1_feat, c1_lat, c2_total, c2_wgan, c2_feat,
+              c2_rec, c2_kld)
+    return state, {k: v.detach().to(torch.float32) for k, v in zip(METRIC_KEYS, values)}
+
+
+def shuffle_batches(generator: torch.Generator, arrays: Dict[str, torch.Tensor],
+                    batch_size: int) -> Dict[str, torch.Tensor]:
+    """Shuffle every array of ``arrays`` by one permutation drawn from
+    ``generator`` and cut each into (n_batches, B, ...) stacks, dropping the
+    last partial batch. The permutation is drawn on the generator's device
+    and applied on the data's."""
+    n = next(iter(arrays.values())).shape[0]
+    n_batches = n // batch_size
+    perm = torch.randperm(n, generator=generator, device=generator.device)
+    perm = perm[:n_batches * batch_size]
+    return {name: x[perm.to(x.device)].reshape(n_batches, batch_size, *x.shape[1:])
+            for name, x in arrays.items()}
 
 
 def make_epoch_batches(generator: torch.Generator, gestures: torch.Tensor,
                        prototypes: torch.Tensor, batch_size: int) -> Dict[str, torch.Tensor]:
-    """Shuffle with ``generator`` and cut into (n_batches, B, L, 3) stacks,
-    dropping the last partial batch. The permutation is drawn on the
-    generator's device and applied on the data's."""
-    n = gestures.shape[0]
-    n_batches = n // batch_size
-    perm = torch.randperm(n, generator=generator, device=generator.device)
-    perm = perm[:n_batches * batch_size].to(gestures.device)
-    return {"gesture": gestures[perm].reshape(n_batches, batch_size, *gestures.shape[1:]),
-            "prototype": prototypes[perm].reshape(n_batches, batch_size, *prototypes.shape[1:])}
+    """``shuffle_batches`` of (``gesture``, ``prototype``) (n, L, 3) arrays."""
+    return shuffle_batches(generator, {"gesture": gestures, "prototype": prototypes}, batch_size)

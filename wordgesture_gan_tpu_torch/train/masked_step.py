@@ -1,0 +1,137 @@
+"""The two-cycle WGAN step on variable-length (masked) batches and its epoch
+batching (the port of the JAX package's ``train/masked_step.py``; the scanned
+epoch has no counterpart, the loop runs the step once per batch).
+
+Batches carry a per-point validity mask. The generator is the transformer
+(its attention and time head take the mask), its outputs are zeroed on the
+padding, the critics and the encoder see the real traces with the padding
+zeroed, and the reconstruction and timing losses count valid points only.
+The masked step has no diversity terms (``lambda_ms``, ``lambda_div``), as
+in the JAX package. Gradient flow, power-iteration order and the in-place
+update are ``gan_step.gan_train_step``'s.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..configs import ModelConfig, TrainingConfig
+from ..losses import (feature_matching_loss, kl_divergence_loss, latent_encoding_loss,
+                      masked_speed_profile_loss, masked_time_delta_corr_loss,
+                      masked_time_delta_loss, wgan_generator_loss)
+from ..models.gan import disc_apply, encoder_apply
+from ..models.generators import transformer_generator_apply
+from ..utils.tree import tree_leaves
+from .gan_step import critic_update, shuffle_batches
+from .state import apply_update
+
+# The step's metrics, in order; a zero-batch epoch records each at 0.0.
+METRIC_KEYS = ("d1_loss", "d2_loss", "cycle1_total", "cycle2_total", "cycle2_rec")
+
+
+def masked_reconstruction_loss(real: torch.Tensor, fake: torch.Tensor,
+                               mask: torch.Tensor) -> torch.Tensor:
+    """Mean L1 over valid (unpadded) points only; mask (B, L) in {0, 1}."""
+    diff = (fake - real).abs() * mask[:, :, None]
+    return diff.sum() / torch.clamp(mask.sum() * real.shape[-1], min=1.0)
+
+
+def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
+                          model_config: ModelConfig, training_config: TrainingConfig,
+                          noise: Optional[Dict[str, torch.Tensor]] = None
+                          ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+    """One two-cycle step on one masked batch (``gesture``, ``prototype``:
+    (B, L, 3); ``mask``: (B, L)), transformer generator only.
+
+    ``noise`` injects every random draw, with the names ``gan_train_step``
+    uses: ``z_rand``/``eps_enc`` (n_critic, B, Z) for the critic loop,
+    ``z1``/``eps_rec``/``eps2`` (B, Z) for the joint step."""
+    if model_config.generator_type != "transformer":
+        raise ValueError("variable-length training uses the transformer generator "
+                         "(ModelConfig.generator_type='transformer')")
+    tc = training_config
+    real, proto, mask = batch["gesture"], batch["prototype"], batch["mask"]
+    B, Z, device = real.shape[0], model_config.latent_dim, real.device
+    rng = state["rng"]
+    g_params, e_params = state["g"]["params"], state["e"]["params"]
+    d1, d2 = state["d1"], state["d2"]
+    real_m = real * mask[:, :, None]
+
+    def draw(name, shape):
+        if noise is not None:
+            return noise[name]
+        return torch.randn(shape, generator=rng, device=device, dtype=torch.float32)
+
+    def gen(params, prototype, z, pad_mask):
+        out = transformer_generator_apply(params, prototype, z, model_config, pad_mask=pad_mask)
+        return out * pad_mask[:, :, None]
+
+    # -- critic loop: G and E frozen; the encoder runs once on the masked real
+    # traces, with fresh ε per iteration; both fakes come from one 2B call.
+    n_c = tc.n_critic
+    d1_loss = d2_loss = torch.zeros((), device=device)
+    if n_c > 0:
+        z_rands = draw("z_rand", (n_c, B, Z))
+        eps_encs = draw("eps_enc", (n_c, B, Z))
+        with torch.no_grad():
+            _, mu_c, log_var_c = encoder_apply(e_params, real_m, model_config, eps=eps_encs[0])
+            z_encs = mu_c[None] + eps_encs * torch.exp(0.5 * log_var_c)[None]
+        proto2, mask2 = torch.cat([proto, proto]), torch.cat([mask, mask])
+        for i in range(n_c):
+            with torch.no_grad():
+                fakes = gen(g_params, proto2, torch.cat([z_rands[i], z_encs[i]]), mask2)
+            d1_loss = critic_update(d1, real_m, fakes[:B], lr, model_config, tc.grad_clip_norm)
+            d2_loss = critic_update(d2, real_m, fakes[B:], lr, model_config, tc.grad_clip_norm)
+
+    # -- joint G + E step.
+    z = draw("z1", (B, Z))
+    eps_rec = draw("eps_rec", (B, Z))
+    eps2 = draw("eps2", (B, Z))
+
+    # Cycle 1: z → X' → z'.
+    fake1 = gen(g_params, proto, z, mask)
+    fake1_scores, fake1_feats, d1_sn = disc_apply(d1["params"], d1["sn"], fake1, True,
+                                                  model_config)
+    with torch.no_grad():
+        _, real1_feats, d1_sn = disc_apply(d1["params"], d1_sn, real_m, True, model_config)
+        z_rec, _, _ = encoder_apply(e_params, fake1.detach(), model_config, eps=eps_rec)
+    c1_total = (wgan_generator_loss(fake1_scores)
+                + tc.lambda_feat * feature_matching_loss(real1_feats, fake1_feats)
+                + tc.lambda_lat * latent_encoding_loss(z, z_rec))
+
+    # Cycle 2: X → z → X'.
+    z_enc, mu, log_var = encoder_apply(e_params, real_m, model_config, eps=eps2)
+    fake2 = gen(g_params, proto, z_enc, mask)
+    fake2_scores, fake2_feats, d2_sn = disc_apply(d2["params"], d2["sn"], fake2, True,
+                                                  model_config)
+    with torch.no_grad():
+        _, real2_feats, d2_sn = disc_apply(d2["params"], d2_sn, real_m, True, model_config)
+    c2_rec = masked_reconstruction_loss(real, fake2, mask)
+    c2_total = (wgan_generator_loss(fake2_scores)
+                + tc.lambda_feat * feature_matching_loss(real2_feats, fake2_feats)
+                + tc.lambda_rec * c2_rec + tc.lambda_kld * kl_divergence_loss(mu, log_var))
+    if tc.lambda_dt:
+        c2_total = c2_total + tc.lambda_dt * masked_time_delta_loss(real, fake2, mask)
+    if tc.lambda_speed:
+        c2_total = c2_total + tc.lambda_speed * masked_speed_profile_loss(real, fake2, mask)
+    if tc.lambda_dtc:
+        c2_total = c2_total + tc.lambda_dtc * masked_time_delta_corr_loss(real, fake2, mask)
+
+    g_leaves, e_leaves = tree_leaves(g_params), tree_leaves(e_params)
+    grads = torch.autograd.grad(c1_total + c2_total, g_leaves + e_leaves)
+    apply_update(g_params, grads[:len(g_leaves)], state["g"]["opt"], lr, tc.grad_clip_norm)
+    apply_update(e_params, grads[len(g_leaves):], state["e"]["opt"], lr, tc.grad_clip_norm)
+    d1["sn"], d2["sn"] = d1_sn, d2_sn
+
+    values = (d1_loss, d2_loss, c1_total, c2_total, c2_rec)
+    return state, {k: v.detach().to(torch.float32) for k, v in zip(METRIC_KEYS, values)}
+
+
+def make_epoch_batches_masked(generator: torch.Generator, gestures: torch.Tensor,
+                              prototypes: torch.Tensor, masks: torch.Tensor,
+                              batch_size: int) -> Dict[str, torch.Tensor]:
+    """``shuffle_batches`` of (``gesture``, ``prototype``, ``mask``) arrays."""
+    return shuffle_batches(generator, {"gesture": gestures, "prototype": prototypes,
+                                       "mask": masks}, batch_size)

@@ -2,10 +2,12 @@
 
 The PyTorch twin of ``train_gan.py``: the same flags and defaults, minus the
 mesh and profiler flags of the TPU host (``--data-axis-size``,
-``--profile-dir``), plus ``--device`` (default ``cuda``). ``--variable-length``
-and ``--generator mlp|transformer`` are not ported yet and are refused. It
-writes the run metadata sidecar that ``eval_cli`` and ``generate`` read, and
-checkpoints (``epoch_N.pt``, ``latest.pt``) into ``--checkpoint-dir``.
+``--profile-dir``), plus ``--device`` (default ``cuda``). ``--generator``
+picks the family (bilstm, mlp, transformer); ``--variable-length`` trains
+the transformer on natural-resolution traces with validity masks
+(``train/variable_loop.py``). It writes the run metadata sidecar that
+``eval_cli`` and ``generate`` read, and checkpoints (``epoch_N.pt``,
+``latest.pt``) into ``--checkpoint-dir``.
 
 Usage:
     python -m wordgesture_gan_tpu_torch.train_cli [--epochs N] [--no-resume]
@@ -21,11 +23,14 @@ from typing import Optional, Sequence
 
 import torch
 
-from .cli_common import add_data_args, load_split, maybe_wandb
+from .cli_common import add_data_args, load_split, maybe_wandb, resolve_dataset_zip
 from .configs import ModelConfig, PathsConfig, TrainingConfig, asdict
+from .data.variable_length import create_variable_split, load_variable_dataset_from_zip
+from .keyboard import QWERTYKeyboard
 from .train.checkpoint import (generator_from_state, latest_epoch, load_run_metadata,
                                save_run_metadata)
 from .train.gan_loop import TrainResult, generate_gestures, train_gan
+from .train.variable_loop import train_variable_gan
 from .utils.logging import log, seed_everything
 
 _LAMBDAS = ("lambda_rec", "lambda_kld", "lambda_dt", "lambda_speed", "lambda_dtc", "lambda_ms",
@@ -68,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--precision", choices=["float32", "bfloat16"], default="bfloat16",
                         help="compute precision (params/optimizer stay fp32)")
     parser.add_argument("--variable-length", action="store_true",
-                        help="train on natural-resolution traces (not ported yet)")
+                        help="train on natural-resolution traces with validity masks "
+                             "(transformer generator)")
     parser.add_argument("--arc-step", type=float, default=0.02,
                         help="arc-length per point for --variable-length")
     parser.add_argument("--device", type=str, default="cuda",
@@ -81,12 +87,6 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     """Run the CLI; returns ``train_gan``'s result."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.variable_length:
-        parser.error("--variable-length is not ported to PyTorch yet: the masked transformer "
-                     "path comes with the variable-length slice of the port")
-    if args.generator != "bilstm":
-        parser.error(f"--generator {args.generator} is not ported to PyTorch yet; "
-                     f"only the bilstm generator is trained")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda but no CUDA device is available; pass --device cpu")
@@ -95,11 +95,14 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     seed_everything(args.seed)
 
     model_config = ModelConfig(
-        generator_type=args.generator, compute_dtype=args.precision, time_head=args.time_head,
+        generator_type="transformer" if args.variable_length else args.generator,
+        compute_dtype=args.precision, time_head=args.time_head,
         **({"gen_hidden_dim": args.gen_hidden} if args.gen_hidden else {}))
     training_config = TrainingConfig(
         num_epochs=args.epochs, batch_size=args.batch_size,
         **{k: getattr(args, k) for k in _LAMBDAS if getattr(args, k) is not None})
+    if args.variable_length:
+        return _train_variable(args, model_config, training_config, device)
 
     train_ds, test_ds, _keyboard = load_split(args, model_config, training_config)
     log(f"Data: {len(train_ds)} train, {len(test_ds)} test")
@@ -169,6 +172,30 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
 
     if wb is not None:
         wb.finish()
+    log("Training complete!")
+    return result
+
+
+def _train_variable(args, model_config: ModelConfig, training_config: TrainingConfig,
+                    device) -> TrainResult:
+    """``--variable-length``: natural-resolution traces with validity masks,
+    the masked transformer step."""
+    keyboard = QWERTYKeyboard()
+    by_word, _ = load_variable_dataset_from_zip(
+        resolve_dataset_zip(args), keyboard, max_len=model_config.seq_length,
+        arc_step=args.arc_step, max_samples_per_word=training_config.max_samples_per_word,
+        max_files=args.max_files, seed=args.seed)
+    train_ds, test_ds = create_variable_split(by_word, keyboard, max_len=model_config.seq_length,
+                                              train_ratio=training_config.train_ratio,
+                                              seed=args.seed)
+    log(f"Data: {len(train_ds)} train, {len(test_ds)} test (variable-length)")
+    save_run_metadata(args.checkpoint_dir,
+                      generator_type=model_config.generator_type,
+                      time_head=model_config.time_head,
+                      gen_hidden_dim=model_config.gen_hidden_dim)
+    result = train_variable_gan(train_ds, model_config, training_config, num_epochs=args.epochs,
+                                seed=args.seed, checkpoint_dir=args.checkpoint_dir,
+                                resume=not args.no_resume, device=device)
     log("Training complete!")
     return result
 
