@@ -84,6 +84,25 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    (held against the CPU's, 1e-4), the suite; launches counted from 0: one
    kernel-4 matrix of 4·10^6 pairs, no BiLSTM kernel; every metric finite,
    precision and recall in [0, 1], DTW-Wasserstein > 0;
+7e. ``eval_cli.main --large-scale 100000`` on phase 7's generator, corpus and
+   cached FID autoencoder: 10⁵ gestures through kernel 1 (launches counted
+   from 0: 196, every one on its float32 path), then sliced W2, energy
+   distance, the Sinkhorn matched cost (raw and extrapolated), chunked k-NN
+   precision/recall and FID; every metric finite, precision and recall in
+   [0, 1]; stage seconds and peak device memory; the k-NN pass and one
+   Sinkhorn solve profiled;
+7f. ``evaluate_large_scale`` at n = 2048 (real test gestures, generated
+   ones) with injected draws and one FID autoencoder, on the card against
+   the CPU, with the tolerances stated at LARGE_TOL;
+7g. the contrastive encoder on the same corpus: ``train_contrastive_cli.main``
+   for 2 epochs, then a third resumed from its checkpoint (epoch and step
+   counters carried over), then ``eval_contrastive_cli.main --centroids
+   --query <a test word>``; losses finite, recall@k, mAP and the centroid
+   table in [0, 1]; seconds per epoch and steps per epoch;
+7h. one contrastive train step (float32, 32 words x 2 gestures, L=128) on
+   the card against the CPU from the same weights and batch: loss,
+   gradients, BatchNorm running statistics and parameters, with the
+   tolerances stated at CONTRASTIVE_TOL;
 8. time kernel 1 (at B=512 and at the train step's 2B=1024; in float32 also
    with the sample tile the dispatch rule does not pick at that batch),
    kernels 2 and 3 (with one profiled call of the pair at one
@@ -116,17 +135,26 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from wordgesture_gan_tpu_torch import eval_cli, generate, train_cli
+from wordgesture_gan_tpu_torch import (eval_cli, eval_contrastive_cli, generate, train_cli,
+                                       train_contrastive_cli)
 from wordgesture_gan_tpu_torch.cli_common import load_split, resolve_dataset_zip
-from wordgesture_gan_tpu_torch.configs import EvaluationConfig, ModelConfig, TrainingConfig
-from wordgesture_gan_tpu_torch.data.pipeline import GestureArrays
+from wordgesture_gan_tpu_torch.configs import (ContrastiveConfig, EvaluationConfig, ModelConfig,
+                                               TrainingConfig)
+from wordgesture_gan_tpu_torch.data.contrastive import create_contrastive_datasets
+from wordgesture_gan_tpu_torch.data.pipeline import GestureArrays, load_dataset_from_zip
 from wordgesture_gan_tpu_torch.data.variable_length import (create_variable_split,
                                                             load_variable_dataset_from_zip)
 from wordgesture_gan_tpu_torch.interop.from_jax import write_generator_npz
 from wordgesture_gan_tpu_torch.keyboard import QWERTYKeyboard
+from wordgesture_gan_tpu_torch.losses import supervised_contrastive_loss
+from wordgesture_gan_tpu_torch.metrics.fid import load_or_train_fid_autoencoder
+from wordgesture_gan_tpu_torch.metrics.large_scale import (chunked_knn_precision_recall,
+                                                           evaluate_large_scale)
 from wordgesture_gan_tpu_torch.metrics.suite import evaluate_all_metrics
+from wordgesture_gan_tpu_torch.models.contrastive import (contrastive_encoder_apply,
+                                                          contrastive_encoder_init)
 from wordgesture_gan_tpu_torch.models.gan import generator_init
-from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance
+from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance, sinkhorn_matching_cost
 from wordgesture_gan_tpu_torch.ops import build as kernel_build
 from wordgesture_gan_tpu_torch.ops import bilstm_fused
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
@@ -136,8 +164,11 @@ from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_bwd, bilstm
                                                         kernel_path, mma_kernel_info)
 from wordgesture_gan_tpu_torch.ops.dtw import dtw_matrix, dtw_pairs, dtw_pairs_plain
 from wordgesture_gan_tpu_torch.ops.resample import batched_arclength_resample
+from wordgesture_gan_tpu_torch.ops.stats import pairwise_l2
 from wordgesture_gan_tpu_torch.train.checkpoint import (find_checkpoint, latest_epoch,
                                                         load_generator)
+from wordgesture_gan_tpu_torch.train.contrastive_loop import (contrastive_train_step,
+                                                              make_contrastive_state)
 from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures, train_gan
 from wordgesture_gan_tpu_torch.train.gan_step import gan_train_step
 from wordgesture_gan_tpu_torch.train.masked_step import METRIC_KEYS as MASKED_METRIC_KEYS
@@ -1153,6 +1184,245 @@ def small_eval_vs_cpu(device, real, fake, train, mcfg, n=SMALL_EVAL_N, n_train=S
     return line
 
 
+# -- the scale metrics ---------------------------------------------------------------------
+
+# 10⁵ gestures through ``eval_cli --large-scale``: kernel 1 serves them in
+# chunks of 512 on its float32 path (eval_cli's default precision).
+LARGE_N = 100_000
+# The scale metrics on the card against the CPU at n = 2048 with injected
+# draws, the Sinkhorn estimator cut to 2 repeats of 512 (and 256) so the CPU's
+# 500 iterations per solve stay short. Relative tolerances, as the CPU parity
+# tests hold the port to the JAX package: sliced W2 and energy distance 1e-5
+# (float32 sums in another order); the Sinkhorn costs and FID 1e-4 (500
+# log-domain iterations; a difference of traces); the spreads (std, stderr)
+# 1e-4 of the raw cost; precision, recall and the sample count equal (TF32 is
+# off, so both devices compute the same distances to the radii).
+LARGE_VS_CPU_N, LARGE_VS_CPU_SUB, LARGE_VS_CPU_REPEATS = 2048, 512, 2
+LARGE_TOL = {"sliced_w2": 1e-5, "energy_distance": 1e-5, "sinkhorn_matched_cost": 1e-4,
+             "sinkhorn_matched_cost_std": 1e-4, "sinkhorn_matched_cost_extrapolated": 1e-4,
+             "sinkhorn_matched_cost_extrapolated_stderr": 1e-4, "n_samples": 0.0,
+             "precision": 0.0, "recall": 0.0, "fid": 1e-4}
+
+
+def _check_large(name: str, results: dict) -> None:
+    bad = [k for k, v in results.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{name}: non-finite metrics {bad}")
+    if not (0.0 <= results["precision"] <= 1.0 and 0.0 <= results["recall"] <= 1.0):
+        raise AssertionError(f"{name}: precision/recall outside [0, 1]")
+    if results["fid"] < 0.0 or not results["sinkhorn_matched_cost"] > 0.0:
+        raise AssertionError(f"{name}: FID {results['fid']}, Sinkhorn cost "
+                             f"{results['sinkhorn_matched_cost']}")
+
+
+def evaluate_large(device, workdir: Path, users=EVAL_USERS, n=LARGE_N,
+                   fid_epochs=EVAL_FID_EPOCHS) -> dict:
+    """Phase 7e: ``eval_cli.main --large-scale 100000`` on phase 7's generator
+    checkpoint, corpus and cached FID autoencoder: 10⁵ gestures generated
+    through kernel 1 (launches counted from 0: one per chunk of 512, every
+    one on the float32 path), then the scale metrics. Every metric finite,
+    precision and recall in [0, 1]; stage seconds and peak device memory."""
+    data = ["--synthetic", "--synthetic-users", str(users), "--data",
+            str(workdir / "swipelogs.zip"), "--checkpoint-dir", str(workdir / "checkpoints"),
+            "--device", device.type]
+    counters = {"dtw": dtw_matrix, "dtw_aligned_pairs": dtw_pairs, "bilstm_fused": fused_bilstm_fwd}
+    reset_launches(*counters.values())
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = eval_cli.main(["--large-scale", str(n), "--fid-epochs", str(fid_epochs), *data])
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    fused_by_path = dict(fused_bilstm_fwd.launches_by_path)
+    if out["n"] != n or out["large_scale"]["n_samples"] != n:
+        raise AssertionError(f"--large-scale {n} scored {out['large_scale']['n_samples']}")
+    _check_large("large-scale", out["large_scale"])
+    expected = {"dtw": 0, "dtw_aligned_pairs": 0, "bilstm_fused": chunk_layout(n, 512)[1]}
+    if device.type == "cuda":
+        if launches != expected:
+            raise AssertionError(f"launches on the large-scale path {launches}, expected "
+                                 f"{expected}")
+        path = bilstm_fused.kernel_path(torch.float32, HIDDEN, SEQ, LAYERS)
+        if fused_by_path != only_path(fused_bilstm_fwd, path, expected["bilstm_fused"]):
+            raise AssertionError(f"bilstm_fused launches by path {fused_by_path}, expected all "
+                                 f"on {path}")
+    line = {"evaluation": "eval_cli.main --large-scale", "n": n, "synthetic_users": users,
+            "fid_epochs": fid_epochs, "seconds": wall, "stage_seconds": out["stage_seconds"],
+            "peak_device_memory_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                                       if device.type == "cuda" else None),
+            "launches": launches, "bilstm_fused_launches_by_path": fused_by_path,
+            "results": out["large_scale"]}
+    print(json.dumps(line), flush=True)
+    if device.type == "cuda":   # where the time of the two largest stages goes
+        real = torch.rand((n, 2 * SEQ), generator=torch.Generator().manual_seed(3)).numpy()
+        line["profile_knn"] = device_profile(
+            lambda: chunked_knn_precision_recall(real, real[::-1].copy(), device=device),
+            "chunked_knn_precision_recall", n=n)
+        sub = torch.from_numpy(real[:4096]).to(device)
+        line["profile_sinkhorn"] = device_profile(
+            lambda: sinkhorn_matching_cost(pairwise_l2(sub, sub.flip(0))),
+            "sinkhorn_matching_cost", n_sub=4096, iterations=500)
+    return line
+
+
+def _large_draws(n: int, dims: int, n_sub: int, repeats: int, seed: int = 21) -> dict:
+    """``evaluate_large_scale``'s draws, made in numpy: directions, the energy
+    pairs (the within-set terms offset so no row pairs with itself), nested
+    Sinkhorn subsamples."""
+    rng = np.random.default_rng(seed)
+    i, j = rng.integers(0, n, 1 << 20), rng.integers(0, n, 1 << 20)
+    pairs = ((i, j), (i, (i + rng.integers(1, n, 1 << 20)) % n),
+             (j, (j + rng.integers(1, n, 1 << 20)) % n))
+    return {"dirs": rng.normal(size=(dims, 256)).astype(np.float32), "pairs": pairs,
+            "sinkhorn": [(rng.permutation(n)[:n_sub], rng.permutation(n)[:n_sub])
+                         for _ in range(repeats)]}
+
+
+def large_scale_vs_cpu(device, workdir: Path, users=EVAL_USERS, n=LARGE_VS_CPU_N,
+                       n_sub=LARGE_VS_CPU_SUB, repeats=LARGE_VS_CPU_REPEATS,
+                       fid_epochs=EVAL_FID_EPOCHS) -> dict:
+    """Phase 7f: ``evaluate_large_scale`` on n real test gestures and n
+    generated ones, with the same injected draws and the same FID
+    autoencoder, on the card and on the CPU."""
+    ckpt = workdir / "checkpoints"
+    args = eval_cli.build_parser().parse_args(
+        ["--synthetic", "--synthetic-users", str(users), "--data", str(workdir / "swipelogs.zip"),
+         "--checkpoint-dir", str(ckpt)])
+    meta = json.loads((ckpt / "run_meta.json").read_text())
+    mcfg = ModelConfig(time_head=meta["time_head"], gen_hidden_dim=meta["gen_hidden_dim"])
+    train_ds, test_ds, _ = load_split(args, mcfg, TrainingConfig(), verbose=False)
+    n = min(n, len(test_ds))
+    model = load_generator(str(find_checkpoint(str(ckpt))), mcfg, device=device)
+    fake = generate_gestures(model, test_ds.prototypes[:n], mcfg, seed=5, device=device)
+    ae, _ = load_or_train_fid_autoencoder(train_ds.gestures, mcfg,
+                                          EvaluationConfig(fid_autoencoder_epochs=fid_epochs),
+                                          cache_dir=str(ckpt), verbose=False, device="cpu")
+    draws = _large_draws(n, 2 * mcfg.seq_length, n_sub, repeats)
+    runs, seconds = [], []
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        runs.append(evaluate_large_scale(
+            test_ds.gestures[:n], fake, ae_params=tree_map(lambda t: t.to(dev), ae), device=dev,
+            draws=draws, sinkhorn_n_sub=n_sub, sinkhorn_repeats=repeats))
+        seconds.append(time.perf_counter() - t0)
+    got, want = runs
+    errors = {}
+    for k, w in want.items():
+        if k.endswith(("_std", "_stderr")):
+            scale = want["sinkhorn_matched_cost"]
+        else:
+            scale = abs(w) if LARGE_TOL[k] else 1.0
+        errors[k] = abs(got[k] - w) / scale
+    line = {"check": "evaluate_large_scale on the card vs CPU", "n": n,
+            "sinkhorn_n_sub": n_sub, "sinkhorn_repeats": repeats, "relative_errors": errors,
+            "card_seconds": seconds[0], "cpu_seconds": seconds[1], "tolerances": LARGE_TOL}
+    print(json.dumps(line), flush=True)
+    bad = [k for k, err in errors.items() if not err <= LARGE_TOL[k]]
+    if bad:
+        raise AssertionError(f"evaluate_large_scale on the card vs CPU: {bad} "
+                             f"{ {k: (got[k], want[k]) for k in bad} }")
+    return line
+
+
+# -- the contrastive encoder ---------------------------------------------------------------
+
+CONTRASTIVE_EPOCHS = 2         # then one more, resumed
+# One step on the card against the CPU (same weights, same batch of 32 words
+# x 2 gestures at L=128, float32 with TF32 off): the loss 1e-5 relative;
+# gradients 1e-4 of the tree's largest (the convolutions sum in another order
+# on the card); BatchNorm's running statistics 1e-5; the parameters after the
+# step within 1e-5, or within 2·lr where a gradient is ~0 (the conv biases in
+# front of BatchNorm, whose sign Adam's first step maps to ±lr).
+CONTRASTIVE_LR = 1e-3
+CONTRASTIVE_TOL = {"loss": 1e-5, "grad": 1e-4, "bn": 1e-5, "param": 1e-5}
+
+
+def contrastive(device, workdir: Path, users=EVAL_USERS, epochs=CONTRASTIVE_EPOCHS) -> dict:
+    """Phase 7g: ``train_contrastive_cli.main`` for 2 epochs on the synthetic
+    corpus, one more that resumes from the checkpoint (epoch and step carried
+    over), then ``eval_contrastive_cli.main --centroids --query <a test
+    word>``: losses finite, recall@k, mAP and the centroid table in [0, 1]."""
+    data = ["--synthetic", "--synthetic-users", str(users), "--data",
+            str(workdir / "swipelogs.zip"), "--checkpoint-dir",
+            str(workdir / "checkpoints_contrastive"), "--device", device.type]
+    t0 = time.perf_counter()
+    state, history = train_contrastive_cli.main(["--epochs", str(epochs), *data])
+    resumed, more = train_contrastive_cli.main(["--epochs", str(epochs + 1), *data])
+    train_seconds = time.perf_counter() - t0
+    steps = state["step"] // epochs
+    if (state["epoch"] != epochs or steps < 1 or resumed["epoch"] != epochs + 1
+            or resumed["step"] != (epochs + 1) * steps or len(more["train_loss"]) != 1):
+        raise AssertionError(f"contrastive training did not train and resume: epoch/step "
+                             f"{state['epoch']}/{state['step']}, then "
+                             f"{resumed['epoch']}/{resumed['step']}")
+    losses = history["train_loss"] + more["train_loss"]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"contrastive losses {losses}")
+
+    args = train_contrastive_cli.build_parser().parse_args(data)
+    by_word, _ = load_dataset_from_zip(resolve_dataset_zip(args), QWERTYKeyboard(),
+                                       ModelConfig(), TrainingConfig(), verbose=False)
+    train, test = create_contrastive_datasets(by_word, 0.8, seed=args.seed, verbose=False)
+    word = test.words[0]
+    t0 = time.perf_counter()
+    out = eval_contrastive_cli.main(["--centroids", "--query", word, *data])
+    eval_seconds = time.perf_counter() - t0
+    table = {**out["recall"], **out["centroids"]}
+    if not all(0.0 <= v <= 1.0 for v in table.values()):
+        raise AssertionError(f"contrastive metrics out of [0, 1]: {table}")
+    if out["query"] is None or out["query"][0]["word"] != word:
+        raise AssertionError(f"the query for '{word}' did not find its own gesture first")
+    line = {"training": "train_contrastive_cli.main", "synthetic_users": users,
+            "train_gestures": len(train), "steps_per_epoch": steps,
+            "batch": ContrastiveConfig().batch_words * ContrastiveConfig().gestures_per_word,
+            "epoch_seconds": history["epoch_seconds"] + more["epoch_seconds"],
+            "train_cli_seconds": train_seconds, "losses": losses,
+            "evaluation": "eval_contrastive_cli.main --centroids --query", "test_gestures": len(test),
+            "eval_cli_seconds": eval_seconds, "recall": out["recall"],
+            "centroids": out["centroids"], "query": word}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def contrastive_step_vs_cpu(device, batch_words=32, per_word=2, seq=SEQ,
+                            lr=CONTRASTIVE_LR) -> dict:
+    """Phase 7h: one contrastive train step (SupCon, clip, Adam) on the card
+    and on the CPU from the same weights and batch: the loss, the gradients,
+    BatchNorm's running statistics and the parameters after the step."""
+    ds = smoke_dataset(batch_words * per_word, seq, seed=6)
+    batch = torch.from_numpy(ds.gestures)
+    labels = torch.arange(batch_words).repeat_interleave(per_word)
+    params, bn = contrastive_encoder_init(ContrastiveConfig(), torch.Generator().manual_seed(4))
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        state = make_contrastive_state(params, bn, dev)
+        x, y = batch.to(dev), labels.to(dev)
+        emb, _ = contrastive_encoder_apply(state["params"], state["bn"], x, train=True)
+        grads = torch.autograd.grad(supervised_contrastive_loss(emb, y),
+                                    tree_leaves(state["params"]))
+        loss = contrastive_train_step(state, x, y, lr)
+        runs.append({"loss": loss.item(), "grads": [g.cpu() for g in grads],
+                     "bn": [t.cpu() for t in tree_leaves(state["bn"])],
+                     "params": [p.detach().cpu() for p in tree_leaves(state["params"])]})
+    got, want = runs
+    g_scale = max(g.abs().max().item() for g in want["grads"])
+    worst = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+             "grad": max((a - b).abs().max().item() for a, b in zip(got["grads"], want["grads"]))
+             / g_scale,
+             "bn": max((a - b).abs().max().item() for a, b in zip(got["bn"], want["bn"])),
+             "param": max(((a - b).abs() - 2 * lr * (g.abs() < 1e-4 * g_scale)).max().item()
+                          for a, b, g in zip(got["params"], want["params"], want["grads"]))}
+    line = {"check": "contrastive_train_step on the card vs CPU", "batch": len(batch),
+            "dtype": "float32", "lr": lr, "errors": worst,
+            "tolerances": {**CONTRASTIVE_TOL, "param_near_zero_grad": "2·lr"}}
+    print(json.dumps(line), flush=True)
+    bad = [k for k, v in worst.items() if not v <= CONTRASTIVE_TOL[k]]
+    if bad:
+        raise AssertionError(f"contrastive step on the card vs CPU: {bad} {worst}")
+    return line
+
+
 # -- the MLP and transformer generators, and the variable-length path ---------------------
 
 FAMILIES = ("mlp", "transformer")
@@ -1402,6 +1672,17 @@ def main() -> int:
         train_variable(device, Path(tmp))
         masked_step_vs_cpu(device)
         evaluated_vl = evaluate_variable(device, Path(tmp))
+        t0 = time.perf_counter()
+        large = evaluate_large(device, Path(tmp))
+        print(json.dumps({"phase": "large_scale", "seconds": time.perf_counter() - t0}), flush=True)
+        t0 = time.perf_counter()
+        large_scale_vs_cpu(device, Path(tmp))
+        print(json.dumps({"phase": "large_scale_vs_cpu", "seconds": time.perf_counter() - t0}),
+              flush=True)
+        t0 = time.perf_counter()
+        contrastive(device, Path(tmp))
+        contrastive_step_vs_cpu(device)
+        print(json.dumps({"phase": "contrastive", "seconds": time.perf_counter() - t0}), flush=True)
     timings = {name: time_kernel(device, name) for name in ("bfloat16", "float32")}
     for name in ("bfloat16", "float32"):
         time_kernel(device, name, batch=TRAIN_CALL_BATCH)
@@ -1416,11 +1697,11 @@ def main() -> int:
         "name": "bilstm_fused", "route": "cuda", "path": main_t["path"],
         "launches_by_path": {k: served["launches_by_path"][k] + trained["launches_by_path"][
             "bilstm_fused"][k] + evaluated["bilstm_fused_launches_by_path"][k]
-            for k in served["launches_by_path"]},
+            + large["bilstm_fused_launches_by_path"][k] for k in served["launches_by_path"]},
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_fused.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_fused.py:54",
         "launches": served["launches"] + launches["bilstm_fused"]
-        + evaluated["launches"]["bilstm_fused"],
+        + evaluated["launches"]["bilstm_fused"] + large["launches"]["bilstm_fused"],
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"], "library_ms": main_t["library_ms"],

@@ -369,3 +369,40 @@ def test_dtw_cuda_tensor_with_an_unsupported_shape_raises(cuda_device, shape):
     with pytest.raises(ValueError):
         dtw_matrix(x, x)
     assert (dtw_pairs.launches, dtw_matrix.launches) == before
+
+
+# -- the scale metrics and the contrastive encoder (no kernel of their own) ------------------
+
+
+def test_contrastive_step_on_cuda_matches_cpu(cuda_device):
+    """One contrastive train step (SupCon, clip, Adam) on the card against
+    the CPU from the same weights and batch, float32 with TF32 off, with the
+    tolerances ``chip_smoke.CONTRASTIVE_TOL`` states; it raises otherwise."""
+    import chip_smoke
+
+    line = chip_smoke.contrastive_step_vs_cpu(cuda_device, batch_words=8)
+    assert all(line["errors"][k] <= tol for k, tol in chip_smoke.CONTRASTIVE_TOL.items())
+
+
+def test_scale_metrics_on_cuda_match_cpu(cuda_device):
+    """``evaluate_large_scale`` on the card against the CPU at n = 600 with
+    injected draws (Sinkhorn on subsamples of 128): the estimators agree to
+    1e-4, precision and recall within one sample; the k-NN pass's padding
+    path runs (600 rows in chunks of 2048 → one padded chunk)."""
+    import chip_smoke
+    from wordgesture_gan_tpu_torch.metrics.large_scale import evaluate_large_scale
+
+    rng = np.random.default_rng(0)
+    n = 600
+    real = np.clip(np.cumsum(rng.normal(0, 0.08, (n, 128, 3)), axis=1), -1, 1).astype(np.float32)
+    fake = np.clip(np.cumsum(rng.normal(0.005, 0.08, (n, 128, 3)), axis=1), -1,
+                   1).astype(np.float32)
+    draws = chip_smoke._large_draws(n, 256, 128, 2)
+    runs = [evaluate_large_scale(real, fake, device=dev, draws=draws, sinkhorn_n_sub=128,
+                                 sinkhorn_repeats=2) for dev in (cuda_device, "cpu")]
+    got, want = runs
+    for k in ("sliced_w2", "sinkhorn_matched_cost", "sinkhorn_matched_cost_extrapolated"):
+        assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), k
+    assert abs(got["energy_distance"] - want["energy_distance"]) <= 1e-4
+    for k in ("precision", "recall"):
+        assert abs(got[k] - want[k]) <= 1.0 / n + 1e-9, k

@@ -254,14 +254,30 @@ def test_generate_serves_what_train_cli_wrote(trained, tmp_path):
                                                         device="cpu"))
 
 
+LARGE_SCALE_KEYS = ["sliced_w2", "energy_distance", "sinkhorn_matched_cost",
+                    "sinkhorn_matched_cost_std", "sinkhorn_matched_cost_extrapolated",
+                    "sinkhorn_matched_cost_extrapolated_stderr", "n_samples", "precision",
+                    "recall", "fid"]
+
+
 @pytest.mark.parametrize("cli,flags,message", [
-    (eval_cli, ["--large-scale", "1000"], "scale-metrics slice"),
+    pytest.param(eval_cli, ["--large-scale", "512"], "Large-scale distribution metrics (N=512)",
+                 id="wordgesture_gan_tpu_torch.eval_cli-flags0-scale-metrics slice"),
 ])
-def test_clis_refuse_what_is_not_ported(cli, flags, message, capsys):
-    with pytest.raises(SystemExit) as exit_info:
-        cli.main([*flags, "--device", "cpu"])
-    assert exit_info.value.code == 2
-    assert message in capsys.readouterr().err
+def test_clis_refuse_what_is_not_ported(cli, flags, message, trained, capsys):
+    """Every flag of the JAX CLI runs: ``--large-scale N`` scores N gestures
+    sampled from the trained checkpoint with the scale metrics and returns
+    ``evaluate_large_scale``'s keys and the stage seconds."""
+    _, data, _ = trained
+    out = cli.main([*flags, "--fid-epochs", "1", *data])
+    assert message in capsys.readouterr().out
+    assert out["n"] == 512 and list(out["large_scale"]) == LARGE_SCALE_KEYS
+    results = out["large_scale"]
+    assert all(np.isfinite(v) for v in results.values()) and results["n_samples"] == 512
+    assert 0.0 <= results["precision"] <= 1.0 and 0.0 <= results["recall"] <= 1.0
+    assert results["fid"] >= 0.0 and results["sinkhorn_matched_cost"] > 0.0
+    assert {"load", "generate", "fid_autoencoder", "sinkhorn", "sliced_w2_energy", "knn",
+            "fid"} == set(out["stage_seconds"])
 
 
 @pytest.fixture(scope="module")

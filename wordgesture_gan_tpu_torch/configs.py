@@ -1,6 +1,7 @@
 """Configuration dataclasses: the port's copy of ``ModelConfig``,
-``TrainingConfig``, ``EvaluationConfig``, ``KeyboardConfig`` and
-``PathsConfig`` from the JAX package's ``configs.py``.
+``TrainingConfig``, ``EvaluationConfig``, ``KeyboardConfig``,
+``ContrastiveConfig`` and ``PathsConfig`` from the JAX package's
+``configs.py``.
 
 Field names and defaults are identical, so a ``run_meta.json`` written by
 either package configures the other.
@@ -163,6 +164,25 @@ class KeyboardConfig:
 
 
 @dataclass(frozen=True)
+class ContrastiveConfig:
+    """Contrastive gesture encoder configuration."""
+
+    embedding_dim: int = 64
+    temperature: float = 0.07
+
+    learning_rate: float = 1e-3
+    batch_words: int = 32
+    gestures_per_word: int = 2
+    num_epochs: int = 100
+
+    use_cosine_annealing: bool = True
+    eta_min: float = 1e-5
+
+    seq_length: int = 128
+    input_dim: int = 3
+
+
+@dataclass(frozen=True)
 class PathsConfig:
     """Local run paths."""
 
@@ -177,6 +197,7 @@ DEFAULT_MODEL_CONFIG = ModelConfig()
 DEFAULT_TRAINING_CONFIG = TrainingConfig()
 DEFAULT_EVALUATION_CONFIG = EvaluationConfig()
 DEFAULT_KEYBOARD_CONFIG = KeyboardConfig()
+DEFAULT_CONTRASTIVE_CONFIG = ContrastiveConfig()
 DEFAULT_PATHS_CONFIG = PathsConfig()
 
 

@@ -7,7 +7,10 @@ metadata sidecar and the newest checkpoint (``latest.pt``) that
 ``--variable-length`` scores a masked transformer checkpoint: real,
 generated and training traces are resampled onto the common 128-point
 arc-length grid on the device (``ops/resample.py``) and run through the
-metric suite. ``--large-scale`` is not ported yet and is refused.
+metric suite. ``--large-scale N`` samples N gestures over test prototypes
+drawn with replacement and compares them with N real test gestures through
+the scale estimators of ``metrics/large_scale.py`` (sliced W2, energy
+distance, the Sinkhorn matched cost, chunked k-NN precision/recall, FID).
 
 Usage:
     python -m wordgesture_gan_tpu_torch.eval_cli --model both --n-samples 2000 [--synthetic]
@@ -22,6 +25,7 @@ import time
 from pathlib import Path
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .cli_common import add_data_args, load_split, maybe_wandb, resolve_dataset_zip
@@ -31,6 +35,8 @@ from .eval.gan_eval import (PAPER_GAN, PAPER_MINJERK, attach_eval_to_wandb,
                             evaluate_gan_and_minjerk, print_comparison_table,
                             print_results_table)
 from .keyboard import QWERTYKeyboard
+from .metrics.fid import load_or_train_fid_autoencoder
+from .metrics.large_scale import evaluate_large_scale
 from .metrics.suite import evaluate_all_metrics
 from .ops.resample import batched_arclength_resample
 from .train.checkpoint import find_checkpoint, load_generator, load_run_metadata
@@ -58,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
                         default=EvaluationConfig().fid_autoencoder_epochs,
                         help="training epochs of the FID feature autoencoders")
     parser.add_argument("--large-scale", type=int, default=0, metavar="N",
-                        help="distribution metrics at scale (not ported yet)")
+                        help="distribution metrics on N generated gestures "
+                             "(sliced W2, energy, Sinkhorn, chunked k-NN, FID)")
     parser.add_argument("--checkpoint-dir", type=str, default="checkpoints")
     parser.add_argument("--generator", choices=["bilstm", "mlp", "transformer"],
                         default=None, help="generator family (default: what the "
@@ -87,13 +94,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI; returns {"n", "gan", "minjerk", "stage_seconds"}: the two
     result dicts (None for a model that was not evaluated) and the host
     seconds of loading, of generation, and of each stage of the metric suite
-    per evaluated model."""
+    per evaluated model. With ``--large-scale`` it returns {"n",
+    "large_scale", "stage_seconds"} instead (``_run_large_scale``)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.large_scale and not args.variable_length:
-        parser.error("--large-scale is not ported to PyTorch yet: the sliced-W2 / energy / "
-                     "chunked-kNN metrics come with the scale-metrics slice of the port")
-
     if args.save_figures and importlib.util.find_spec("matplotlib") is None:
         parser.error("--save-figures needs matplotlib, which is not installed")
 
@@ -146,6 +150,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     n = min(args.n_samples, len(test_ds))
     real_g = test_ds.gestures[:n]
     words = test_ds.words[:n]
+
+    if args.large_scale:
+        return _run_large_scale(args, train_ds, test_ds, model_config, eval_config, device,
+                                stage_seconds)
 
     gan_fake = None
     if args.model in ("gan", "both"):
@@ -221,6 +229,53 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     log("Done.")
     return {"n": n, "gan": gan_results, "minjerk": minjerk_results,
             "stage_seconds": stage_seconds}
+
+
+def _run_large_scale(args, train_ds, test_ds, model_config: ModelConfig,
+                     eval_config: EvaluationConfig, device, stage_seconds: dict) -> dict:
+    """``--large-scale N``: sample N gestures over test prototypes drawn with
+    replacement, compare them with N real test gestures drawn the same way
+    (``np.random.default_rng(seed)``, as the JAX package draws them) through
+    ``evaluate_large_scale`` on ``device``, FID on the cached (or newly
+    trained) feature autoencoder. Returns {"n", "large_scale",
+    "stage_seconds"}."""
+    n = args.large_scale
+    log(f"[large-scale] Evaluating with N={n}")
+    path = find_checkpoint(args.checkpoint_dir)
+    if path is None:
+        log(f"ERROR: No checkpoint found in {args.checkpoint_dir}")
+        raise SystemExit(1)
+    model = load_generator(str(path), model_config, device=device)
+
+    rng = np.random.default_rng(args.seed)
+    proto_idx = rng.integers(0, len(test_ds), n)
+    real_idx = rng.integers(0, len(test_ds), n)
+
+    log(f"[large-scale] Generating {n} gestures (batched)...")
+    t0 = time.perf_counter()
+    fake = generate_gestures(model, test_ds.prototypes[proto_idx], model_config,
+                             truncation=args.truncation, seed=args.seed, device=device)
+    dt = time.perf_counter() - t0
+    stage_seconds["generate"] = dt
+    log(f"[large-scale] Generated {n} gestures in {dt:.1f}s "
+        f"({n / dt / 1e3:.1f}k gestures/s → {60 * n / dt / 1e6:.2f}M/min)")
+
+    real = test_ds.gestures[real_idx]
+    t0 = time.perf_counter()
+    ae_params, _ = load_or_train_fid_autoencoder(train_ds.gestures, model_config, eval_config,
+                                                 cache_dir=args.checkpoint_dir, device=device)
+    stage_seconds["fid_autoencoder"] = time.perf_counter() - t0
+
+    results = evaluate_large_scale(real, fake, ae_params=ae_params, seed=args.seed, device=device,
+                                   stage_seconds=stage_seconds)
+    log("")
+    log("=" * 60)
+    log(f"Large-scale distribution metrics (N={n})")
+    log("=" * 60)
+    for key, val in results.items():
+        log(f"  {key:<20} {val:.5f}")
+    log("=" * 60)
+    return {"n": n, "large_scale": results, "stage_seconds": stage_seconds}
 
 
 def _run_variable_length(args, model_config: ModelConfig, training_config: TrainingConfig,

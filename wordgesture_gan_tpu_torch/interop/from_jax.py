@@ -8,8 +8,11 @@ nested dicts and lists, one layout per family: the BiLSTM's
 ``generator_from_jax`` turns such a tree, given as numpy arrays, into the
 port's ``Generator`` state dict; ``train_state_from_jax``
 turns a whole JAX train state (all four models, the critics' spectral-norm
-u vectors and, optionally, the Adam moments) into the port's train state.
-The port keeps the JAX layout, so no weight is transposed.
+u vectors and, optionally, the Adam moments) into the port's train state,
+and ``contrastive_state_from_jax`` does the same for the contrastive
+encoder's state (parameters, BatchNorm statistics, optionally the Adam
+moments and the counters). The port keeps the JAX layout, so no weight is
+transposed.
 
 To move trained weights, flatten the tree by path into an ``.npz``
 (``lstm/0/fwd/w_ih``, ..., ``out/w``). Anyone with the JAX package can write
@@ -180,3 +183,18 @@ def train_state_from_jax(tree, device="cuda", seed: int = 0) -> Dict:
     opt = {m: adam_moments(tree[m]["opt"]) for m in MODELS if tree[m].get("opt") is not None}
     return make_train_state(params, sn, device, seed=seed, opt=opt,
                             epoch=int(np.asarray(tree.get("epoch", 0))))
+
+
+def contrastive_state_from_jax(tree, device="cuda") -> Dict:
+    """The port's contrastive train state (``train/contrastive_loop.py``)
+    from a JAX one with numpy leaves: ``tree["params"]`` and ``tree["bn"]``
+    (``{"bns": [{"mean", "var"}, ...]}``), and optionally ``tree["opt"]``
+    (optax's chain state: clipping, then Adam), ``epoch``, ``step`` and
+    ``best_recall``. Without an optimizer state the Adam moments are fresh."""
+    from ..train.contrastive_loop import make_contrastive_state
+
+    opt = adam_moments(tree["opt"]) if tree.get("opt") is not None else None
+    return make_contrastive_state(
+        tree["params"], tree["bn"], device, opt=opt,
+        epoch=int(np.asarray(tree.get("epoch", 0))), step=int(np.asarray(tree.get("step", 0))),
+        best_recall=float(np.asarray(tree.get("best_recall", 0.0))))

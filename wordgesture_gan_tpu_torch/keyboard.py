@@ -122,6 +122,49 @@ class QWERTYKeyboard:
         trajectory = resample_polyline_by_arclength(key_positions, num_points)
         return np.hstack([trajectory, _uniform_time_column(num_points)]).astype(np.float32)
 
+    def get_key_indices(self, word: str, num_points: int = 128) -> np.ndarray:
+        """Prototype sequence indices where key centers land under arc-length
+        sampling."""
+        positions = self._get_key_positions(word)
+        k = len(positions)
+        if k == 0:
+            return np.array([], dtype=int)
+        if k == 1:
+            return np.array([0], dtype=int)
+
+        key_positions = np.array(positions)
+        seg_len = np.linalg.norm(np.diff(key_positions, axis=0), axis=1)
+        cum_len = np.concatenate([[0], np.cumsum(seg_len)])
+        total = cum_len[-1]
+        if total < 1e-6:
+            return np.array([0], dtype=int)
+        idx = np.round(cum_len * (num_points - 1) / total).astype(int)
+        return np.clip(idx, 0, num_points - 1)
+
+    def get_minimum_jerk_trajectory(
+        self,
+        word: str,
+        num_points: int = 128,
+        include_midpoints: bool = True,
+        offset_std: float = 0.0,
+        rng: Optional[np.random.Generator] = None,
+    ) -> np.ndarray:
+        """Quinn & Zhai (2018) minimum-jerk trajectory for a word, with
+        optional key-offset and midpoint noise (the contrastive data's
+        augmentation)."""
+        positions = self._get_key_positions(word)
+        if len(positions) < 2:
+            if len(positions) == 1:
+                return _constant_point_prototype(*positions[0], num_points)
+            return np.zeros((num_points, 3), dtype=np.float32)
+        return generate_minimum_jerk_trajectory(
+            np.array(positions),
+            num_points=num_points,
+            include_midpoints=include_midpoints,
+            offset_std=offset_std,
+            rng=rng,
+        )
+
 
 # ---------------------------------------------------------------------------
 # Minimum-jerk trajectory generation (Quinn & Zhai 2018)

@@ -1,5 +1,5 @@
-"""The GAN losses, fixed-length and masked (the port of the JAX package's
-``losses.py``; the contrastive loss is not ported yet). Every loss returns a
+"""The GAN losses, fixed-length and masked, and the supervised contrastive
+loss (the port of the JAX package's ``losses.py``). Every loss returns a
 float32 scalar tensor."""
 
 from __future__ import annotations
@@ -163,3 +163,28 @@ def diversity_hinge_loss(fake_a: torch.Tensor, fake_b: torch.Tensor,
     mean-L1 distance is below ``margin``; scale-free in the margin."""
     d = (fake_a - fake_b).abs().mean(dim=(1, 2))
     return (torch.relu(margin - d) / margin).mean()
+
+
+# -- supervised contrastive ----------------------------------------------------------------
+
+
+def supervised_contrastive_loss(embeddings: torch.Tensor, labels: torch.Tensor,
+                                temperature: float = 0.07) -> torch.Tensor:
+    """SupCon (Khosla et al. 2020) over L2-normalized embeddings.
+
+    Same-label pairs (minus self) are positives; the log-softmax denominator
+    excludes self; the row max subtracted for stability carries no gradient;
+    rows without positives contribute 0 through the clamp-to-1 divisor."""
+    B = embeddings.shape[0]
+    sim = embeddings @ embeddings.T / temperature
+    same = (labels[:, None] == labels[None, :]).to(sim.dtype)
+    eye = torch.eye(B, dtype=sim.dtype, device=sim.device)
+    pos_mask = same - eye
+
+    logits = sim - sim.max(dim=1, keepdim=True).values.detach()
+    exp_logits = torch.exp(logits) * (1.0 - eye)
+    log_prob = logits - torch.log(exp_logits.sum(dim=1, keepdim=True) + 1e-8)
+
+    pos_count = torch.clamp(pos_mask.sum(dim=1), min=1.0)
+    mean_log_prob = (pos_mask * log_prob).sum(dim=1) / pos_count
+    return -mean_log_prob.mean()

@@ -1,6 +1,7 @@
 """Building blocks of the models: dense, LeakyReLU, the compute-dtype cast
-view, spectral normalization over an explicit u state, conv1d, LSTM cells
-and the plain stacked BiLSTM (the port of the JAX package's
+view, spectral normalization over an explicit u state, conv1d, batch
+normalization over explicit running statistics, LSTM cells and the plain
+stacked BiLSTM (the port of the JAX package's
 ``models/layers.py``).
 
 Weights keep the JAX package's layout — ``dense`` weights are (in, out) and
@@ -103,11 +104,13 @@ def conv1d_init(in_ch: int, out_ch: int, kernel: int,
             "b": _uniform((out_ch,), bound, generator)}
 
 
-def conv1d(params: Dict[str, torch.Tensor], x: torch.Tensor, padding: int = 0) -> torch.Tensor:
+def conv1d(params: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
+           padding: int = 0) -> torch.Tensor:
     """(B, L, C_in) → (B, L', C_out) with a WIO weight: the JAX layout at the
     interface, PyTorch's (B, C, L) and (out, in, k) inside."""
     w = params["w"].permute(2, 1, 0)
-    return F.conv1d(x.transpose(1, 2), w, params["b"], padding=padding).transpose(1, 2)
+    return F.conv1d(x.transpose(1, 2), w, params["b"], stride=stride,
+                    padding=padding).transpose(1, 2)
 
 
 def sn_conv1d_init(in_ch: int, out_ch: int, kernel: int,
@@ -115,6 +118,45 @@ def sn_conv1d_init(in_ch: int, out_ch: int, kernel: int,
     """Spectrally normalized conv1d: (params, u); power iteration views the
     kernel as a (kernel·in_ch, out_ch) matrix."""
     return conv1d_init(in_ch, out_ch, kernel, generator), spectral_init(out_ch, generator)
+
+
+# -- batch normalization ----------------------------------------------------------------
+#
+# Functional, with the running statistics as an explicit state the caller
+# threads through, as the JAX package does.
+
+
+def batchnorm_init(dim: int) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(params {"scale", "bias"}, state {"mean", "var"}) of a BatchNorm over
+    ``dim`` features."""
+    params = {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+    state = {"mean": torch.zeros(dim), "var": torch.ones(dim)}
+    return params, state
+
+
+def batchnorm(params: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor], x: torch.Tensor,
+              train: bool, momentum: float = 0.1,
+              eps: float = 1e-5) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Normalize over every axis but the last → (out, new state).
+
+    Train mode uses the batch's mean and biased variance and returns running
+    statistics advanced with PyTorch's convention, new = (1-m)·old + m·batch,
+    the variance term unbiased (n / (n-1)); the new statistics carry no
+    gradient. Eval mode uses the running statistics and returns ``state``."""
+    axes = tuple(range(x.ndim - 1))
+    if train:
+        mean = x.mean(dim=axes)
+        var = x.var(dim=axes, unbiased=False)
+        n = x.numel() // x.shape[-1]
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            new_state = {"mean": (1 - momentum) * state["mean"] + momentum * mean,
+                         "var": (1 - momentum) * state["var"] + momentum * unbiased}
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    out = (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return out, new_state
 
 
 def dense_init(in_dim: int, out_dim: int,

@@ -6,7 +6,13 @@ written to a hidden temporary file and renamed into place, and ``latest.pt``,
 a relative symlink to the newest one swapped in by an atomic rename: a kill
 at any point leaves the previous snapshot or the new one, never a partial
 file. It holds the state's trees on the CPU, the random generator's state and
-the epoch.
+the epoch. The contrastive trainer's state ({params, bn, opt, epoch, step,
+best_recall}) is saved the same way, as ``epoch_{N}.pt`` without moving
+``latest.pt`` and as a named snapshot ``<name>.pt`` (``save_named``); both
+kinds restore through ``restore_checkpoint``. Like the JAX package's, the
+contrastive trainer writes ``epoch_{N}`` under the names the GAN trainer
+uses, so in one shared directory it replaces a GAN snapshot of the same
+epoch.
 
 Generator weights for serving come from a port checkpoint (a train state, or
 ``torch.save`` of a ``Generator`` state dict) or from a path-keyed JAX
@@ -26,8 +32,7 @@ import torch
 from ..configs import ModelConfig
 from ..interop.from_jax import flatten_tree, generator_from_npz
 from ..models.gan import Generator
-from ..utils.tree import tree_leaves, tree_map
-from .state import MODELS
+from ..utils.tree import tree_map
 
 
 def _atomic_write(path: Path, write) -> None:
@@ -45,21 +50,24 @@ def _atomic_write(path: Path, write) -> None:
 
 
 def _snapshot(state: Dict) -> Dict:
-    """The state as CPU tensors and ints (what ``torch.save`` writes)."""
-    out = {m: tree_map(lambda t: t.detach().cpu() if torch.is_tensor(t) else t, state[m])
-           for m in MODELS}
-    out["rng"] = state["rng"].get_state()
-    out["epoch"] = int(state["epoch"])
-    return out
+    """The state as CPU tensors, numbers and random-generator states (what
+    ``torch.save`` writes)."""
+    return {k: v.get_state() if isinstance(v, torch.Generator)
+            else tree_map(lambda t: t.detach().cpu() if torch.is_tensor(t) else t, v)
+            for k, v in state.items()}
 
 
-def save_checkpoint(state: Dict, checkpoint_dir: str, epoch: int) -> None:
-    """Write ``epoch_{epoch+1}.pt`` and point ``latest.pt`` at it."""
+def save_checkpoint(state: Dict, checkpoint_dir: str, epoch: int,
+                    keep_latest: bool = True) -> None:
+    """Write ``epoch_{epoch+1}.pt`` and, with ``keep_latest``, point
+    ``latest.pt`` at it."""
     base = Path(checkpoint_dir).absolute()
     base.mkdir(parents=True, exist_ok=True)
     name = f"epoch_{epoch + 1}.pt"
     snapshot = _snapshot(state)
     _atomic_write(base / name, lambda tmp: torch.save(snapshot, tmp))
+    if not keep_latest:
+        return
     link = base / f".latest.lnk.{os.getpid()}"
     if link.is_symlink() or link.exists():
         link.unlink()
@@ -67,32 +75,51 @@ def save_checkpoint(state: Dict, checkpoint_dir: str, epoch: int) -> None:
     os.replace(link, base / "latest.pt")
 
 
+def save_named(state: Dict, checkpoint_dir: str, name: str) -> None:
+    """Write a standalone named snapshot ``<name>.pt`` (e.g.
+    ``contrastive_latest.pt``), atomically."""
+    base = Path(checkpoint_dir).absolute()
+    base.mkdir(parents=True, exist_ok=True)
+    snapshot = _snapshot(state)
+    _atomic_write(base / f"{name}.pt", lambda tmp: torch.save(snapshot, tmp))
+
+
+def _copy_into(dst, src, where: str, path: Path) -> None:
+    """Copy the saved tree ``src`` into the live tree ``dst`` in place:
+    tensors by ``copy_`` (shapes must match), generators by their state,
+    numbers by value."""
+    for key in (dst if isinstance(dst, dict) else range(len(dst))):
+        d, s = dst[key], src[key]
+        here = f"{where}/{key}" if where else str(key)
+        if isinstance(d, (dict, list)):
+            _copy_into(d, s, here, path)
+        elif torch.is_tensor(d):
+            if d.shape != s.shape:
+                raise ValueError(f"checkpoint {path}: {here} holds {tuple(s.shape)} where the "
+                                 f"model has {tuple(d.shape)}; the run's configuration does "
+                                 f"not match the one that wrote it")
+            d.copy_(s)
+        elif isinstance(d, torch.Generator):
+            d.set_state(s)
+        else:
+            dst[key] = type(d)(s)
+
+
 @torch.no_grad()
 def restore_checkpoint(state: Dict, checkpoint_dir: str, name: str = "latest.pt") -> Optional[Dict]:
-    """Copy a checkpoint into ``state`` (a fresh state of the same
+    """Copy a checkpoint into ``state`` (a fresh state of the same kind and
     configuration) and return it, or None when there is none. A missing or
-    dangling ``latest.pt`` falls back to the newest ``epoch_N.pt``."""
+    dangling snapshot ``name`` falls back to the newest ``epoch_N.pt``; a
+    snapshot of another kind of state raises."""
     path = find_checkpoint(checkpoint_dir, name)
     if path is None:
         return None
     saved = torch.load(path, map_location="cpu", weights_only=True)
-    for m in MODELS:
-        for part in state[m]:
-            if part == "opt":
-                saved_opt = saved[m]["opt"]
-                pairs = zip(tree_leaves({k: state[m]["opt"][k] for k in ("mu", "nu")}),
-                            tree_leaves({k: saved_opt[k] for k in ("mu", "nu")}))
-                state[m]["opt"]["count"] = int(saved_opt["count"])
-            else:
-                pairs = zip(tree_leaves(state[m][part]), tree_leaves(saved[m][part]))
-            for dst, src in pairs:
-                if dst.shape != src.shape:
-                    raise ValueError(f"checkpoint {path}: {m}/{part} holds {tuple(src.shape)} "
-                                     f"where the model has {tuple(dst.shape)}; the run's "
-                                     f"configuration does not match the one that wrote it")
-                dst.copy_(src)
-    state["rng"].set_state(saved["rng"])
-    state["epoch"] = int(saved["epoch"])
+    try:
+        _copy_into(state, saved, "", path)
+    except (KeyError, IndexError, TypeError) as e:
+        raise ValueError(f"checkpoint {path} does not match this kind of state (no {e}); it "
+                         f"was written by another trainer or configuration") from e
     return state
 
 
