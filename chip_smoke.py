@@ -8,8 +8,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from ``wordgesture_gan_tpu_torch/csrc``
    (one nvcc per source, started together) and print ptxas' register report
-   and the tensor-core and float32-inference kernels' shared memory and CTAs
-   per SM;
+   and the tensor-core and float32 kernels' (inference and training) shared
+   memory and CTAs per SM;
 3. hold each kernel against its plain PyTorch version on the card at the
    flagship generator's full width (4 layers, H=48, L=128, Z=32) for
    B in {1, 7, 8, 9, 131, 512, 2048} (around the 8- and 4-sample tiles),
@@ -29,11 +29,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    dW_hh, db, dz, dx), each as max |err| / max |want|, 1e-4 / 2e-2; kernel
    3 and its plain version read kernel 2's residuals; kernel 2's output
    agrees with kernel 1's within kernel 1's tolerance (the two sum in
-   different orders); the bfloat16 calls must have taken the tensor-core
-   kernels and the float32 calls the CUDA-core ones (launches counted per
-   path); two launches of kernel 3 on the same inputs give bit-equal
-   gradients; the small PyTorch launches each wrapper adds around its
-   kernels are counted under torch.profiler and printed;
+   different orders; in float32 the two run one recurrence and must be
+   bit-equal); the bfloat16 calls must have taken the tensor-core kernels
+   and the float32 calls the float32 cluster kernels (launches counted per
+   path), and a stack at H=8 holds the general training pair against its
+   plain version in both dtypes; two launches of kernel 3 on the same inputs
+   give bit-equal gradients; the small PyTorch launches each wrapper adds
+   around its kernels are counted under torch.profiler and printed;
 4. serve gestures through the entry point a user calls,
    ``wordgesture_gan_tpu_torch.generate.main``: seeded random full-width
    weights written as a JAX-layout npz, 8192 gestures over a word list at
@@ -55,11 +57,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    with every launch count set to 0 just before: 5 kernel-1, 3 kernel-2 and
    3 kernel-3 launches per step, all on the tensor-core paths; losses
    finite; one steady step profiled;
+5b. the same in float32 (``compute_dtype="float32"``, as ``train_cli
+   --precision float32``): 5/3/3 launches per step, all on the float32
+   paths; ms per step and one steady step profiled;
 6. one step on the card against the CPU's plain path from the same state,
    batch and injected noise (B=32, full width, float32, n_critic 5), for
    the reference recipe and the flagship one: losses, the gradients (Adam
    moments after a step at lr=0) and the parameters after a step at
-   lr=2e-4, with the tolerances stated at STEP_RECIPES;
+   lr=2e-4, with the tolerances stated at STEP_RECIPES; kernels 2 and 3 of
+   the card's steps counted on their float32 path (4-sample tiles);
 7. evaluate through the entry points a user calls: the synthetic corpus
    (480 users: 8744 gestures to train on, 2170 to test on), a smoke
    generator trained for 2 epochs through ``train_cli.main`` (flagship
@@ -105,8 +111,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    tolerances stated at CONTRASTIVE_TOL;
 8. time kernel 1 (at B=512 and at the train step's 2B=1024; in float32 also
    with the sample tile the dispatch rule does not pick at that batch),
-   kernels 2 and 3 (with one profiled call of the pair at one
-   layer and at full depth), their plain versions and cuDNN
+   kernels 2 and 3 (in float32 also the general kernels on the same inputs;
+   a few profiled calls of the pair per dtype at one layer and at full
+   depth, and of the general float32 pair at full depth, which split
+   kernel 3 into its passes), their plain versions and cuDNN
    ``torch.nn.LSTM`` on the same weights (a yardstick the port never calls;
    the training yardstick is its float32 forward and backward) at B=512 in
    bfloat16 and float32 with CUDA events, beside each kernel's bound; time
@@ -156,12 +164,13 @@ from wordgesture_gan_tpu_torch.models.contrastive import (contrastive_encoder_ap
 from wordgesture_gan_tpu_torch.models.gan import generator_init
 from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance, sinkhorn_matching_cost
 from wordgesture_gan_tpu_torch.ops import build as kernel_build
-from wordgesture_gan_tpu_torch.ops import bilstm_fused
+from wordgesture_gan_tpu_torch.ops import bilstm_fused, bilstm_train
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         fused_kernel_info, sample_tile)
 from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_bwd, bilstm_train_bwd_plain,
                                                         bilstm_train_fwd, bilstm_train_fwd_plain,
-                                                        kernel_path, mma_kernel_info)
+                                                        fp32_kernel_info, kernel_path,
+                                                        mma_kernel_info)
 from wordgesture_gan_tpu_torch.ops.dtw import dtw_matrix, dtw_pairs, dtw_pairs_plain
 from wordgesture_gan_tpu_torch.ops.resample import batched_arclength_resample
 from wordgesture_gan_tpu_torch.ops.stats import pairwise_l2
@@ -564,10 +573,12 @@ def check_train_kernels(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LA
                         batches=TRAIN_CHECK_BATCHES) -> list:
     """Phase 3, kernels 2 and 3: each against its plain version on the same
     inputs (kernel 3 and its plain version both read kernel 2's residuals),
-    kernel 2's output against kernel 1's (the two sum in different orders in
-    either dtype: a tolerance, not bit equality), the kernel path every call took
-    (tensor cores in bfloat16 at this width, CUDA cores in float32), and
-    kernel 3 launched twice on the same inputs (bit-equal gradients)."""
+    kernel 2's output against kernel 1's (float32 at H in {16, 32, 48}: one
+    recurrence, bit-equal; otherwise the two sum in different orders: kernel
+    1's tolerance), the kernel path every call took (at full width the
+    tensor cores in bfloat16, the float32 cluster kernels in float32; the
+    general kernels at other widths), and kernel 3 launched twice on the same
+    inputs (bit-equal gradients)."""
     stack = stack_on(random_generator_tree(hidden, layers, latent, seed=4), device)
     results = []
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -586,7 +597,8 @@ def check_train_kernels(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LA
                 torch.cuda.synchronize()
                 took = [{k: f.launches_by_path[k] - b[k] for k in b}
                         for f, b in zip((bilstm_train_fwd, bilstm_train_bwd), before)]
-                want_took = [{"mma": 0, "general": 0, path: 1}, {"mma": 0, "general": 0, path: 2}]
+                want_took = [{"mma": 0, "fp32": 0, "general": 0, path: 1},
+                             {"mma": 0, "fp32": 0, "general": 0, path: 2}]
                 if took != want_took:
                     raise AssertionError(f"{dtype_name} B={batch}: launches by path {took}, "
                                          f"expected {want_took}")
@@ -621,6 +633,8 @@ def check_train_kernels(device, hidden=HIDDEN, seq=SEQ, layers=LAYERS, latent=LA
                                      f"{dtype_name} B={batch} {worst[0]} {worst[1][0]} > {tol}")
             if not vs_kernel1 <= TOLERANCE[dtype_name]:
                 raise AssertionError(f"kernel 2's output differs from kernel 1's by {vs_kernel1}")
+            if path == "fp32" and device.type == "cuda" and vs_kernel1 != 0.0:
+                raise AssertionError(f"float32 kernel 2 is not bit-equal to kernel 1: {vs_kernel1}")
             if not deterministic:
                 raise AssertionError(f"kernel 3 is not deterministic: {dtype_name} B={batch}")
     return results
@@ -666,7 +680,10 @@ def count_small_launches(device, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ, layer
 def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ,
                     layers=LAYERS, latent=LATENT) -> dict:
     """Phase 8, kernels 2 and 3: each kernel, its plain version, and cuDNN's
-    float32 LSTM forward (training mode) and backward on the same weights."""
+    float32 LSTM forward (training mode) and backward on the same weights.
+    On the float32 path also the general CUDA-core kernels on the same
+    inputs (the internal launchers; no user switch reaches them at this
+    width), timed between two timings of the float32 kernels."""
     dtype = getattr(torch, dtype_name)
     tree = random_generator_tree(hidden, layers, latent, seed=2)
     stack = stack_on(tree, device)
@@ -676,6 +693,16 @@ def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, se
     fwd_ms = time_ms(lambda: bilstm_train_fwd(stack, x, z, hidden, dtype), iters=10)
     _, res = bilstm_train_fwd(stack, x, z, hidden, dtype)
     bwd_ms = time_ms(lambda: bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype), iters=10)
+    path = kernel_path(dtype, hidden, seq, layers)
+    general = {}
+    if path == "fp32":
+        fwd_g, bwd_g = bilstm_train._LAUNCHERS["general"]
+        general = {
+            "general_fwd_ms": time_ms(lambda: fwd_g(stack, x, z, hidden, dtype), iters=10),
+            "general_bwd_ms": time_ms(lambda: bwd_g(stack, x, z, res, dy, hidden, dtype), iters=10),
+            "fwd_ms_again": time_ms(lambda: bilstm_train_fwd(stack, x, z, hidden, dtype), iters=10),
+            "bwd_ms_again": time_ms(lambda: bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype),
+                                    iters=10)}
     plain_fwd_ms = time_ms(lambda: bilstm_train_fwd_plain(stack, x, z, hidden, dtype),
                            iters=2, warmup=1)
     plain_bwd_ms = time_ms(lambda: bilstm_train_bwd_plain(stack, x, z, res, dy, hidden, dtype),
@@ -689,8 +716,9 @@ def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, se
     library_bwd_ms = time_ms(lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True),
                              iters=10)
     bounds = train_bounds_ms(batch, seq, hidden, layers, latent, dtype_name)
-    row = {"dtype": dtype_name, "batch": batch, "path": kernel_path(dtype, hidden, seq, layers),
-           "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": plain_fwd_ms,
+    row = {"dtype": dtype_name, "batch": batch, "path": path,
+           "sample_tile": sample_tile(dtype, batch) if path != "general" else None,
+           "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, **general, "plain_fwd_ms": plain_fwd_ms,
            "plain_bwd_ms": plain_bwd_ms, "cudnn_fp32_fwd_ms": library_fwd_ms,
            "cudnn_fp32_bwd_ms": library_bwd_ms,
            "fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],
@@ -699,33 +727,38 @@ def time_train_pair(device, dtype_name: str, batch=TIME_BATCH, hidden=HIDDEN, se
     return row
 
 
-def profile_train_pair(device, batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ, latent=LATENT,
-                       depths=(1, LAYERS), calls=3) -> list:
-    """Phase 8: a few bfloat16 calls of kernel 2 and kernel 3 under
-    torch.profiler, at one layer and at the full depth: the device time per
-    launch of each pass (forward, sweep, weight-gradient product, the
-    fixed-order sum) and what a layer adds to the chain. The profiler may
-    drop the first events of a profile, so each pass is reported per event seen."""
+def profile_train_pair(device, dtype_name="bfloat16", batch=TIME_BATCH, hidden=HIDDEN, seq=SEQ,
+                       latent=LATENT, depths=(1, LAYERS), calls=3, path=None) -> list:
+    """Phase 8: a few calls of kernel 2 and kernel 3 under torch.profiler, at
+    one layer and at the full depth: the device time per launch of each pass
+    (forward, sweep, weight-gradient product, the fixed-order sum) and what a
+    layer adds to the chain. ``path`` runs that path's internal launchers
+    instead of the dispatch (the general kernels at full width, to split
+    their time the same way). The profiler may drop the first events of a
+    profile, so each pass is reported per event seen."""
+    dtype = getattr(torch, dtype_name)
+    fwd, bwd = bilstm_train._LAUNCHERS[path] if path else (bilstm_train_fwd, bilstm_train_bwd)
     lines = []
     for layers in depths:
         stack = stack_on(random_generator_tree(hidden, layers, latent, seed=2), device)
         x, z = random_inputs(batch, seq, latent, seed=3, device=device)
         dy = torch.from_numpy(np.random.default_rng(5).normal(
             size=(batch, seq, 2 * hidden)).astype(np.float32)).to(device)
-        _, res = bilstm_train_fwd(stack, x, z, hidden, torch.bfloat16)
-        bilstm_train_bwd(stack, x, z, res, dy, hidden, torch.bfloat16)              # warm
+        _, res = fwd(stack, x, z, hidden, dtype)
+        bwd(stack, x, z, res, dy, hidden, dtype)                                       # warm
 
         def pairs():
             for _ in range(calls):
-                bilstm_train_fwd(stack, x, z, hidden, torch.bfloat16)
-                bilstm_train_bwd(stack, x, z, res, dy, hidden, torch.bfloat16)
+                fwd(stack, x, z, hidden, dtype)
+                bwd(stack, x, z, res, dy, hidden, dtype)
 
-        line = device_profile(pairs, "bilstm_train pair", batch=batch, dtype="bfloat16",
-                              layers=layers, calls=calls)
+        taken = path or kernel_path(dtype, hidden, seq, layers)
+        line = device_profile(pairs, "bilstm_train pair", batch=batch, dtype=dtype_name,
+                              path=taken, layers=layers, calls=calls)
         own = {r["name"].split("::")[-1].split("(")[0]: r["device_ms"] / r["count"]
                for r in line["top"] if any(k in r["name"] for k in OWN_KERNELS)}
-        print(json.dumps({"timing": "bilstm_train passes", "batch": batch, "dtype": "bfloat16",
-                          "layers": layers, "ms_per_launch": own}), flush=True)
+        print(json.dumps({"timing": "bilstm_train passes", "batch": batch, "dtype": dtype_name,
+                          "path": taken, "layers": layers, "ms_per_launch": own}), flush=True)
         lines.append(line)
     return lines
 
@@ -893,9 +926,11 @@ def smoke_dataset(n: int, seq: int = SEQ, seed: int = 0) -> GestureArrays:
 
 
 def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int = 512) -> dict:
-    """Phase 5: 2 epochs through ``train_gan``, then a resumed third epoch
-    whose kernel launches are counted from 0. ``model`` overrides fields of
-    the flagship configuration (a rehearsal on the CPU at a tiny size)."""
+    """Phases 5 and 5b: 2 epochs through ``train_gan``, then a resumed third
+    epoch whose kernel launches are counted from 0, every one on the path its
+    dispatch rule names for the recipe's dtype and width. ``model``
+    overrides fields of the flagship configuration: ``compute_dtype`` for
+    phase 5b (float32), the widths for a rehearsal on the CPU at a tiny size."""
     mcfg = ModelConfig(**{"time_head": "monotone", "compute_dtype": "bfloat16", **(model or {})})
     recipe = dict(FLAGSHIP_TRAIN, batch_size=batch_size)
     tcfg = TrainingConfig(**recipe, save_every=1)
@@ -920,7 +955,8 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
     if device.type == "cuda" and launches != expected:
         raise AssertionError(f"launches in the resumed epoch {launches}, expected {expected}")
     # Every launch of the recipe's width and dtype took the path its dispatch
-    # rule names (the tensor-core ones at full width).
+    # rule names (at full width the tensor-core ones in bfloat16, the float32
+    # cluster ones in float32).
     shape = (getattr(torch, mcfg.compute_dtype), mcfg.gen_hidden_dim, mcfg.seq_length, 1)
     path = kernel_path(*shape)
     paths = {name: bilstm_fused.kernel_path(*shape) if name == "bilstm_fused" else path
@@ -932,7 +968,7 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
                                  f"{paths[name]}")
     seconds = first.epoch_seconds + third.epoch_seconds
     line = {"training": "train_gan", "n": n, "batch": tcfg.batch_size, "steps_per_epoch": steps,
-            "dtype": "bfloat16", "epoch_seconds": seconds,
+            "dtype": mcfg.compute_dtype, "epoch_seconds": seconds,
             "gestures_per_s": [first.gestures_per_epoch / t for t in seconds],
             "ms_per_step": [t / steps * 1e3 for t in seconds],
             "launches_resumed_epoch": launches, "kernel_path": paths,
@@ -945,7 +981,7 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
         gan_train_step(third.state, batch, 1e-5, mcfg, tcfg_m)             # warm
         line["profile"] = device_profile(
             lambda: gan_train_step(third.state, batch, 1e-5, mcfg, tcfg_m), "gan_train_step",
-            batch=batch_size, dtype="bfloat16")
+            batch=batch_size, dtype=mcfg.compute_dtype)
     line["launches"] = launches
     return line
 
@@ -975,9 +1011,21 @@ def step_vs_cpu_recipe(device, recipe: str, batch=STEP_BATCH, model: dict = None
     ds = smoke_dataset(batch, mcfg.seq_length, seed=3)
     data = {"gesture": torch.from_numpy(ds.gestures), "prototype": torch.from_numpy(ds.prototypes)}
     noise = _step_noise(batch, mcfg.latent_dim, tcfg.n_critic, seed=6)
+    counters = (bilstm_train_fwd, bilstm_train_bwd)
+    before = [dict(c.launches_by_path) for c in counters]
     worst = compare_step(device, gan_train_step, mcfg, tcfg, data, noise, grad_tol)
+    # The card's steps (one at each lr) ran kernels 2 and 3 (once per
+    # differentiated generator application: 2 a step without the diversity
+    # terms, 3 with them), every launch on the path the dispatch names for
+    # this dtype and width (float32 at full width: "fp32").
+    took = [{k: c.launches_by_path[k] - b[k] for k in b} for c, b in zip(counters, before)]
+    path = kernel_path(getattr(torch, mcfg.compute_dtype), mcfg.gen_hidden_dim, mcfg.seq_length, 1)
+    want = [only_path(c, path, max(1, sum(t.values()))) for c, t in zip(counters, took)]
+    if device.type == "cuda" and took != want:
+        raise AssertionError(f"step launches by path {took}, expected all on {path}")
     line = {"check": "gan_train_step on the card vs CPU plain path", "recipe": recipe,
-            "batch": batch, "dtype": "float32", **worst,
+            "batch": batch, "dtype": mcfg.compute_dtype, "sample_tile": sample_tile(
+                getattr(torch, mcfg.compute_dtype), batch), "train_launches_by_path": took, **worst,
             "tolerances": {"loss": STEP_LOSS_TOL, "grad": grad_tol,
                            "param_in_lr_per_adam_step": 2}}
     print(json.dumps(line), flush=True)
@@ -1646,10 +1694,13 @@ def main() -> int:
                       **mma_kernel_info(HIDDEN)}), flush=True)
     print(json.dumps({"occupancy": "bilstm_fused tensor-core and float32 kernels",
                       "hidden": HIDDEN, **fused_kernel_info(HIDDEN)}), flush=True)
+    print(json.dumps({"occupancy": "bilstm_train float32 kernels", "hidden": HIDDEN,
+                      **fp32_kernel_info(HIDDEN)}), flush=True)
 
     checks = check_kernel(device)
     checks += check_kernel(device, **GENERAL_SHAPE)
     train_checks = check_train_kernels(device)
+    check_train_kernels(device, **GENERAL_SHAPE)    # the general training pair, H=8
     count_small_launches(device)
     dtw_checks = check_dtw(device)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1666,6 +1717,8 @@ def main() -> int:
             serve_family(device, Path(tmp), family)
     with tempfile.TemporaryDirectory() as tmp:
         trained = train(device, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        trained_fp32 = train(device, Path(tmp), model={"compute_dtype": "float32"})
     step_vs_cpu(device)
     with tempfile.TemporaryDirectory() as tmp:
         evaluated = evaluate(device, Path(tmp))
@@ -1688,19 +1741,22 @@ def main() -> int:
         time_kernel(device, name, batch=TRAIN_CALL_BATCH)
     pair = {name: time_train_pair(device, name) for name in ("bfloat16", "float32")}
     profile_train_pair(device)
+    profile_train_pair(device, "float32")
+    profile_train_pair(device, "float32", depths=(LAYERS,), path="general")
     dtw_t = time_dtw(device)
     time_dtw(device, dims=3)    # (x, y, t) gestures: not on the evaluation's path, timed beside it
 
-    main_t, main_p = timings["bfloat16"], pair["bfloat16"]
-    launches = trained["launches"]
+    main_t, main_p, fp32_p = timings["bfloat16"], pair["bfloat16"], pair["float32"]
+    launches, launches_fp32 = trained["launches"], trained_fp32["launches"]
     kernels = [{
         "name": "bilstm_fused", "route": "cuda", "path": main_t["path"],
         "launches_by_path": {k: served["launches_by_path"][k] + trained["launches_by_path"][
-            "bilstm_fused"][k] + evaluated["bilstm_fused_launches_by_path"][k]
+            "bilstm_fused"][k] + trained_fp32["launches_by_path"]["bilstm_fused"][k]
+            + evaluated["bilstm_fused_launches_by_path"][k]
             + large["bilstm_fused_launches_by_path"][k] for k in served["launches_by_path"]},
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_fused.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_fused.py:54",
-        "launches": served["launches"] + launches["bilstm_fused"]
+        "launches": served["launches"] + launches["bilstm_fused"] + launches_fp32["bilstm_fused"]
         + evaluated["launches"]["bilstm_fused"] + large["launches"]["bilstm_fused"],
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
@@ -1723,6 +1779,27 @@ def main() -> int:
         "ms": main_p["bwd_ms"], "plain_ms": main_p["plain_bwd_ms"],
         "bound_ms": main_p["bwd_bound_ms"], "bound_by": main_p["bwd_bound_by"],
         "library_ms": main_p["cudnn_fp32_bwd_ms"],
+    }, {
+        # The float32 path (train_gan with compute_dtype float32, phase 5b).
+        "name": "bilstm_train_fwd_fp32", "route": "cuda", "path": fp32_p["path"],
+        "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
+        "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:57",
+        "launches": launches_fp32["bilstm_train_fwd"],
+        "max_abs_err": max(c["fwd_max_abs_err"] for c in train_checks
+                           if c["dtype"] == "float32"),
+        "ms": fp32_p["fwd_ms"], "plain_ms": fp32_p["plain_fwd_ms"],
+        "bound_ms": fp32_p["fwd_bound_ms"], "bound_by": fp32_p["fwd_bound_by"],
+        "library_ms": fp32_p["cudnn_fp32_fwd_ms"], "general_ms": fp32_p["general_fwd_ms"],
+    }, {
+        "name": "bilstm_train_bwd_fp32", "route": "cuda", "path": fp32_p["path"],
+        "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
+        "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:206",
+        "launches": launches_fp32["bilstm_train_bwd"],
+        "max_abs_err": max(c["bwd_max_abs_err"] for c in train_checks
+                           if c["dtype"] == "float32"),
+        "ms": fp32_p["bwd_ms"], "plain_ms": fp32_p["plain_bwd_ms"],
+        "bound_ms": fp32_p["bwd_bound_ms"], "bound_by": fp32_p["bwd_bound_by"],
+        "library_ms": fp32_p["cudnn_fp32_bwd_ms"], "general_ms": fp32_p["general_bwd_ms"],
     }, {
         # No single PyTorch call computes DTW: the bound is the yardstick.
         "name": "dtw", "route": "cuda",

@@ -11,9 +11,11 @@ transcendentals); bfloat16 2e-2 (h and the residuals rounded to bf16, so a
 one-ulp flip propagates). Kernel 1's outputs are compared in absolute terms;
 kernels 2 and 3 relative to the largest magnitude of each compared tensor,
 because their gradients span orders of magnitude between leaves. Kernels 2
-and 3 have two paths (``ops/bilstm_train.py:kernel_path``): bfloat16 at H in
-{16, 32, 48} runs on the tensor cores in tiles of 8 samples, everything else
-on the CUDA cores; kernel 1 has three (``ops/bilstm_fused.py:kernel_path``):
+and 3 have three paths (``ops/bilstm_train.py:kernel_path``): at H in
+{16, 32, 48} bfloat16 runs on the tensor cores in tiles of 8 samples and
+float32 on kernel 1's float32 cluster design (tiles of 4 or 8 samples, the
+forward bit-equal to kernel 1's), everything else on the first CUDA-core
+kernels; kernel 1 has three (``ops/bilstm_fused.py:kernel_path``):
 the tensor-core kernel for bfloat16 and a float32 cluster kernel (tiles of 4
 or 8 samples) at those H, the general CUDA-core kernel elsewhere; all are
 covered below. Kernel 4
@@ -31,6 +33,7 @@ from wordgesture_gan_tpu_torch.models.layers import BiLSTM
 from wordgesture_gan_tpu_torch.ops import bilstm_fused
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         sample_tile)
+from wordgesture_gan_tpu_torch.ops import bilstm_train
 from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_apply, bilstm_train_bwd,
                                                         bilstm_train_bwd_plain, bilstm_train_fwd,
                                                         bilstm_train_fwd_plain, kernel_path)
@@ -169,20 +172,27 @@ def _rel_err(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def train_pair_errors(device, batch, seq, hidden, layers, latent, dtype, seed=0) -> dict:
+def train_pair_errors(device, batch, seq, hidden, layers, latent, dtype, seed=0,
+                      launchers=None) -> dict:
     """Kernel 2 and kernel 3 against their plain versions on the same inputs
     (kernel 3 and its plain version both read kernel 2's residuals): max |err|
     relative to max |want| for the output, each residual plane and each
-    gradient."""
+    gradient. ``launchers`` (a pair of ``bilstm_train._LAUNCHERS``) runs
+    a path directly instead of through the dispatch."""
     stack, x, z = _case(device, batch, seq, hidden, layers, latent, seed)
     dy = torch.randn((batch, seq, 2 * hidden), generator=torch.Generator().manual_seed(seed))
     dy = dy.to(device)
-    launches = (bilstm_train_fwd.launches, bilstm_train_bwd.launches)
-    y, res = bilstm_train_fwd(stack, x, z, hidden, dtype)
-    grads, dx, dz = bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)
-    torch.cuda.synchronize()
-    assert (bilstm_train_fwd.launches, bilstm_train_bwd.launches) == (launches[0] + 1,
-                                                                       launches[1] + 1)
+    if launchers is None:
+        launches = (bilstm_train_fwd.launches, bilstm_train_bwd.launches)
+        y, res = bilstm_train_fwd(stack, x, z, hidden, dtype)
+        grads, dx, dz = bilstm_train_bwd(stack, x, z, res, dy, hidden, dtype)
+        torch.cuda.synchronize()
+        assert (bilstm_train_fwd.launches, bilstm_train_bwd.launches) == (launches[0] + 1,
+                                                                           launches[1] + 1)
+    else:
+        y, res = launchers[0](stack, x, z, hidden, dtype)
+        grads, dx, dz = launchers[1](stack, x, z, res, dy, hidden, dtype)
+        torch.cuda.synchronize()
     y_p, res_p = bilstm_train_fwd_plain(stack, x, z, hidden, dtype)
     grads_p, dx_p, dz_p = bilstm_train_bwd_plain(stack, x, z, res, dy, hidden, dtype)
     assert y.dtype == dtype and y.shape == (batch, seq, 2 * hidden)
@@ -216,16 +226,26 @@ def test_train_pair_matches_plain_small_shapes(cuda_device, dtype, seq, hidden, 
 
 
 def test_train_forward_equals_inference_kernel(cuda_device):
-    """Kernel 2's output against kernel 1's: the same function, summed in
-    another order in either dtype (the float32 pair too since kernel 1 has
-    its own float32 kernel: four partial sums per gate added by shuffles), so
-    equal within kernel 1's tolerance. At H=8 both take their general kernels,
-    which sum in one order: bit-equal."""
-    stack, x, z = _case(cuda_device, 64, 128, 48, 4, 32, seed=5)
-    for dtype in (torch.float32, torch.bfloat16):
-        y, _ = bilstm_train_fwd(stack, x, z, 48, dtype)
-        torch.testing.assert_close(y.float(), fused_bilstm_fwd(stack, x, 48, z, dtype=dtype).float(),
-                                   atol=ATOL[dtype], rtol=0)
+    """Kernel 2's output against kernel 1's. In float32 at H=48 both run the
+    one float32 cluster recurrence of csrc/bilstm_step.cuh (``fp32_stack``)
+    at the same sample tile, the same sums in the same order: bit-equal, at
+    either tile. In bfloat16 the two sum in another order: equal within kernel
+    1's tolerance. At H=8 both take their general kernels, which sum in one
+    order: bit-equal."""
+    for batch in (64, 512):
+        stack, x, z = _case(cuda_device, batch, 128, 48, 4, 32, seed=5)
+        y, _ = bilstm_train_fwd(stack, x, z, 48, torch.float32)
+        torch.testing.assert_close(y, fused_bilstm_fwd(stack, x, 48, z, dtype=torch.float32),
+                                   atol=0, rtol=0)
+        other = 12 - sample_tile(torch.float32, batch)
+        y, _ = bilstm_train._launch_fwd_fp32(stack, x, z, 48, torch.float32, tile=other)
+        torch.testing.assert_close(
+            y, bilstm_fused._launch_packed(stack, x, 48, z, torch.float32, tile=other),
+            atol=0, rtol=0)
+    y, _ = bilstm_train_fwd(stack, x, z, 48, torch.bfloat16)
+    torch.testing.assert_close(y.float(),
+                               fused_bilstm_fwd(stack, x, 48, z, dtype=torch.bfloat16).float(),
+                               atol=ATOL[torch.bfloat16], rtol=0)
     stack, x, z = _case(cuda_device, 9, 16, 8, 2, 4, seed=6)
     y, _ = bilstm_train_fwd(stack, x, z, 8, torch.float32)
     torch.testing.assert_close(y, fused_bilstm_fwd(stack, x, 8, z, dtype=torch.float32),
@@ -235,10 +255,13 @@ def test_train_forward_equals_inference_kernel(cuda_device):
 @pytest.mark.parametrize("dtype,hidden,path", [(torch.bfloat16, 48, "mma"),
                                                (torch.bfloat16, 16, "mma"),
                                                (torch.bfloat16, 8, "general"),
-                                               (torch.float32, 48, "general")])
+                                               (torch.float32, 48, "fp32"),
+                                               (torch.float32, 16, "fp32"),
+                                               (torch.float32, 8, "general")])
 def test_train_pair_takes_the_path_its_dtype_and_shape_name(cuda_device, dtype, hidden, path):
-    """The full-width bfloat16 call runs the tensor-core kernels; the
-    counters per path show which kernels a call launched."""
+    """The full-width bfloat16 call runs the tensor-core kernels, the float32
+    one the float32 cluster kernels; the counters per path show which
+    kernels a call launched."""
     batch, seq, layers = (512, 128, 4) if hidden == 48 else (5, 6, 2)
     assert kernel_path(dtype, hidden, seq, layers) == path
     stack, x, z = _case(cuda_device, batch, seq, hidden, layers, 32)
@@ -249,7 +272,7 @@ def test_train_pair_takes_the_path_its_dtype_and_shape_name(cuda_device, dtype, 
     torch.cuda.synchronize()
     for counter, was in zip((bilstm_train_fwd, bilstm_train_bwd), before):
         took = {k: counter.launches_by_path[k] - was[k] for k in was}
-        assert took == {"mma": 0, "general": 0, path: 1}
+        assert took == {"mma": 0, "fp32": 0, "general": 0, path: 1}
 
 
 @pytest.mark.parametrize("batch", [9, 512])
@@ -268,6 +291,44 @@ def test_train_backward_is_bit_equal_across_launches(cuda_device, dtype, batch):
             for leaf in ("w_ih", "w_hh", "b_ih", "b_hh"):
                 assert torch.equal(first[0][k][d][leaf], second[0][k][d][leaf]), (k, d, leaf)
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+@pytest.mark.parametrize("batch", [1, 4, 5, 7, 8, 9, 131, 264, 265, 512, 2048])
+@pytest.mark.parametrize("hidden", [16, 32, 48])
+def test_float32_pair_matches_plain_at_every_width(cuda_device, hidden, batch):
+    """The float32 pair at each hidden size it is built for, full depth and
+    length, around its 4- and 8-sample tiles and the batch where the tile
+    changes (264 / 265): every output, residual plane and gradient within
+    1e-4 of the largest, and the calls counted on the ``"fp32"`` path."""
+    before = (bilstm_train_fwd.launches_by_path["fp32"], bilstm_train_bwd.launches_by_path["fp32"])
+    errors = train_pair_errors(cuda_device, batch, 128, hidden, 4, 32, torch.float32, seed=hidden)
+    assert (bilstm_train_fwd.launches_by_path["fp32"],
+            bilstm_train_bwd.launches_by_path["fp32"]) == (before[0] + 1, before[1] + 1)
+    worst = max(errors, key=errors.get)
+    assert errors[worst] <= ATOL[torch.float32], (worst, errors[worst])
+
+
+@pytest.mark.parametrize("batch", [5, 131, 512])
+def test_float32_pair_with_either_sample_tile(cuda_device, batch):
+    """The float32 pair launched with the tile the dispatch rule does not
+    pick at this batch holds to its plain version too."""
+    other = 12 - sample_tile(torch.float32, batch)
+    pair = (lambda *a: bilstm_train._launch_fwd_fp32(*a, tile=other),
+            lambda *a: bilstm_train._launch_bwd_fp32(*a, tile=other))
+    errors = train_pair_errors(cuda_device, batch, 128, 48, 4, 32, torch.float32, launchers=pair)
+    worst = max(errors, key=errors.get)
+    assert errors[worst] <= ATOL[torch.float32], (worst, errors[worst])
+
+
+@pytest.mark.parametrize("hidden,batch", [(8, 37), (48, 131)])
+def test_general_pair_still_matches_plain_in_float32(cuda_device, hidden, batch):
+    """The first CUDA-core kernels, which every other width takes (H=8), and
+    which stay the measured baseline at full width, in float32."""
+    assert kernel_path(torch.float32, 8, 128, 4) == "general"
+    errors = train_pair_errors(cuda_device, batch, 32, hidden, 3, 8, torch.float32,
+                               launchers=bilstm_train._LAUNCHERS["general"])
+    worst = max(errors, key=errors.get)
+    assert errors[worst] <= ATOL[torch.float32], (worst, errors[worst])
 
 
 def test_train_pair_refuses_too_wide_a_stack(cuda_device):

@@ -70,8 +70,8 @@ def test_paths_of_the_inference_and_training_kernels_share_their_hidden_sizes():
         assert (kernel_path(torch.bfloat16, hidden, 128, 4) == "mma") == on
         assert (bilstm_train.kernel_path(torch.bfloat16, hidden, 128, 4) == "mma") == on
         assert (kernel_path(torch.float32, hidden, 128, 4) == "fp32") == on
-        # The training pair has no float32 kernel of its own at these sizes.
-        assert bilstm_train.kernel_path(torch.float32, hidden, 128, 4) == "general"
+        # The training pair's float32 kernels take the same sizes.
+        assert (bilstm_train.kernel_path(torch.float32, hidden, 128, 4) == "fp32") == on
 
 
 @pytest.mark.parametrize("batch,tile", [(1, 4), (7, 4), (8, 4), (131, 4), (264, 4), (265, 8),
@@ -136,6 +136,7 @@ def test_layout_helpers_are_one_object_in_both_modules():
         assert getattr(bilstm_train, name) is getattr(bilstm_fused, name), name
     assert bilstm_train.SAMPLE_TILE == bilstm_fused.SAMPLE_TILE == 8
     assert bilstm_train.kernel_weights is bilstm_fused.kernel_weights
+    assert bilstm_train.sample_tile is bilstm_fused.sample_tile
 
 
 # -- the scratch between layers ------------------------------------------------------------------

@@ -425,4 +425,342 @@ __device__ __forceinline__ void produce_upper_layer(const bf16* wq, const float*
   }
 }
 
+// ===========================================================================
+// The float32 recurrence on the CUDA cores (two-CTA clusters, weights in
+// registers): its building blocks, and the body of the float32 inference
+// kernel (bilstm_fused.cu) and of the float32 training forward
+// (bilstm_train.cu), which adds the residual rows. The training backward's
+// float32 sweep (bilstm_train.cu) uses the same blocks.
+// ===========================================================================
+
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+constexpr int kXStages = 4;  // ring of the layer below's rows ahead of the producers
+
+// Floats between two residual rows staged by the float32 training forward:
+// 16 bytes past 6H, so the four samples a warp writes fall in different banks.
+template <int HT>
+__host__ __device__ constexpr int fp32_stage_row() { return 6 * 16 * HT + 4; }
+
+// Dynamic shared memory of `fp32_stack`: kResiduals adds the double-buffered
+// staging of the training forward's residual rows.
+template <int HT, int S, bool kResiduals>
+constexpr size_t fp32_stack_smem_bytes() {
+  constexpr int H = 16 * HT;
+  return (size_t)kGxStages * S * H * 16         // gx ring: [stage][sample][unit] float4
+         + (size_t)kXStages * S * 2 * H * 4     // x ring: [stage][sample][2H] float
+         + (size_t)2 * S * (H + 4) * 4          // h tiles
+         + (kResiduals ? (size_t)2 * S * fp32_stage_row<HT>() * 4 : 0)  // residual rows
+         + (size_t)2 * (kGxStages + kXStages) * 8;  // mbarriers
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The four k-quarters' partial sums of NG outputs (the four gates in the
+// forward; threads kq = 0..3 of a unit, four neighbouring lanes) added in two
+// shuffle rounds; each thread is left the full sums of S / 4 samples, the
+// first of them (S / 2) (kq & 1) + (S / 4) (kq >> 1).
+template <int S, int NG = 4>
+__device__ __forceinline__ void reduce_quarters(const float (&acc)[NG][S], int kq,
+                                                float (&red)[NG][S / 4]) {
+  const bool upper0 = kq & 1, upper1 = kq & 2;
+  float half[NG][S / 2];
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int j = 0; j < S / 2; ++j) {
+      const float keep = upper0 ? acc[g][j + S / 2] : acc[g][j];
+      const float send = upper0 ? acc[g][j] : acc[g][j + S / 2];
+      half[g][j] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+    }
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int j = 0; j < S / 4; ++j) {
+      const float keep = upper1 ? half[g][j + S / 4] : half[g][j];
+      const float send = upper1 ? half[g][j] : half[g][j + S / 4];
+      red[g][j] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+    }
+}
+
+// acc[g][s] += sum_i w[g][i] * x[s * stride + i], g < NG, i < K (K a
+// multiple of 4; x 16-byte aligned, in shared memory).
+template <int K, int S, int NG = 4>
+__device__ __forceinline__ void quarter_product(float (&acc)[NG][S], const float (&w)[NG][K],
+                                                const float* x, int stride) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int c = 0; c < K / 4; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(x + s * stride + 4 * c);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        acc[g][s] = fmaf(w[g][4 * c], v.x, acc[g][s]);
+        acc[g][s] = fmaf(w[g][4 * c + 1], v.y, acc[g][s]);
+        acc[g][s] = fmaf(w[g][4 * c + 2], v.z, acc[g][s]);
+        acc[g][s] = fmaf(w[g][4 * c + 3], v.w, acc[g][s]);
+      }
+    }
+}
+
+// Rows kq * K .. kq * K + K of a (rows, 4H) weight matrix, the four gate
+// columns of `unit`.
+template <int K>
+__device__ __forceinline__ void load_quarter(float (&w)[4][K], const float* m, int H, int unit,
+                                             int kq) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      w[g][i] = __ldg(m + (size_t)(kq * K + i) * 4 * H + (size_t)g * H + unit);
+}
+
+// One slot of the x ring: one bulk copy of the tile's rows at a position,
+// once the slot's consumers have released it (`it` counts positions across
+// layers, so the phase parity carries over the layer boundary).
+__device__ __forceinline__ void x_ring_fetch(float* ring, int slot_floats, const float* src,
+                                             uint32_t bytes, uint64_t* full, uint64_t* empty,
+                                             int it) {
+  const int slot = it % kXStages;
+  mbar_wait(empty + slot, ((it / kXStages) & 1) ^ 1);
+  mbar_arrive_expect_tx(full + slot, bytes);
+  bulk_load(ring + (size_t)slot * slot_floats, src, bytes, full + slot);
+}
+
+// The float32 recurrence of a cluster of two CTAs (both float32 kernels'
+// body: the inference forward, and the training forward with kResiduals):
+// S samples through all layers, CTA rank = direction. Threads 0 .. 4H-1 are
+// the chain, 4H .. 8H-1 the producers; thread (unit, kq) = (index / 4,
+// index % 4) within either.
+//   proto (B, L, 2) f32; z (B, Z) f32; wf: the packed weights in f32; out
+//   (B, L, 2H) f32; scratch (min(layers - 1, 2), tiles, L, S, 2H) f32, tiles =
+//   gridDim.x / 2; res (layers, 2, L, B, 6H) f32, written only with
+//   kResiduals: per step each chain thread stages its unit's [h | c | i | f |
+//   g | o] for its samples, and after the step's barrier lane s < nb of the
+//   first chain warp copies sample s's row out with one bulk store (rows
+//   staged 16 bytes apart to spread the banks; two buffers, the older store's
+//   read awaited before its buffer is written again).
+template <int HT, int S, bool kResiduals>
+__device__ __forceinline__ void fp32_stack(const float* __restrict__ proto,
+                                           const float* __restrict__ z,
+                                           const float* __restrict__ wf, float* out,
+                                           float* scratch, float* res, int B, int L, int Z,
+                                           int layers) {
+  constexpr int H = 16 * HT, G = 4 * H, KQ = H / 4, KX = H / 2, HS = H + 4, SQ = S / 4;
+  constexpr int R = kGxStages, RX = kXStages;
+  constexpr int kRole = 4 * H;  // threads of either role
+  constexpr uint32_t kXBytes = S * 2 * H * 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float4* gx = reinterpret_cast<float4*>(smem_raw);               // [R][S][H]
+  float* xs = reinterpret_cast<float*>(gx + R * S * H);           // [RX][S][2H]
+  float* hs = xs + RX * S * 2 * H;                                // [2][S][HS]
+  constexpr int SROW = fp32_stage_row<HT>();
+  float* stage = hs + 2 * S * HS;                                 // [2][S][SROW]
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(stage + (kResiduals ? 2 * S * SROW : 0));  // [R]
+  uint64_t* empty = full + R;                                     // [R]
+  uint64_t* xfull = empty + R;                                    // [RX]
+  uint64_t* xempty = xfull + RX;                                  // [RX]
+
+  const int tid = threadIdx.x;
+  const bool producer = tid >= kRole;
+  const int rt = producer ? tid - kRole : tid;
+  const int unit = rt >> 2, kq = rt & 3;
+  const int dir = blockIdx.x & 1;
+  const int tile = blockIdx.x >> 1;
+  const int b0 = tile * S;
+  const int s0 = (S / 2) * (kq & 1) + SQ * (kq >> 1);  // the thread's first sample
+  const size_t tile_rows = (size_t)L * S * 2 * H;
+  const size_t buffer = (size_t)(gridDim.x >> 1) * tile_rows;
+  const bool copier = kResiduals && tid < S && tid < B - b0;  // one lane a sample
+
+  if (tid == 0) {
+    for (int i = 0; i < R; ++i) {
+      mbar_init(full + i, kRole);
+      mbar_init(empty + i, kRole);
+    }
+    for (int i = 0; i < RX; ++i) {
+      mbar_init(xfull + i, 1);
+      mbar_init(xempty + i, kRole);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Hands the thread's gate sums of one position to the chain.
+  auto publish = [&](int it, const float (&v)[4][SQ]) {
+    const int slot = it % R;
+    mbar_wait(empty + slot, ((it / R) & 1) ^ 1);
+#pragma unroll
+    for (int j = 0; j < SQ; ++j)
+      gx[((size_t)slot * S + s0 + j) * H + unit] = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    mbar_arrive(full + slot);
+  };
+
+  for (int layer = 0; layer < layers; ++layer) {
+    const CellOffsets off = cell_offsets(layer, dir, H, Z);
+    const int it0 = layer * L;
+    // Layer k under the top writes buffer k & 1 and reads buffer (k - 1) & 1.
+    float* dst = scratch + (size_t)(layer & 1) * buffer + tile * tile_rows;
+    const float* src = scratch + (size_t)((layer + 1) & 1) * buffer + tile * tile_rows;
+    if (producer) {
+      // ---- the input projection of this layer, in the chain's order ----
+      float bias[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        bias[g] = __ldg(wf + off.b_ih + g * H + unit) + __ldg(wf + off.b_hh + g * H + unit);
+      if (layer == 0) {
+        // z . W_z + b once, then two multiply-adds per position.
+        float base[4][SQ], wp[2][4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          wp[0][g] = __ldg(wf + off.w_ih + g * H + unit);
+          wp[1][g] = __ldg(wf + off.w_ih + G + g * H + unit);
+#pragma unroll
+          for (int j = 0; j < SQ; ++j) base[g][j] = bias[g];
+        }
+        for (int k = 0; k < Z; ++k) {
+          float zv[SQ];
+#pragma unroll
+          for (int j = 0; j < SQ; ++j)
+            zv[j] = b0 + s0 + j < B ? __ldg(z + (size_t)(b0 + s0 + j) * Z + k) : 0.0f;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float wv = __ldg(wf + off.w_ih + (size_t)(2 + k) * G + g * H + unit);
+#pragma unroll
+            for (int j = 0; j < SQ; ++j) base[g][j] = fmaf(wv, zv[j], base[g][j]);
+          }
+        }
+        for (int t = 0; t < L; ++t) {
+          const int pos = dir ? L - 1 - t : t;
+          float v[4][SQ];
+#pragma unroll
+          for (int j = 0; j < SQ; ++j) {
+            float2 p = make_float2(0.0f, 0.0f);
+            if (b0 + s0 + j < B)
+              p = __ldg(reinterpret_cast<const float2*>(proto + ((size_t)(b0 + s0 + j) * L + pos) * 2));
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              v[g][j] = fmaf(wp[1][g], p.y, fmaf(wp[0][g], p.x, base[g][j]));
+          }
+          publish(it0 + t, v);
+        }
+      } else {
+        float w[4][KX];
+        load_quarter<KX>(w, wf + off.w_ih, H, unit, kq);
+        // One thread keeps the x ring full: one bulk copy per position of the
+        // tile's S rows of the layer below (contiguous in the scratch).
+        const bool fetcher = rt == 0;
+        const int itx0 = (layer - 1) * L;
+        auto fetch = [&](int t) {
+          x_ring_fetch(xs, S * 2 * H, src + (size_t)(dir ? L - 1 - t : t) * S * 2 * H, kXBytes,
+                       xfull, xempty, itx0 + t);
+        };
+        if (fetcher) {
+          fence_async_all();  // the layer below's rows were written with plain stores
+          for (int t = 0; t < RX - 1 && t < L; ++t) fetch(t);
+        }
+        for (int t = 0; t < L; ++t) {
+          if (fetcher && t + RX - 1 < L) fetch(t + RX - 1);
+          const int it = itx0 + t;
+          const int slot = it % RX;
+          mbar_wait(xfull + slot, (it / RX) & 1);
+          float acc[4][S];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int s = 0; s < S; ++s) acc[g][s] = 0.0f;
+          quarter_product<KX, S>(acc, w, xs + (size_t)slot * S * 2 * H + kq * KX, 2 * H);
+          mbar_arrive(xempty + slot);
+          float v[4][SQ];
+          reduce_quarters<S>(acc, kq, v);
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int j = 0; j < SQ; ++j) v[g][j] += bias[g];
+          publish(it0 + t, v);
+        }
+      }
+    } else {
+      // ---- the recurrence ----
+      const bool top = layer == layers - 1;
+      float w[4][KQ];
+      load_quarter<KQ>(w, wf + off.w_hh, H, unit, kq);
+      float c[SQ];
+#pragma unroll
+      for (int j = 0; j < SQ; ++j) c[j] = 0.0f;
+      for (int i = rt; i < S * HS; i += kRole) hs[i] = 0.0f;
+      named_barrier(1, kRole);
+      for (int t = 0; t < L; ++t) {
+        const int pos = dir ? L - 1 - t : t;
+        float acc[4][S];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int s = 0; s < S; ++s) acc[g][s] = 0.0f;
+        quarter_product<KQ, S>(acc, w, hs + (t & 1) * S * HS + kq * KQ, HS);
+        float v[4][SQ];
+        reduce_quarters<S>(acc, kq, v);
+        const int it = it0 + t;
+        const int slot = it % R;
+        mbar_wait(full + slot, (it / R) & 1);
+#pragma unroll
+        for (int j = 0; j < SQ; ++j) {
+          const float4 x = gx[((size_t)slot * S + s0 + j) * H + unit];
+          v[0][j] += x.x;
+          v[1][j] += x.y;
+          v[2][j] += x.z;
+          v[3][j] += x.w;
+        }
+        mbar_arrive(empty + slot);
+        float* hn = hs + ((t + 1) & 1) * S * HS;
+#pragma unroll
+        for (int j = 0; j < SQ; ++j) {
+          const float ig = sigmoid_f(v[0][j]);
+          const float fg = sigmoid_f(v[1][j]);
+          const float gg = tanhf(v[2][j]);
+          const float og = sigmoid_f(v[3][j]);
+          c[j] = fg * c[j] + ig * gg;
+          const float h = og * tanhf(c[j]);
+          const int s = s0 + j;
+          hn[s * HS + unit] = h;
+          if (!top)
+            dst[((size_t)pos * S + s) * 2 * H + dir * H + unit] = h;
+          else if (b0 + s < B)
+            out[((size_t)(b0 + s) * L + pos) * 2 * H + dir * H + unit] = h;
+          if (kResiduals) {
+            float* row = stage + ((t & 1) * S + s) * SROW + unit;
+            row[0] = h;
+            row[H] = c[j];
+            row[2 * H] = ig;
+            row[3 * H] = fg;
+            row[4 * H] = gg;
+            row[5 * H] = og;
+          }
+        }
+        if (kResiduals) {
+          fence_async_shared();
+          if (copier) bulk_wait_read();  // the rows staged two steps ago have left
+        }
+        named_barrier(1, kRole);
+        if (copier) {
+          // Sample tid's row; the tile's rows at one position are consecutive in res.
+          bulk_store(res + res_row(layer, dir, pos, b0 + tid, L, B, H),
+                     stage + ((t & 1) * S + tid) * SROW, 6 * H * 4);
+          bulk_commit();
+        }
+      }
+      if (copier) bulk_wait_all();  // this layer's residual rows are in global memory
+    }
+    // Both directions' rows are written before either CTA's next layer reads
+    // them (with bulk copies: the async proxy).
+    __threadfence();
+    fence_async_all();
+    cluster_sync();
+  }
+}
+
 }  // namespace wgg

@@ -24,7 +24,7 @@
 // gradients is the one part that is a real matrix product (a 65,536-row inner
 // dimension at B=512).
 //
-// Two paths, chosen by the wrapper from the dtype and the shape alone
+// Three paths, chosen by the wrapper from the dtype and the shape alone
 // (ops/bilstm_train.py:kernel_path):
 //
 // A. The tensor-core path: bf16, H in {16, 32, 48}. `*_mma_kernel` below and
@@ -62,7 +62,33 @@
 //     per-element gather. Partial sums (splits over positions, sample tiles)
 //     are added in a fixed order by a last kernel: deterministic.
 //
-// B. The general path: float32, and bf16 at any other H <= 256. CUDA cores,
+// B. The float32 path: float32, H in {16, 32, 48}. Full float32 products on
+//    the CUDA cores (no TF32), on the float32 inference kernel's design
+//    (bilstm_fused.cu, B.), which keeps a layer's weights on chip by giving
+//    each direction its own CTA of a two-CTA cluster:
+//   * the forward is that kernel's recurrence, one source for both
+//     (bilstm_step.cuh: fp32_stack), plus the residual rows: each chain
+//     thread stages its unit's [h | c | i | f | g | o] for its samples and
+//     one lane a sample copies the rows out with bulk stores; the output is
+//     bit-equal to kernel 1's;
+//   * the sweep (`train_bwd_sweep_fp32_kernel`) runs the same shape of chain
+//     in reverse: chain thread (unit, quarter) holds W_hh's row of its unit
+//     against one gate's columns, so dh = W_hh . dg is four partial sums
+//     added by the forward's two shuffle rounds, and nothing else is on the
+//     chain; side threads hold W_ih (2H x 4H per direction, 2H registers a
+//     thread) and take dx = W_ih . dg from the gate-gradient ring behind the
+//     chain, copy each step's gate gradients out in one bulk store, and keep
+//     the residual / dy ring full with bulk copies; the two CTAs write
+//     disjoint input-gradient streams and meet at a cluster barrier per
+//     layer;
+//   * the weight gradients are a separate product
+//     (`train_bwd_wgrad_fp32_kernel`): per (layer, direction, operand part,
+//     split) [h planes]^T . dg over 16-byte cp.async copies, kFwStages deep,
+//     4 x H/4 outputs a thread; the splits, and the sweep's per-tile bias,
+//     prototype and z rows, are added in a fixed order by the tensor-core
+//     path's last kernel: deterministic.
+//
+// C. The general path: any other H <= 256 in either dtype. CUDA cores,
 //    every product in full fp32 (first version of these kernels):
 //   * one CTA owns a tile of 4 samples through ALL layers, so the
 //     recurrence carries, the input gradients passed between layers and dz
@@ -131,8 +157,6 @@ __device__ __forceinline__ void load_gates(const __nv_bfloat16* p, float w[4]) {
   w[2] = b.x;
   w[3] = b.y;
 }
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // ---------------------------------------------------------------------------
 // Kernel 2: training forward.
@@ -1457,6 +1481,519 @@ int launch_bwd_mma(const void* res, const void* dyT, const void* proto, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ===========================================================================
+// The float32 path: float32 at H = 16 * HT (HT = 1, 2, 3), S = 4 or 8 samples
+// per cluster of two CTAs. See the note at the head of this file.
+// ===========================================================================
+
+// Kernel 2, float32 path: the shared float32 recurrence (bilstm_step.cuh:
+// fp32_stack) with its residual rows. Same sums in the same order as the
+// float32 inference kernel: the output is bit-equal to kernel 1's at the same
+// sample tile.
+//   proto (B, L, 2) f32; z (B, Z) f32; wf: the packed weights in f32;
+//   res (layers, 2, L, B, 6H) f32; out (B, L, 2H) f32; scratch as kernel 1's.
+template <int HT, int S>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 * HT, 1)
+    train_fwd_fp32_kernel(const float* __restrict__ proto, const float* __restrict__ z,
+                          const float* __restrict__ wf, float* res, float* out, float* scratch,
+                          int B, int L, int Z, int layers) {
+  fp32_stack<HT, S, true>(proto, z, wf, out, scratch, res, B, L, Z, layers);
+}
+
+constexpr int kFpInStages = 6;  // ring of residual / dy rows ahead of the float32 sweep
+constexpr int kFpDgStages = 3;  // ring of gate-gradient rows behind it
+
+// Row strides (floats) of the float32 sweep's staged rows, 16 bytes past
+// their width so the four samples a warp touches fall in different banks:
+// residual rows (6H: the forward's fp32_stage_row), dy / input-gradient rows
+// (H). Gate-gradient rows (also the layout of the `gates` rows in global
+// memory) hold each gate's H values in a block of H + 4, so the four gate
+// blocks the four quarters of a unit read at once fall in different banks,
+// and the row in 4 (H + 4) + 20 = 4H + 36 floats, again 16 bytes past a
+// multiple of 128.
+template <int HT>
+__host__ __device__ constexpr int fp32_dx_stride() { return 16 * HT + 4; }
+template <int HT>
+__host__ __device__ constexpr int fp32_gate_block() { return 16 * HT + 4; }
+template <int HT>
+__host__ __device__ constexpr int fp32_gate_stride() { return 4 * 16 * HT + 36; }
+
+template <int HT, int S>
+constexpr size_t sweep_fp32_smem_bytes() {
+  constexpr int H = 16 * HT;
+  return (size_t)kFpInStages * S * fp32_stage_row<HT>() * 4        // residual rows
+         + (size_t)kFpInStages * 2 * S * fp32_dx_stride<HT>() * 4   // dy rows (two streams)
+         + (size_t)kFpDgStages * S * fp32_gate_stride<HT>() * 4     // gate gradients
+         + (size_t)4 * H * S * 4                                     // per-sample sums
+         + (size_t)2 * (kFpInStages + kFpDgStages) * 8;              // mbarriers
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3, pass 1, float32 path: the reverse sweep. A cluster of two CTAs =
+// S samples through all layers, top down, CTA rank = direction. Threads
+// 0 .. 4H-1 are the chain, 4H .. 8H-1 the side; thread (unit, kq) = (index /
+// 4, index % 4) within either.
+//   * chain thread (unit, kq) holds W_hh[unit, kq H .. kq H + H) (the unit's
+//     row against gate kq's columns) and, for its S / 4 samples, carries dh
+//     and dc: per step it reads its unit's residual values and dy, computes
+//     the four gate gradients, writes them to the gate-gradient ring, and
+//     after the chain's barrier takes dh = W_hh . dg as four partial sums
+//     over the gates added by the forward's two shuffle rounds;
+//   * side thread (unit, kq) holds W_ih[k, kq H .. kq H + H) for k = unit and
+//     H + unit (layer 1: the prototype's two rows, unit 0 only) and takes
+//     the ring's gate gradients behind the chain: dx = W_ih . dg into this
+//     direction's stream of the gradient passed down (layer 1: the prototype
+//     stream), and at layer 1 the prototype rows of dW_ih for column
+//     kq H + unit. Its thread 0 copies each step's gate gradients out (one
+//     bulk store, for the weight-gradient product); its first warp keeps the
+//     input ring full (per position: the tile's residual rows, one bulk copy
+//     a sample, and the dy rows of this direction, one or two copies);
+//   * between layers both CTAs meet at a cluster barrier: the input gradient
+//     streams they wrote are the layer below's dy. Per-layer sums over the
+//     tile (db, and at layer 1 dz and z^T . sum_t dg) come from the chain's
+//     per-sample sums over t; dz adds direction 1's part to direction 0's.
+//   res (layers, 2, L, B, 6H) f32; dyh (2 halves, tiles, L, S, DX) f32: the
+//   top layer's cotangent, half d the features of direction d; proto (B, L,
+//   2), zq (B, Z) f32; wf: the packed weights in f32;
+//   gates (layers*2, L, tiles*S, GS) f32: every gate gradient;
+//   dxbuf (2 ping-pong, 2 streams, 2 halves, tiles, L, S, DX) f32;
+//   dpa (2, B, L, 2) f32; dz (B, Z) f32, dzp (B, Z) f32 scratch;
+//   wsb (tiles, layers*2, 4H), wsp (tiles, 2, 2, 4H), wsz (tiles, 2, Z, 4H).
+// ---------------------------------------------------------------------------
+template <int HT, int S>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 * HT, 1)
+    train_bwd_sweep_fp32_kernel(const float* __restrict__ res, const float* __restrict__ dyh,
+                                const float* __restrict__ proto, const float* __restrict__ zq,
+                                const float* __restrict__ wf, float* gates, float* dxbuf,
+                                float* dpa, float* dz, float* dzp, float* wsb, float* wsp,
+                                float* wsz, int B, int L, int Z, int layers) {
+  constexpr int H = 16 * HT, G = 4 * H, SQ = S / 4, RI = kFpInStages, RD = kFpDgStages;
+  constexpr int RS = fp32_stage_row<HT>(), DX = fp32_dx_stride<HT>(), GS = fp32_gate_stride<HT>();
+  constexpr int GB = fp32_gate_block<HT>();
+  constexpr int kRole = 4 * H;  // threads of either role
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* res_ring = reinterpret_cast<float*>(smem_raw);           // [RI][S][RS]
+  float* dy_ring = res_ring + RI * S * RS;                         // [RI][2][S][DX]
+  float* dg_ring = dy_ring + RI * 2 * S * DX;                      // [RD][S][GS]
+  float* sums = dg_ring + RD * S * GS;                             // [G][S]
+  uint64_t* full_in = reinterpret_cast<uint64_t*>(sums + G * S);  // [RI]
+  uint64_t* empty_in = full_in + RI;                               // [RI]
+  uint64_t* full_dg = empty_in + RI;                               // [RD]
+  uint64_t* empty_dg = full_dg + RD;                               // [RD]
+
+  const int tid = threadIdx.x;
+  const bool side = tid >= kRole;
+  const int rt = side ? tid - kRole : tid;
+  const int unit = rt >> 2, kq = rt & 3;
+  const int dir = blockIdx.x & 1;
+  const int tile = blockIdx.x >> 1;
+  const int tiles = gridDim.x >> 1;
+  const int b0 = tile * S;
+  const int nb = min(S, B - b0);
+  const int s0 = (S / 2) * (kq & 1) + SQ * (kq >> 1);  // the thread's first sample
+  const bool loader = side && rt < 32;
+
+  // Rows of samples past B are never loaded: zero them once so that their
+  // gate gradients are exact zeros.
+  for (int i = tid; i < RI * S * RS; i += blockDim.x) res_ring[i] = 0.0f;
+  if (tid == 0) {
+    for (int i = 0; i < RI; ++i) {
+      mbar_init(full_in + i, 1);
+      mbar_init(empty_in + i, kRole);
+    }
+    for (int i = 0; i < RD; ++i) {
+      mbar_init(full_dg + i, kRole);
+      mbar_init(empty_dg + i, kRole);
+    }
+    mbar_init_fence();
+  }
+  fence_async_shared();
+  __syncthreads();
+
+  // The (S, DX) block of rows of one position in the input-gradient buffers.
+  auto dx_block = [&](int pp, int stream, int half, int pos) {
+    return dxbuf + ((((size_t)(pp * 2 + stream) * 2 + half) * tiles + tile) * L + pos) * S * DX;
+  };
+
+  for (int layer = layers - 1; layer >= 0; --layer) {
+    const bool top = layer == layers - 1;
+    const CellOffsets off = cell_offsets(layer, dir, H, Z);
+    const int it0 = (layers - 1 - layer) * L;
+    const int kd = layer * 2 + dir;
+    const int pin = (layer + 1) & 1, pout = layer & 1;  // the input-gradient ping-pong
+
+    // One position's rows into input slot it % RI (the first side warp).
+    auto start_loads = [&](int u) {
+      const int it = it0 + u;
+      const int slot = it % RI;
+      const int pos = dir ? u : L - 1 - u;
+      mbar_wait(empty_in + slot, ((it / RI) & 1) ^ 1);
+      const uint32_t rows = (uint32_t)nb * 6 * H * 4, dys = S * DX * 4;
+      if (rt == 0) mbar_arrive_expect_tx(full_in + slot, rows + (top ? 1u : 2u) * dys);
+      __syncwarp();
+      if (rt < nb)
+        bulk_load(res_ring + ((size_t)slot * S + rt) * RS,
+                  res + res_row(layer, dir, pos, b0 + rt, L, B, H), 6 * H * 4, full_in + slot);
+      if (rt == 0) {
+        float* dyd = dy_ring + (size_t)slot * 2 * S * DX;
+        if (top) {
+          bulk_load(dyd, dyh + (((size_t)dir * tiles + tile) * L + pos) * S * DX, dys,
+                    full_in + slot);
+        } else {
+          bulk_load(dyd, dx_block(pin, 0, dir, pos), dys, full_in + slot);
+          bulk_load(dyd + S * DX, dx_block(pin, 1, dir, pos), dys, full_in + slot);
+        }
+      }
+    };
+
+    if (side) {
+      // ---- off the chain: copies in and out, dx = W_ih . dg, the prototype's parts ----
+      // At layer 1 only unit 0 has rows; the rest of its warp multiplies
+      // zeros, since the shuffles of the sum need the whole warp.
+      const bool first = layer == 0;
+      const bool works = !first || rt < 32;
+      float w[2][H];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int k = first ? r : r * H + unit;
+#pragma unroll
+        for (int i = 0; i < H; ++i)
+          w[r][i] = !first || unit == 0 ? __ldg(wf + off.w_ih + (size_t)k * G + kq * H + i) : 0.0f;
+      }
+      float dwp[2] = {0.0f, 0.0f};  // layer 1: sum over (t, tile) of proto . dg, column kq H + unit
+      if (loader) {
+        fence_async_all();  // the layer above's input gradients were written with plain stores
+        for (int u = 0; u < RI - 1 && u < L; ++u) start_loads(u);
+      }
+      for (int u = 0; u < L; ++u) {
+        const int it = it0 + u;
+        const int pos = dir ? u : L - 1 - u;
+        if (loader && u + RI - 1 < L) start_loads(u + RI - 1);
+        const int slot = it % RD;
+        const float* dgs = dg_ring + (size_t)slot * S * GS;
+        mbar_wait(full_dg + slot, (it / RD) & 1);
+        if (rt == 0) {
+          bulk_store(gates + (((size_t)kd * L + pos) * tiles * S + b0) * GS, dgs, S * GS * 4);
+          bulk_commit();
+        }
+        if (works) {
+          float acc[2][S];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int s = 0; s < S; ++s) acc[r][s] = 0.0f;
+          quarter_product<H, S, 2>(acc, w, dgs + kq * GB, GS);
+          float v[2][SQ];
+          reduce_quarters<S, 2>(acc, kq, v);
+#pragma unroll
+          for (int j = 0; j < SQ; ++j) {
+            const int s = s0 + j;
+            if (!first) {
+              dx_block(pout, dir, 0, pos)[s * DX + unit] = v[0][j];
+              dx_block(pout, dir, 1, pos)[s * DX + unit] = v[1][j];
+            } else if (unit == 0 && b0 + s < B) {
+              *reinterpret_cast<float2*>(dpa + (size_t)dir * B * L * 2 +
+                                         ((size_t)(b0 + s) * L + pos) * 2) =
+                  make_float2(v[0][j], v[1][j]);
+            }
+          }
+        }
+        if (first) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            float2 p = make_float2(0.0f, 0.0f);
+            if (b0 + s < B)
+              p = __ldg(reinterpret_cast<const float2*>(proto + ((size_t)(b0 + s) * L + pos) * 2));
+            const float g = dgs[s * GS + kq * GB + unit];
+            dwp[0] = fmaf(p.x, g, dwp[0]);
+            dwp[1] = fmaf(p.y, g, dwp[1]);
+          }
+        }
+        if (rt == 0) bulk_wait_read();  // the step's copy out has read the slot
+        mbar_arrive(empty_dg + slot);
+      }
+      if (first) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          wsp[((size_t)(tile * 2 + dir) * 2 + c) * G + kq * H + unit] = dwp[c];
+      }
+      if (rt == 0) bulk_wait_all();
+    } else {
+      // ---- the dependent chain ----
+      float w[1][H];
+#pragma unroll
+      for (int i = 0; i < H; ++i) w[0][i] = __ldg(wf + off.w_hh + (size_t)unit * G + kq * H + i);
+      float dh[SQ], dc[SQ], dgsum[4][SQ];
+#pragma unroll
+      for (int j = 0; j < SQ; ++j) {
+        dh[j] = dc[j] = 0.0f;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) dgsum[g][j] = 0.0f;
+      }
+      for (int u = 0; u < L; ++u) {
+        const int it = it0 + u;
+        const int slot_in = it % RI;
+        const int slot = it % RD;
+        const bool has_prev = u + 1 < L;
+        mbar_wait(full_in + slot_in, (it / RI) & 1);
+        if (has_prev) mbar_wait(full_in + (it + 1) % RI, ((it + 1) / RI) & 1);
+        const float* rows = res_ring + (size_t)slot_in * S * RS;
+        const float* prev_rows = res_ring + (size_t)((it + 1) % RI) * S * RS;
+        const float* dys = dy_ring + (size_t)slot_in * 2 * S * DX;
+        float v[4][SQ];
+#pragma unroll
+        for (int j = 0; j < SQ; ++j) {
+          const int s = s0 + j;
+          const float* row = rows + s * RS + unit;
+          const float c_t = row[H], ig = row[2 * H], fg = row[3 * H], gg = row[4 * H],
+                      og = row[5 * H];
+          const float c_prev = has_prev ? prev_rows[s * RS + H + unit] : 0.0f;
+          const float dyv = top ? dys[s * DX + unit] : dys[s * DX + unit] + dys[(S + s) * DX + unit];
+          const float dhv = dh[j] + dyv;
+          const float tc = tanhf(c_t);
+          const float dov = dhv * tc;
+          const float dcv = dc[j] + dhv * og * (1.0f - tc * tc);
+          v[0][j] = dcv * gg * ig * (1.0f - ig);
+          v[1][j] = dcv * c_prev * fg * (1.0f - fg);
+          v[2][j] = dcv * ig * (1.0f - gg * gg);
+          v[3][j] = dov * og * (1.0f - og);
+          dc[j] = dcv * fg;
+        }
+        mbar_arrive(empty_in + slot_in);
+        mbar_wait(empty_dg + slot, ((it / RD) & 1) ^ 1);
+        float* dgo = dg_ring + (size_t)slot * S * GS;
+#pragma unroll
+        for (int j = 0; j < SQ; ++j)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            dgo[(s0 + j) * GS + g * GB + unit] = v[g][j];
+            dgsum[g][j] += v[g][j];
+          }
+        fence_async_shared();                  // the slot is copied out by a bulk store
+        mbar_arrive(full_dg + slot);           // to the side threads
+        named_barrier(1, kRole);               // the tile's gate gradients are in the slot
+        float acc[1][S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) acc[0][s] = 0.0f;
+        quarter_product<H, S, 1>(acc, w, dgo + kq * GB, GS);
+        float red[1][SQ];
+        reduce_quarters<S, 1>(acc, kq, red);
+#pragma unroll
+        for (int j = 0; j < SQ; ++j) dh[j] = red[0][j];
+      }
+#pragma unroll
+      for (int j = 0; j < SQ; ++j)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) sums[(g * H + unit) * S + s0 + j] = dgsum[g][j];
+    }
+    // Both directions' input gradients are written before either CTA's next
+    // layer loads them (with bulk copies: the async proxy); the sums are in.
+    __threadfence();
+    fence_async_all();
+    cluster_sync();
+    // The bias gradient's part of this tile: the sum over its samples.
+    for (int i = tid; i < G; i += blockDim.x) {
+      float s = 0.0f;
+#pragma unroll
+      for (int e = 0; e < S; ++e) s += sums[i * S + e];
+      wsb[((size_t)tile * layers * 2 + kd) * G + i] = s;
+    }
+    if (layer == 0) {
+      // This direction's part of dz = W_z . sum_t dg per sample (direction 0
+      // into dz, direction 1 into dzp), and its part of dW_z = z^T . sum_t dg.
+      for (int i = tid; i < nb * Z; i += blockDim.x) {
+        const int s = i / Z, k = i % Z;
+        const float* wrow = wf + off.w_ih + (size_t)(2 + k) * G;
+        float acc = 0.0f;
+        for (int n = 0; n < G; ++n) acc = fmaf(__ldg(wrow + n), sums[n * S + s], acc);
+        (dir ? dzp : dz)[(size_t)(b0 + s) * Z + k] = acc;
+      }
+      for (int i = tid; i < Z * G; i += blockDim.x) {
+        const int k = i / G, n = i % G;
+        float acc = 0.0f;
+        for (int s = 0; s < nb; ++s)
+          acc = fmaf(__ldg(zq + (size_t)(b0 + s) * Z + k), sums[n * S + s], acc);
+        wsz[((size_t)(tile * 2 + dir) * Z + k) * G + n] = acc;
+      }
+    }
+    __syncthreads();  // the sums are free for the next layer
+  }
+  __threadfence();
+  cluster_sync();  // direction 1's part of dz is written
+  if (dir == 0)
+    for (int i = tid; i < nb * Z; i += blockDim.x)
+      dz[(size_t)b0 * Z + i] += dzp[(size_t)b0 * Z + i];
+}
+
+constexpr int kFwStages = 3;  // cp.async ring of the float32 weight-gradient product
+constexpr int kFwRows = 32;   // rows of the sum per stage
+
+template <int HT>
+constexpr size_t wgrad_fp32_smem_bytes() {
+  return (size_t)kFwStages * kFwRows * 5 * 16 * HT * 4;  // [lhs part (H) | gate grads (4H)]
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3, pass 2, float32 path. Per (layer, direction) kd, part p of the
+// left operand and split of the rows r = pos * Bp + b (Bp = tiles * S):
+// ws[split, kd, p H .. p H + H) (H x 4H) = lhs_p^T . dg over the split's
+// rows, where lhs_0 / lhs_1 are the h planes of the layer below (forward /
+// backward) at pos and lhs_2 this layer's h one step earlier: 16-byte
+// cp.async copies of residual-row planes (zero fill past the batch and the
+// ends) and of the gate-gradient rows, kFwStages deep, no per-element
+// gather. Layer 1's input rows (the prototype, z) and the bias row are
+// summed by the sweep. Grid (3, layers * 2, splits), the three parts of one
+// (kd, split) next to each other so their shared gate-gradient rows are read
+// from L2; 4H threads, (H / 4 row groups) x 16 column groups, each 4 rows x
+// H / 4 columns (4 tx + 64 j .. + 3), full float32 FMAs.
+// ---------------------------------------------------------------------------
+template <int HT>
+__global__ void __launch_bounds__(64 * HT)
+    train_bwd_wgrad_fp32_kernel(const float* __restrict__ res, const float* __restrict__ gates,
+                                float* __restrict__ ws, int B, int L, int Bp,
+                                int rows_per_split) {
+  constexpr int H = 16 * HT, G = 4 * H, GS = fp32_gate_stride<HT>(), NJ = H / 16;
+  constexpr int GB = fp32_gate_block<HT>();
+  constexpr int NT = 64 * HT;
+  constexpr int STAGE = kFwRows * 5 * H;  // floats per stage: [rows][H] then [rows][G]
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int part = blockIdx.x, kd = blockIdx.y, split = blockIdx.z;
+  const int layer = kd >> 1, dir = kd & 1;
+  if (layer == 0 && part < 2) return;  // layer 1's input rows come from the sweep
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int K = L * Bp;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(K, r_begin + rows_per_split);
+  const int n_iter = r_end > r_begin ? (r_end - r_begin + kFwRows - 1) / kFwRows : 0;
+
+  auto load = [&](int iter) {
+    float* a = smem + (size_t)(iter % kFwStages) * STAGE;
+    float* g = a + kFwRows * H;
+    const int r0 = r_begin + iter * kFwRows;
+    for (int i = tid; i < kFwRows * (H / 4); i += NT) {
+      const int row = i / (H / 4), ch = i % (H / 4);
+      const int r = r0 + row;
+      const int pos = r / Bp, b = r - pos * Bp;
+      bool valid = r < r_end && b < B;
+      size_t src = 0;
+      if (part < 2) {
+        if (valid) src = res_row(layer - 1, part, pos, b, L, B, H);
+      } else {
+        const int prev = dir ? pos + 1 : pos - 1;
+        valid = valid && prev >= 0 && prev < L;
+        if (valid) src = res_row(layer, dir, prev, b, L, B, H);
+      }
+      cp_async16(a + row * H + ch * 4, res + src + ch * 4, valid);
+    }
+    for (int i = tid; i < kFwRows * (G / 4); i += NT) {
+      const int row = i / (G / 4), ch = i % (G / 4);
+      const int r = r0 + row;
+      const bool valid = r < r_end;
+      // Gate ch / (H / 4) of the row sits in its own block of GB floats.
+      cp_async16(g + row * G + ch * 4,
+                 gates + ((size_t)kd * K + (valid ? r : 0)) * GS + ch / (H / 4) * GB +
+                     ch % (H / 4) * 4,
+                 valid);
+    }
+  };
+
+  float acc[4][4 * NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < 4 * NJ; ++n) acc[i][n] = 0.0f;
+
+  for (int s = 0; s < kFwStages - 1; ++s) {
+    if (s < n_iter) load(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int iter = 0; iter < n_iter; ++iter) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kFwStages - 2) : "memory");
+    __syncthreads();  // stage iter has landed; stage iter - 1 is free
+    if (iter + kFwStages - 1 < n_iter) load(iter + kFwStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* a = smem + (size_t)(iter % kFwStages) * STAGE;
+    const float* g = a + kFwRows * H;
+#pragma unroll 4
+    for (int k = 0; k < kFwRows; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(a + k * H + 4 * ty);
+      const float am[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 bv = *reinterpret_cast<const float4*>(g + k * G + 4 * tx + 64 * j);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * j] = fmaf(am[i], bv.x, acc[i][4 * j]);
+          acc[i][4 * j + 1] = fmaf(am[i], bv.y, acc[i][4 * j + 1]);
+          acc[i][4 * j + 2] = fmaf(am[i], bv.z, acc[i][4 * j + 2]);
+          acc[i][4 * j + 3] = fmaf(am[i], bv.w, acc[i][4 * j + 3]);
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  float* out = ws + ((size_t)split * gridDim.y + kd) * 3 * H * G;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      *reinterpret_cast<float4*>(out + (size_t)(part * H + 4 * ty + i) * G + 4 * tx + 64 * j) =
+          make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+}
+
+template <int HT, int S>
+int launch_fwd_fp32(const float* proto, const float* z, const float* wf, float* res, float* out,
+                    float* scratch, int B, int L, int Z, int layers, cudaStream_t stream) {
+  const size_t smem = fp32_stack_smem_bytes<HT, S, true>();
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_fp32_kernel<HT, S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (B + S - 1) / S;
+  train_fwd_fp32_kernel<HT, S><<<2 * tiles, 128 * HT, smem, stream>>>(proto, z, wf, res, out,
+                                                                     scratch, B, L, Z, layers);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HT, int S>
+int launch_bwd_fp32(const float* res, const float* dyh, const float* proto, const float* zq,
+                    const float* wf, float* gates, float* dxbuf, float* dpa, float* dz, float* dzp,
+                    float* ws, float* wsb, float* wsp, float* wsz, float* dw, int B, int L, int Z,
+                    int layers, int splits, cudaStream_t stream) {
+  constexpr int H = 16 * HT;
+  const int tiles = (B + S - 1) / S;
+  {
+    const size_t smem = sweep_fp32_smem_bytes<HT, S>();
+    cudaError_t err = cudaFuncSetAttribute(train_bwd_sweep_fp32_kernel<HT, S>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    train_bwd_sweep_fp32_kernel<HT, S><<<2 * tiles, 128 * HT, smem, stream>>>(
+        res, dyh, proto, zq, wf, gates, dxbuf, dpa, dz, dzp, wsb, wsp, wsz, B, L, Z, layers);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  {
+    const size_t smem = wgrad_fp32_smem_bytes<HT>();
+    cudaError_t err = cudaFuncSetAttribute(train_bwd_wgrad_fp32_kernel<HT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int K = L * tiles * S;
+    int rows = (K + splits - 1) / splits;
+    rows = (rows + kFwRows - 1) / kFwRows * kFwRows;
+    train_bwd_wgrad_fp32_kernel<HT><<<dim3(3, layers * 2, splits), 64 * HT, smem, stream>>>(
+        res, gates, ws, B, L, tiles * S, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t total =
+      (size_t)2 * ((2 + Z + H + 1) + (size_t)(layers - 1) * (3 * H + 1)) * 4 * H;
+  const size_t wanted = (total + 255) / 256;
+  const int blocks = wanted < 4096 ? (int)wanted : 4096;
+  train_bwd_assemble_kernel<<<blocks, 256, 0, stream>>>(ws, wsb, wsp, wsz, dw, H, Z, layers,
+                                                        splits, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_shape(int B, int L, int H, int Z, int layers) {
   return B < 1 || L < 1 || H < 1 || Z < 0 || layers < 1 || 2 * H * kSampleGroups > 1024;
 }
@@ -1565,6 +2102,94 @@ int wgg_bilstm_train_mma_info(int H, int kernel, int* info) {
   if (H == 32) WGG_INFO_HT(2)
   if (H == 48) WGG_INFO_HT(3)
 #undef WGG_INFO_HT
+#undef WGG_INFO
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float32 path: float32 only, H in {16, 32, 48}, `tile` = 4 or 8 samples
+// per cluster (the wrapper's rule; anything else returns
+// cudaErrorInvalidValue). wf: the packed weights in f32; scratch as for the
+// float32 inference kernel, (min(layers - 1, 2), ceil(B / tile), L, tile, 2H).
+int wgg_bilstm_train_fwd_fp32(const float* proto, const float* z, const float* wf, float* res,
+                              float* out, float* scratch, int B, int L, int H, int Z, int layers,
+                              int tile, void* stream) {
+  if (bad_shape(B, L, H, Z, layers)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WGG_FWD_FP32(HT)                                                                     \
+  {                                                                                          \
+    if (tile == 8) return launch_fwd_fp32<HT, 8>(proto, z, wf, res, out, scratch, B, L, Z, layers, s); \
+    if (tile == 4) return launch_fwd_fp32<HT, 4>(proto, z, wf, res, out, scratch, B, L, Z, layers, s); \
+  }
+  if (H == 16) WGG_FWD_FP32(1)
+  if (H == 32) WGG_FWD_FP32(2)
+  if (H == 48) WGG_FWD_FP32(3)
+#undef WGG_FWD_FP32
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// With T = tiles * tile and DX = H + 4, GS = 4H + 36: dyh (2, tiles, L, tile,
+// DX) f32; gates (layers*2, L, T, GS) f32; dxbuf (2, 2, 2, tiles, L, tile,
+// DX) f32 (unused by one layer); dpa (2, B, L, 2), dz and dzp (B, Z) f32; ws
+// (splits, layers*2, 3H, 4H), wsb (tiles, layers*2, 4H), wsp (tiles, 2, 2,
+// 4H), wsz (tiles, 2, Z, 4H) f32; dw as for wgg_bilstm_train_bwd.
+int wgg_bilstm_train_bwd_fp32(const float* res, const float* dyh, const float* proto,
+                              const float* zq, const float* wf, float* gates, float* dxbuf,
+                              float* dpa, float* dz, float* dzp, float* ws, float* wsb, float* wsp,
+                              float* wsz, float* dw, int B, int L, int H, int Z, int layers,
+                              int splits, int tile, void* stream) {
+  if (bad_shape(B, L, H, Z, layers) || splits < 1 || (long long)L * (B + tile) > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WGG_BWD_FP32(HT, S)                                                                  \
+  return launch_bwd_fp32<HT, S>(res, dyh, proto, zq, wf, gates, dxbuf, dpa, dz, dzp, ws, wsb,  \
+                                wsp, wsz, dw, B, L, Z, layers, splits, s)
+#define WGG_BWD_FP32_HT(HT)       \
+  {                               \
+    if (tile == 8) WGG_BWD_FP32(HT, 8); \
+    if (tile == 4) WGG_BWD_FP32(HT, 4); \
+  }
+  if (H == 16) WGG_BWD_FP32_HT(1)
+  if (H == 32) WGG_BWD_FP32_HT(2)
+  if (H == 48) WGG_BWD_FP32_HT(3)
+#undef WGG_BWD_FP32_HT
+#undef WGG_BWD_FP32
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory per CTA (info[0]), threads per CTA (info[1]) and
+// resident CTAs per SM (info[2]) of a float32-path kernel at this H and
+// sample tile: 0 = forward, 1 = sweep, 2 = weight-gradient product (which
+// has no sample tile). Returns a cudaError_t.
+int wgg_bilstm_train_fp32_info(int H, int tile, int kernel, int* info) {
+#define WGG_INFO(FN, SMEM, THREADS)                                                            \
+  {                                                                                            \
+    info[0] = (int)(SMEM);                                                                     \
+    info[1] = (THREADS);                                                                       \
+    cudaError_t err =                                                                          \
+        cudaFuncSetAttribute(FN, cudaFuncAttributeMaxDynamicSharedMemorySize, info[0]);        \
+    if (err == cudaSuccess)                                                                    \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], FN, info[1], info[0]);     \
+    return static_cast<int>(err);                                                              \
+  }
+#define WGG_INFO_S(HT, S)                                                                       \
+  {                                                                                             \
+    if (kernel == 0)                                                                            \
+      WGG_INFO((train_fwd_fp32_kernel<HT, S>), (fp32_stack_smem_bytes<HT, S, true>()), 128 * HT) \
+    if (kernel == 1)                                                                            \
+      WGG_INFO((train_bwd_sweep_fp32_kernel<HT, S>), (sweep_fp32_smem_bytes<HT, S>()), 128 * HT) \
+    if (kernel == 2)                                                                            \
+      WGG_INFO(train_bwd_wgrad_fp32_kernel<HT>, wgrad_fp32_smem_bytes<HT>(), 64 * HT)           \
+  }
+#define WGG_INFO_HT(HT)              \
+  {                                  \
+    if (tile == 8) WGG_INFO_S(HT, 8) \
+    if (tile == 4) WGG_INFO_S(HT, 4) \
+  }
+  if (H == 16) WGG_INFO_HT(1)
+  if (H == 32) WGG_INFO_HT(2)
+  if (H == 48) WGG_INFO_HT(3)
+#undef WGG_INFO_HT
+#undef WGG_INFO_S
 #undef WGG_INFO
   return static_cast<int>(cudaErrorInvalidValue);
 }

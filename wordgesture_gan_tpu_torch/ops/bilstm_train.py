@@ -33,7 +33,7 @@ step), planes [h | c | i | f | g | o].
 Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
 kernels, and a build or launch failure raises. There is no other path.
 
-Two kernel paths, chosen by ``kernel_path`` from the compute dtype and the
+Three kernel paths, chosen by ``kernel_path`` from the compute dtype and the
 shape alone (never by trying one and falling back):
 
 * ``"mma"`` — bfloat16 with H in {16, 32, 48} (the flagship recipe: H=48),
@@ -43,7 +43,12 @@ shape alone (never by trying one and falling back):
   gradients enter the tensor cores split in two bfloat16 terms
   (``split_hi_lo``), both products accumulated in float32, so the products
   stay float32 products of rounded weights/residuals to about 2^-17;
-* ``"general"`` — float32, and bfloat16 at any other H <= 256: the CUDA-core
+* ``"fp32"`` — float32 at the same H: the float32 inference kernel's design
+  (one direction per CTA of a two-CTA cluster, a layer's weights in
+  registers, full float32 products on the CUDA cores, ``sample_tile``
+  samples per cluster) for the forward and the reverse sweep, then a
+  ``cp.async``-staged float32 product for the weight gradients;
+* ``"general"`` — any other H <= 256 in either dtype: the first CUDA-core
   kernels, every product in full float32.
 
 ``bilstm_train_fwd.launches`` / ``bilstm_train_bwd.launches`` count all
@@ -60,11 +65,15 @@ import torch
 
 from .bilstm_fused import (_CELL, _DIRS, _DTYPE_CODES, MMA_HIDDEN, SAMPLE_TILE, _check,
                            _check_path_shape, _pointers, _raise_on, _unflatten, kernel_weights,
-                           packed_sizes, packed_weights, plain_stack, unpack_weights)
+                           packed_sizes, packed_weights, plain_stack, sample_tile, scratch_shape,
+                           unpack_weights)
 
 __all__ = ["MMA_HIDDEN", "backward_weights", "bilstm_train_apply", "bilstm_train_bwd",
-           "bilstm_train_bwd_plain", "bilstm_train_fwd", "bilstm_train_fwd_plain", "kernel_path",
-           "mma_kernel_info", "packed_sizes", "packed_weights", "split_hi_lo", "unpack_weights"]
+           "bilstm_train_bwd_plain", "bilstm_train_fwd", "bilstm_train_fwd_plain",
+           "fp32_buffer_shapes", "fp32_dx_row_offset", "fp32_dy_rows", "fp32_gate_row_offset",
+           "fp32_kernel_info", "fp32_row_strides", "fp32_wgrad_splits", "kernel_path",
+           "mma_kernel_info", "packed_sizes", "packed_weights", "sample_tile", "split_hi_lo",
+           "unpack_weights"]
 
 KERNEL = "bilstm_train"
 # Rows of the backward's weight-gradient product per split of the (L·B) sum.
@@ -73,6 +82,11 @@ _MAX_SPLITS = 16
 # The tensor-core path (hidden sizes ``MMA_HIDDEN``, ``SAMPLE_TILE`` samples per
 # CTA: ops/bilstm_fused.py): how many CTAs the weight-gradient product should fill.
 _WGRAD_CTAS = 132
+# The float32 path's weight-gradient product: CTAs resident at once on an
+# H100 (132 SMs x 2, ``fp32_kernel_info``), and the fewest rows of the sum a
+# split takes.
+_FP32_WGRAD_SLOTS = 2 * 132
+_FP32_WGRAD_MIN_ROWS = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +203,12 @@ def _library() -> ctypes.CDLL:
     lib.wgg_bilstm_train_bwd_mma.restype = i
     lib.wgg_bilstm_train_mma_info.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     lib.wgg_bilstm_train_mma_info.restype = i
+    lib.wgg_bilstm_train_fwd_fp32.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.wgg_bilstm_train_fwd_fp32.restype = i
+    lib.wgg_bilstm_train_bwd_fp32.argtypes = [p] * 15 + [i] * 7 + [p]
+    lib.wgg_bilstm_train_bwd_fp32.restype = i
+    lib.wgg_bilstm_train_fp32_info.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wgg_bilstm_train_fp32_info.restype = i
     lib.wgg_cuda_error_string.argtypes = [i]
     lib.wgg_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -222,11 +242,14 @@ def _splits(rows: int) -> int:
 
 def kernel_path(dtype: torch.dtype, hidden: int, seq: int, layers: int) -> str:
     """Which kernels a CUDA call takes: ``"mma"`` (tensor cores) for bfloat16
-    with H in ``MMA_HIDDEN``, ``"general"`` (CUDA cores) otherwise. A pure
-    function of the dtype and the shape; every sequence length and depth is
-    served by both paths, so ``seq`` and ``layers`` do not change the answer."""
+    and ``"fp32"`` (two-CTA clusters) for float32 with H in ``MMA_HIDDEN``,
+    ``"general"`` (the first CUDA-core kernels) otherwise. A pure function of
+    the dtype and the shape; every sequence length and depth is served by all
+    three paths, so ``seq`` and ``layers`` do not change the answer."""
     _check_path_shape(seq, layers)
-    return "mma" if dtype == torch.bfloat16 and hidden in MMA_HIDDEN else "general"
+    if hidden not in MMA_HIDDEN:
+        return "general"
+    return "mma" if dtype == torch.bfloat16 else "fp32"
 
 
 def split_hi_lo(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -274,6 +297,166 @@ def _gradient_tree(dw: torch.Tensor, n: int, H: int, Z: int) -> List[Dict]:
                         "b_hh": mat[din + H].clone()}
         grads.append(cells)
     return grads
+
+
+# The float32 path's row padding (floats): the backward's dy and
+# input-gradient rows lie 16 bytes past their width in shared memory and, so
+# that each moves as one block, in global memory too; a gate-gradient row
+# holds each gate in a block 16 bytes past H and ends 20 floats later
+# (csrc/bilstm_train.cu: fp32_dx_stride, fp32_gate_block, fp32_gate_stride).
+_FP32_PAD = 4
+
+
+def fp32_row_strides(hidden: int) -> Dict[str, int]:
+    """Floats from one row to the next in the float32 backward's buffers:
+    dy and input-gradient rows (H wide), gate-gradient rows (four gate
+    blocks of ``"gate_block"`` floats, H of them used, and 20 more)."""
+    block = hidden + _FP32_PAD
+    return {"dx": block, "gate_block": block, "gates": 4 * block + 20}
+
+
+def fp32_buffer_shapes(batch: int, seq: int, hidden: int, latent: int, n_layers: int, tile: int,
+                       splits: int) -> Dict[str, Tuple[int, ...]]:
+    """The float32 backward's buffers, in the kernels' layouts
+    (csrc/bilstm_train.cu: wgg_bilstm_train_bwd_fp32): dy and the input
+    gradients passed down, per (half, tile, position) one block of ``tile``
+    padded rows (half d: the features of direction d; the input gradients
+    also per ping-pong buffer and per direction that wrote them); the gate
+    gradients per (layer, direction, position), whole tiles; the partial sums
+    the last pass adds (splits of the product; tiles of the sweep's bias,
+    prototype and z rows)."""
+    tiles = -(-batch // tile)
+    stride = fp32_row_strides(hidden)
+    g = 4 * hidden
+    return {
+        "dy": (2, tiles, seq, tile, stride["dx"]),
+        "dx": (2, 2, 2, tiles, seq, tile, stride["dx"]) if n_layers > 1 else (8,),
+        "gates": (2 * n_layers, seq, tiles * tile, stride["gates"]),
+        "ws": (splits, 2 * n_layers, 3 * hidden, g),
+        "wsb": (tiles, 2 * n_layers, g),
+        "wsp": (tiles, 2, 2, g),
+        "wsz": (tiles, 2, max(latent, 1), g),
+    }
+
+
+def fp32_dx_row_offset(sample: int, pos: int, half: int, seq: int, batch: int, hidden: int,
+                       tile: int, buffer: int = 0, stream: int = 0) -> int:
+    """Offset (floats) of a sample's row at a position in the float32 sweep's
+    dy (``buffer = stream = 0``) or input-gradient buffers: the kernels'
+    arithmetic (``dx_block`` plus the sample's row)."""
+    tiles = -(-batch // tile)
+    block = (((buffer * 2 + stream) * 2 + half) * tiles + sample // tile) * seq + pos
+    return (block * tile + sample % tile) * fp32_row_strides(hidden)["dx"]
+
+
+def fp32_gate_row_offset(layer: int, direction: int, pos: int, sample: int, seq: int, batch: int,
+                         hidden: int, tile: int) -> int:
+    """Offset (floats) of a sample's gate-gradient row: rows r = pos · T +
+    sample per (layer, direction), T = whole tiles of samples (the sweep's
+    bulk store and the product's row index)."""
+    padded = -(-batch // tile) * tile
+    return (((layer * 2 + direction) * seq + pos) * padded + sample) * \
+        fp32_row_strides(hidden)["gates"]
+
+
+def fp32_dy_rows(dy: torch.Tensor, tile: int) -> torch.Tensor:
+    """dy (B, L, 2H) in the float32 sweep's layout (``fp32_buffer_shapes``'
+    ``"dy"``): float32, samples past B and the padding zero."""
+    B, L, two_h = dy.shape
+    H = two_h // 2
+    tiles = -(-B // tile)
+    out = dy.new_zeros((2, tiles, L, tile, H + _FP32_PAD), dtype=torch.float32)
+    rows = torch.nn.functional.pad(dy.to(torch.float32), (0, 0, 0, 0, 0, tiles * tile - B))
+    out[..., :H] = rows.reshape(tiles, tile, L, 2, H).permute(3, 0, 2, 1, 4)
+    return out
+
+
+def fp32_wgrad_splits(rows: int, n_layers: int) -> int:
+    """Parts the float32 weight-gradient product cuts its ``rows`` (L x whole
+    tiles of samples) into: as many as keep every CTA busy in one wave (one
+    CTA per (layer, direction, operand part, split); layer 1 has one part),
+    and no part under ``_FP32_WGRAD_MIN_ROWS`` rows. A second, partly filled
+    wave would double the time."""
+    busy_per_split = 2 * (3 * (n_layers - 1) + 1)
+    return max(1, min(rows // _FP32_WGRAD_MIN_ROWS, _FP32_WGRAD_SLOTS // busy_per_split))
+
+
+def fp32_kernel_info(hidden: int) -> Dict[str, Dict[str, int]]:
+    """What the float32 kernels occupy on the current CUDA device, asked of the
+    built library: dynamic shared memory per CTA, threads per CTA and
+    resident CTAs per SM of the forward and the sweep at either sample tile,
+    and of the weight-gradient product, at this hidden size."""
+    lib = _library()
+    info = {}
+    for tile in (8, 4):
+        for code, name in enumerate(("train_fwd_fp32", "train_bwd_sweep_fp32",
+                                     "train_bwd_wgrad_fp32")):
+            if code == 2 and tile == 4:
+                continue
+            out = (ctypes.c_int * 3)()
+            key = name if code == 2 else f"{name}_tile{tile}"
+            _raise_on(lib, lib.wgg_bilstm_train_fp32_info(hidden, tile, code, out), key)
+            info[key] = {"smem_bytes_per_cta": out[0], "threads_per_cta": out[1],
+                         "ctas_per_sm": out[2]}
+    return info
+
+
+def _launch_fwd_fp32(layers, x, static, hidden, dtype, tile=None):
+    """The float32 forward. ``tile`` overrides ``sample_tile`` (a measurement
+    of the other tile; the dispatch never passes it)."""
+    lib = _library()
+    device = x.device
+    f32 = torch.float32
+    B, L, _ = x.shape
+    n = len(layers)
+    tile = tile or sample_tile(dtype, B)
+    wf = packed_weights(layers, dtype)[0]
+    proto = x.to(f32).contiguous()
+    z = static.to(f32).contiguous()
+    res = torch.empty((n, 2, L, B, 6 * hidden), dtype=f32, device=device)
+    out = torch.empty((B, L, 2 * hidden), dtype=f32, device=device)
+    scratch = torch.empty(scratch_shape(B, L, hidden, n, tile) if n > 1 else (8,), dtype=f32,
+                          device=device)
+    ptrs = _pointers([proto, z, wf, res, out, scratch], device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.wgg_bilstm_train_fwd_fp32(*ptrs, B, L, hidden, static.shape[1], n, tile, stream)
+    _raise_on(lib, err, "bilstm_train_fwd (float32 path)")
+    return out, res
+
+
+def _launch_bwd_fp32(layers, x, static, res, dy, hidden, dtype, tile=None):
+    """The float32 backward: the sweep, the weight-gradient product and the
+    fixed-order sum. ``tile`` as for ``_launch_fwd_fp32``."""
+    lib = _library()
+    device = x.device
+    f32 = torch.float32
+    n, _, L, B, _ = res.shape
+    H, Z = hidden, static.shape[1]
+    tile = tile or sample_tile(dtype, B)
+    splits = fp32_wgrad_splits(L * -(-B // tile) * tile, n)
+    shapes = fp32_buffer_shapes(B, L, H, Z, n, tile, splits)
+    m_first, m_rest = 2 + Z + H + 1, 3 * H + 1
+
+    def empty(shape):
+        return torch.empty(shape, dtype=f32, device=device)
+
+    operands = [
+        res.contiguous(), fp32_dy_rows(dy, tile), x.to(f32).contiguous(),
+        static.to(f32).contiguous(), packed_weights(layers, dtype)[0],
+        empty(shapes["gates"]), empty(shapes["dx"]),
+        empty((2, B, L, 2)),                                                     # dx streams
+        empty((B, max(Z, 1))), empty((B, max(Z, 1))),                            # dz, its part
+        empty(shapes["ws"]), empty(shapes["wsb"]), empty(shapes["wsp"]), empty(shapes["wsz"]),
+        empty((2 * (m_first + (n - 1) * m_rest) * 4 * H,)),
+    ]
+    ptrs = _pointers(operands, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.wgg_bilstm_train_bwd_fp32(*ptrs, B, L, H, Z, n, splits, tile, stream)
+    _raise_on(lib, err, "bilstm_train_bwd (float32 path)")
+    dpa, dz, dw = operands[7], operands[8], operands[14]
+    return _gradient_tree(dw, n, H, Z), dpa[0] + dpa[1], dz[:, :Z]
 
 
 def _launch_fwd_mma(layers, x, static, hidden, dtype):
@@ -378,7 +561,8 @@ def _launch_bwd(layers, x, static, res, dy, hidden, dtype):
     return _gradient_tree(dw, n, H, Z), (dpa[0] + dpa[1]).to(f32), dz
 
 
-_LAUNCHERS = {"mma": (_launch_fwd_mma, _launch_bwd_mma), "general": (_launch_fwd, _launch_bwd)}
+_LAUNCHERS = {"mma": (_launch_fwd_mma, _launch_bwd_mma), "fp32": (_launch_fwd_fp32, _launch_bwd_fp32),
+              "general": (_launch_fwd, _launch_bwd)}
 
 
 def _count(wrapper, path: str) -> None:
@@ -429,8 +613,8 @@ def bilstm_train_bwd(layers: List[Dict], x: torch.Tensor, static: torch.Tensor,
 
 bilstm_train_fwd.launches = 0
 bilstm_train_bwd.launches = 0
-bilstm_train_fwd.launches_by_path = {"mma": 0, "general": 0}
-bilstm_train_bwd.launches_by_path = {"mma": 0, "general": 0}
+bilstm_train_fwd.launches_by_path = {"mma": 0, "fp32": 0, "general": 0}
+bilstm_train_bwd.launches_by_path = {"mma": 0, "fp32": 0, "general": 0}
 
 
 # ---------------------------------------------------------------------------
