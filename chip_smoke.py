@@ -18,7 +18,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    {1, 131, 8192}, D in {2, 3}, L=128 on gesture-like walks, the matrix entry
    at 64x64, 37x13, a short length and L=1 against the plain version and
    against aligned pairs, and four pairs against a float64 recurrence on
-   the host, each distance relative to its own size, 1e-4;
+   the host, each distance relative to its own size, 1e-4; and aligned pairs
+   at L=64, D=2, the realism report's shape;
    kernel 1 (inference forward): 1e-4 / 2e-2 abs; every full-width call must
    have taken the tensor-core kernel (bfloat16) or the float32 cluster kernel
    (launches counted per path), two launches on the same inputs give
@@ -122,6 +123,31 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the same pairs and its bound (no PyTorch call computes DTW), at D=2 as
    the evaluation calls it and at D=3.
 
+Then, run before phase 8's timings:
+
+9a. ``train_cli.main`` as the one rank of an NCCL process group
+   (``WGG_DISTRIBUTED=1``) on phase 7's corpus (its first 120 logs: 5 steps
+   of 512), flagship recipe, bf16: one epoch with ``--profile-dir``, then a
+   resumed one with every count set to 0 just before: 11 gradient
+   all-reduces per step (one per gradient computation), kernels 1-3 5/3/3
+   per step on their tensor-core paths, rank 0's checkpoints, a trace that
+   names the kernels; ms per step beside phase 5's;
+9b. two ranks sharing the card (gloo; NCCL refuses two ranks on one GPU),
+   started as ``chip_smoke.py --dp-worker``: a float32 full-width
+   ``gan_train_step`` (reference recipe) at global B=32 and a contrastive
+   step at 32 words x 2 (each word's gestures on different ranks), against
+   one process on the card, with the tolerances stated at DP_TOL; 11 and 1
+   gradient all-reduces;
+10. ``python -m wordgesture_gan_tpu_torch.data.realism --users 200`` with
+   ``--device cpu`` and on the card (kernel 4 once, at L=64, D=2, launches
+   counted from 0): the four exact statistics equal, ``dtw_w`` within 1e-4;
+   kernel 4 on the report's own pairs against its plain version, and timed;
+11. seeded full-width weights in the reference implementation's layout
+   through ``interop.torch_weights.trainer_state_from_torch`` (the same trees
+   back), saved as a checkpoint and served through ``generate.main
+   --checkpoint-dir`` (bf16, 512 gestures, one kernel-1 launch), a small
+   batch with injected noise against the CPU.
+
 Output: check, timing and profile lines as JSON, then the kernel table as
 one JSON line ({"kernels": [...]}), then the nvidia-smi line, then as the
 last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -174,6 +200,7 @@ from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_bwd, bilstm
 from wordgesture_gan_tpu_torch.ops.dtw import dtw_matrix, dtw_pairs, dtw_pairs_plain
 from wordgesture_gan_tpu_torch.ops.resample import batched_arclength_resample
 from wordgesture_gan_tpu_torch.ops.stats import pairwise_l2
+from wordgesture_gan_tpu_torch.parallel.distributed import free_port
 from wordgesture_gan_tpu_torch.train.checkpoint import (find_checkpoint, latest_epoch,
                                                         load_generator)
 from wordgesture_gan_tpu_torch.train.contrastive_loop import (contrastive_train_step,
@@ -766,6 +793,7 @@ def profile_train_pair(device, dtype_name="bfloat16", batch=TIME_BATCH, hidden=H
 # -- kernel 4: exact batched DTW ----------------------------------------------------------
 
 DTW_CHECK_PAIRS = (1, 131, 8192)
+REALISM_SEQ = 64       # data/realism.py resamples (trace, prototype) pairs to 64 points
 # Kernel against plain, each distance relative to its own size: the kernel
 # adds costs along the path, the plain version subtracts prefix sums of up to
 # 128 costs, so they differ by a few float32 roundings of sums of order 10-100.
@@ -859,6 +887,11 @@ def check_dtw(device, seq=SEQ, pair_counts=DTW_CHECK_PAIRS) -> list:
         want = torch.from_numpy(dtw_host_float64(x.numpy(), y.numpy()))
         record("aligned pairs vs float64 host recurrence", dtw_pairs(x.to(device), y.to(device)).cpu(),
                want, pairs=4, dims=dims, seq=seq)
+    for pairs in pair_counts:   # the realism report's shape: (x, y) at 64 points
+        x = gesture_like(rng, pairs, REALISM_SEQ, 2).to(device)
+        y = gesture_like(rng, pairs, REALISM_SEQ, 2).to(device)
+        record("aligned pairs", dtw_pairs(x, y), dtw_pairs_plain(x, y), pairs=pairs, dims=2,
+               seq=REALISM_SEQ)
     if device.type == "cuda":
         torch.cuda.synchronize()
     return results
@@ -1471,6 +1504,435 @@ def contrastive_step_vs_cpu(device, batch_words=32, per_word=2, seq=SEQ,
     return line
 
 
+# -- data parallelism over torch.distributed ----------------------------------------------
+
+# Phase 9a: train_cli on the corpus's first 120 logs (2560 gestures to train
+# on: 5 steps of 512), flagship recipe, bf16, one epoch under the
+# profiler and one more, resumed, timed and counted. One gradient all-reduce
+# per gradient computation: 2 per critic iteration and 1 for G and E.
+DP_CLI_FILES = 120
+DP_COLLECTIVES_PER_STEP = 2 * FLAGSHIP_TRAIN["n_critic"] + 1
+TRACE_KERNELS = ("bilstm_fused_mma_kernel", "train_fwd_mma_kernel", "train_bwd_sweep_mma_kernel",
+                 "train_bwd_wgrad_mma_kernel")
+# Phase 9b: two gloo ranks on the card against one process on the card, from
+# the same state and noise: losses 1e-5 of max(1, |loss|); gradients (Adam's
+# moments after a step at lr=0) 1e-5 of each model's largest; parameters
+# after a step within 2·lr per Adam step; BatchNorm's running statistics 1e-6.
+# The GAN step takes the reference recipe (measured 9.8e-7 on an H100): with
+# the flagship auxiliaries, G's and E's gradients differ by up to 5.4e-4 of
+# the largest, since the speed-profile and Pearson terms amplify the last-bit
+# differences between the card's matrix products at B=16 and at B=32 (the
+# reason phase 6 holds the flagship step to 1e-2 against the CPU); the
+# CPU tests hold the flagship recipe's two-rank step to 1e-5.
+DP_BATCH, DP_LR, DP_WORDS, DP_RECIPE = 32, 2e-4, 32, "reference"
+DP_TOL = {"loss": 1e-5, "grad": 1e-5, "bn": 1e-6}
+DP_WORKER_TIMEOUT = 600
+
+
+def distributed_env(rank: int, world: int, port: int) -> dict:
+    return {"WORLD_SIZE": str(world), "RANK": str(rank), "LOCAL_RANK": str(rank),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def train_cli_nccl(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
+                   batch_size=512, model_args=()) -> dict:
+    """Phase 9a: ``train_cli.main`` as rank 0 of a one-rank NCCL process group
+    (``WGG_DISTRIBUTED=1``) on phase 7's corpus: one epoch with
+    ``--profile-dir``, then one more, resumed, with every count set to 0
+    just before. Gradient all-reduces 11 per step, kernels 1-3 5/3/3 per step
+    on their tensor-core paths, rank 0's checkpoints, a trace naming the
+    kernels; ms per step."""
+    import os
+    from unittest import mock
+
+    from wordgesture_gan_tpu_torch.parallel import (all_reduce_gradients,
+                                                    maybe_init_distributed,
+                                                    shutdown_distributed)
+
+    ckpt, traces = workdir / "checkpoints_dp", workdir / "trace_dp"
+    args = ["--synthetic", "--synthetic-users", str(users), "--max-files", str(files),
+            "--data", str(workdir / "swipelogs.zip"), "--checkpoint-dir", str(ckpt),
+            "--device", device.type, "--batch-size", str(batch_size), "--precision", "bfloat16",
+            "--lambda-speed", "2.0", "--lambda-div", "0.3", "--lambda-dtc", "4.0", *model_args]
+    env = {"WGG_DISTRIBUTED": "1", **distributed_env(0, 1, free_port())}
+    with mock.patch.dict(os.environ, env):
+        if not maybe_init_distributed(device, verbose=False, timeout=300):
+            raise AssertionError("WGG_DISTRIBUTED=1 did not start a process group")
+        try:
+            backend = torch.distributed.get_backend()
+            if device.type == "cuda" and backend != "nccl":
+                raise AssertionError(f"the process group runs {backend}, not NCCL")
+            first = train_cli.main(["--epochs", "1", "--profile-dir", str(traces), *args])
+            counters = {"bilstm_fused": fused_bilstm_fwd, "bilstm_train_fwd": bilstm_train_fwd,
+                        "bilstm_train_bwd": bilstm_train_bwd}
+            reset_launches(*counters.values(), all_reduce_gradients)
+            second = train_cli.main(["--epochs", "2", *args])
+            launches = {name: c.launches for name, c in counters.items()}
+            by_path = {name: dict(c.launches_by_path) for name, c in counters.items()}
+            collectives = all_reduce_gradients.launches
+            still_up = torch.distributed.is_initialized()
+        finally:
+            shutdown_distributed()
+    steps = second.gestures_per_epoch // batch_size
+    if not still_up or latest_epoch(str(ckpt)) != 2 or len(second.history) != 1 or steps < 1:
+        raise AssertionError("train_cli under the process group did not checkpoint 2 epochs")
+    if first.throughput.n_chips != 1 or collectives != DP_COLLECTIVES_PER_STEP * steps:
+        raise AssertionError(f"{collectives} gradient all-reduces in {steps} steps, expected "
+                             f"{DP_COLLECTIVES_PER_STEP} a step")
+    if device.type == "cuda":
+        expected = {name: per * steps for name, per in PER_STEP.items()}
+        paths = {name: (bilstm_fused.kernel_path if name == "bilstm_fused" else kernel_path)(
+            torch.bfloat16, HIDDEN, SEQ, 1) for name in counters}
+        want = {name: only_path(counters[name], paths[name], expected[name]) for name in counters}
+        if launches != expected or by_path != want:
+            raise AssertionError(f"launches {launches} by path {by_path}, expected {want}")
+    trace_files = sorted(traces.glob("trace_rank0_*.json"))
+    if len(trace_files) != 1:
+        raise AssertionError(f"--profile-dir wrote {trace_files}")
+    text = trace_files[0].read_text()
+    named = {k: k in text for k in TRACE_KERNELS}
+    if device.type == "cuda" and not all(named.values()):
+        raise AssertionError(f"the trace does not name every kernel: {named}")
+    for losses in first.history + second.history:
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses {losses}")
+    line = {"training": "train_cli.main, NCCL process group of 1 rank", "backend": backend,
+            "gestures_per_epoch": second.gestures_per_epoch, "steps_per_epoch": steps,
+            "dtype": "bfloat16", "ms_per_step": second.epoch_seconds[0] / steps * 1e3,
+            "profiled_epoch_ms_per_step": first.epoch_seconds[0] / steps * 1e3,
+            "gradient_all_reduces": collectives,
+            "gradient_all_reduces_per_step": collectives / steps, "launches": launches,
+            "trace_file_mb": trace_files[0].stat().st_size / 2 ** 20, "trace_names": named}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _dp_inputs(model: dict = None, seq: int = SEQ, batch: int = DP_BATCH,
+               words: int = DP_WORDS, recipe: str = DP_RECIPE) -> tuple:
+    """Phase 9b's step inputs: ``recipe`` (STEP_RECIPES) in float32 at full
+    width (``model`` overrides widths for a rehearsal on the CPU), a smoke
+    batch, injected noise; the contrastive batch of ``words`` words x 2 gestures,
+    each word's first gesture in the first half (rank 0) and its second in
+    the second half (rank 1), and the encoder's seeded weights."""
+    model = {k: tuple(v) if isinstance(v, list) else v for k, v in (model or {}).items()}
+    mcfg = ModelConfig(**{"time_head": "monotone", "compute_dtype": "float32", **model})
+    lambdas = STEP_RECIPES[recipe][0]
+    tcfg = TrainingConfig(**dict(lambdas, batch_size=batch, n_critic=5), div_margin=0.25)
+    ds = smoke_dataset(batch, mcfg.seq_length, seed=3)
+    data = {"gesture": torch.from_numpy(ds.gestures), "prototype": torch.from_numpy(ds.prototypes)}
+    noise = _step_noise(batch, mcfg.latent_dim, tcfg.n_critic, seed=6)
+    gestures = torch.from_numpy(smoke_dataset(2 * words, seq, seed=6).gestures)
+    labels = torch.arange(words).repeat(2)
+    params, bn = contrastive_encoder_init(ContrastiveConfig(), torch.Generator().manual_seed(4))
+    return mcfg, tcfg, data, noise, gestures, labels, (params, bn)
+
+
+def _snapshot(state: dict, metrics: dict) -> dict:
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}}
+    for m in (MODELS if "g" in state else ("c",)):
+        s = state[m] if m != "c" else state
+        out[m] = {part: [t.detach().cpu() for t in tree_leaves(s["opt"][part])]
+                  for part in ("mu", "nu")}
+        out[m]["params"] = [p.detach().cpu() for p in tree_leaves(s["params"])]
+    if "bn" in state:
+        out["bn"] = [t.cpu() for t in tree_leaves(state["bn"])]
+    return out
+
+
+def dp_steps(device, mesh, **inputs) -> dict:
+    """One GAN step and one contrastive step at lr=0 and at lr > 0, each from
+    a fresh state, on ``mesh``'s ranks (None: this process alone)."""
+    from wordgesture_gan_tpu_torch.parallel import all_reduce_gradients
+
+    mcfg, tcfg, data, noise, gestures, labels, (params, bn) = _dp_inputs(**inputs)
+    out = {}
+    for lr in (0.0, DP_LR):
+        state = init_gan_state(0, mcfg, device=device)
+        before = all_reduce_gradients.launches
+        _, metrics = gan_train_step(state, {k: v.to(device) for k, v in data.items()}, lr, mcfg,
+                                    tcfg, noise={k: v.to(device) for k, v in noise.items()},
+                                    mesh=mesh)
+        out[f"gan/{lr}"] = {**_snapshot(state, metrics),
+                            "collectives": all_reduce_gradients.launches - before}
+    for lr in (0.0, CONTRASTIVE_LR):
+        state = make_contrastive_state(params, bn, device)
+        before = all_reduce_gradients.launches
+        loss = contrastive_train_step(state, gestures.to(device), labels.to(device), lr, mesh=mesh)
+        out[f"contrastive/{lr}"] = {**_snapshot(state, {"loss": loss}),
+                                    "collectives": all_reduce_gradients.launches - before}
+    return out
+
+
+def dp_worker(out_dir: str) -> int:
+    """One rank of phase 9b (``chip_smoke.py --dp-worker OUT_DIR``, started by
+    ``data_parallel_vs_single`` with torchrun's variables): joins the gloo
+    group on the card, runs ``dp_steps`` and, on rank 0, saves the result."""
+    import os
+
+    from wordgesture_gan_tpu_torch.parallel import (create_mesh, maybe_init_distributed,
+                                                    rank_device, shutdown_distributed)
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    inputs = json.loads(os.environ.get("WGG_SMOKE_DP_INPUTS", "{}"))
+    device = rank_device(inputs.pop("device", "cuda"))
+    maybe_init_distributed(device, backend="gloo", verbose=False, timeout=DP_WORKER_TIMEOUT)
+    try:
+        mesh = create_mesh(2, device=device)
+        result = dp_steps(device, mesh, **inputs)
+        if mesh.rank == 0:
+            torch.save(result, Path(out_dir) / "dp.pt")
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def _dp_errors(got: dict, want: dict, lr: float, adam_steps: dict) -> dict:
+    err = {"loss": max(abs(got["metrics"][k] - v) / max(1.0, abs(v))
+                       for k, v in want["metrics"].items()),
+           "grad": 0.0, "param_in_lr_per_adam_step": 0.0, "bn": 0.0, "grad_by_model": {}}
+    for m in (k for k in want if k not in ("metrics", "bn", "collectives")):
+        if lr == 0.0:
+            for part in ("mu", "nu"):
+                scale = max(t.abs().max().item() for t in want[m][part]) or 1.0
+                e = max((a - b).abs().max().item() for a, b in zip(got[m][part],
+                                                                  want[m][part])) / scale
+                err["grad_by_model"][f"{m}/{part}"] = e
+                err["grad"] = max(err["grad"], e)
+        else:
+            moved = max((a - b).abs().max().item() for a, b in zip(got[m]["params"],
+                                                                   want[m]["params"]))
+            err["param_in_lr_per_adam_step"] = max(err["param_in_lr_per_adam_step"],
+                                                   moved / lr / adam_steps.get(m, 1))
+    for a, b in zip(got.get("bn", []), want.get("bn", [])):
+        err["bn"] = max(err["bn"], (a - b).abs().max().item())
+    return err
+
+
+def data_parallel_vs_single(device, workdir: Path, inputs: dict = None) -> dict:
+    """Phase 9b: ``dp_steps`` on two gloo ranks sharing the card (NCCL refuses
+    two ranks on one GPU), started as ``chip_smoke.py --dp-worker``, against
+    ``dp_steps`` in this process alone on the same card, with DP_TOL; one
+    gradient all-reduce per gradient computation. ``inputs`` overrides
+    ``_dp_inputs``' widths (and the device) for a rehearsal on the CPU."""
+    import os
+
+    inputs = dict(inputs or {})
+    port = free_port()
+    env_inputs = json.dumps({**inputs, "device": device.type})
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+                               str(workdir)],
+                              env={**os.environ, **distributed_env(rank, 2, port),
+                                   "WGG_SMOKE_DP_INPUTS": env_inputs},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    try:
+        t0 = time.perf_counter()
+        want = dp_steps(device, None, **inputs)
+        outs = [p.communicate(timeout=DP_WORKER_TIMEOUT)[0] for p in procs]
+        seconds = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"data-parallel rank {rank} failed:\n{out[-4000:]}")
+    got = torch.load(workdir / "dp.pt", weights_only=False)
+    n_critic = FLAGSHIP_TRAIN["n_critic"]
+    line = {"check": "two gloo ranks on the card vs one process on the card", "batch": DP_BATCH,
+            "contrastive_batch": 2 * DP_WORDS, "dtype": "float32", "seconds": seconds,
+            "tolerances": {**DP_TOL, "param_in_lr_per_adam_step": 2}, "errors": {},
+            "collectives": {}}
+    for key in want:
+        kind, lr = key.split("/")
+        adam_steps = {"d1": n_critic, "d2": n_critic} if kind == "gan" else {}
+        line["errors"][key] = err = _dp_errors(got[key], want[key], float(lr), adam_steps)
+        line["collectives"][key] = got[key]["collectives"]
+        expected = DP_COLLECTIVES_PER_STEP if kind == "gan" else 1
+        if got[key]["collectives"] != expected or want[key]["collectives"] != 0:
+            raise AssertionError(f"{key}: {got[key]['collectives']} gradient all-reduces on two "
+                                 f"ranks, expected {expected}")
+    print(json.dumps(line), flush=True)
+    bad = {key: err for key, err in line["errors"].items()
+           if not (err["loss"] <= DP_TOL["loss"] and err["grad"] <= DP_TOL["grad"]
+                   and err["bn"] <= DP_TOL["bn"] and err["param_in_lr_per_adam_step"] <= 2)}
+    if bad:
+        raise AssertionError(f"two ranks vs one process: {bad}")
+    return line
+
+
+# -- the realism report ----------------------------------------------------------------------
+
+REALISM_USERS = 200
+
+
+def realism_pairs(zip_path: Path, users: int) -> tuple:
+    """The (trace, prototype) pairs the realism report hands its batched DTW,
+    rebuilt from the same logs: (P, 64, 2) each."""
+    import zipfile
+
+    from wordgesture_gan_tpu_torch.data import realism
+
+    kb, cache, batch = QWERTYKeyboard(), {}, []
+    with zipfile.ZipFile(zip_path) as zf:
+        for name in sorted(n for n in zf.namelist() if n.endswith(".log"))[:users]:
+            realism._scan_log_sentences(zf.read(name).decode("utf-8", errors="replace"), kb,
+                                        cache, batch)
+    return (torch.from_numpy(np.stack([t for t, _ in batch]).astype(np.float32)),
+            torch.from_numpy(np.stack([p for _, p in batch]).astype(np.float32)))
+
+
+def realism_report(device, workdir: Path, users=REALISM_USERS) -> dict:
+    """Phase 10: ``python -m wordgesture_gan_tpu_torch.data.realism --users
+    200`` on the card (its one batched DTW is kernel 4 at L=64, D=2; launches
+    counted from 0), then the same command with ``--device cpu``: the four
+    exact statistics equal, ``dtw_w`` 1e-4 relative. Then kernel 4 on the
+    report's own pairs against its plain version, and timed beside it."""
+    from wordgesture_gan_tpu_torch.data import realism
+
+    zip_path = workdir / f"synthetic_swipelogs_{users}.zip"
+    runs = {}
+    for dev in ("cpu", device.type):    # the first run writes the corpus
+        reset_launches(dtw_pairs)
+        t0 = time.perf_counter()
+        code = realism.main(["--users", str(users), "--zip", str(zip_path), "--device", dev,
+                             "--save-stats", str(workdir / f"realism_{dev}.npz")])
+        runs[dev] = {"exit_code": code, "seconds": time.perf_counter() - t0,
+                     "dtw_launches": dtw_pairs.launches}
+    stats = {dev: dict(np.load(workdir / f"realism_{dev}.npz")) for dev in (device.type, "cpu")}
+    got, want = stats[device.type], stats["cpu"]
+    exact = all(np.array_equal(got[k], want[k]) for k in realism.STATS if k != "dtw_w")
+    dtw_rel = float(np.max(np.abs(got["dtw_w"] - want["dtw_w"]) / np.abs(want["dtw_w"])))
+    if not exact or not dtw_rel <= DTW_TOL_REL:
+        raise AssertionError(f"realism statistics on the card vs CPU: exact {exact}, dtw_w "
+                             f"{dtw_rel}")
+    if device.type == "cuda" and runs["cuda"]["dtw_launches"] != 1:
+        raise AssertionError(f"the realism report launched kernel 4 "
+                             f"{runs['cuda']['dtw_launches']} times, expected 1")
+    x, y = realism_pairs(zip_path, users)
+    pairs = x.shape[0]
+    x, y = x.to(device), y.to(device)
+    rel, err = _dtw_rel(dtw_pairs(x, y), dtw_pairs_plain(x, y))
+    if not rel <= DTW_TOL_REL:
+        raise AssertionError(f"kernel 4 on the realism pairs vs plain: {rel}")
+    line = {"realism": "python -m wordgesture_gan_tpu_torch.data.realism", "users": users,
+            "runs": runs, "sentences": int(len(got["time_ms"])), "dtw_pairs": pairs,
+            "seq": REALISM_SEQ, "dims": 2, "dtw_w_max_rel_err": dtw_rel,
+            "kernel_max_rel_err": rel, "kernel_max_abs_err": err}
+    if device.type == "cuda":
+        line.update(ms=time_ms(lambda: dtw_pairs(x, y), iters=20),
+                    plain_ms=time_ms(lambda: dtw_pairs_plain(x, y), iters=3, warmup=1),
+                    **dtw_bound_ms(pairs, pairs, pairs, REALISM_SEQ, 2), library_ms=None)
+    print(json.dumps(line), flush=True)
+    return {**line, "launches": runs[device.type]["dtw_launches"]}
+
+
+# -- reference weights ------------------------------------------------------------------------
+
+
+def reference_layout(state: dict) -> dict:
+    """A train state's four models as the CHI'23 reference implementation's
+    ``state_dict``s (numpy): Linear weights (out, in), LSTM gates (4H, in),
+    Conv1d (out, in, k), spectral-norm ``weight_orig`` and ``weight_u``."""
+    def a(t):
+        return t.detach().cpu().numpy()
+
+    def linear(sd, prefix, p, u=None):
+        sd[f"{prefix}.weight_orig" if u is not None else f"{prefix}.weight"] = a(p["w"]).T.copy()
+        sd[f"{prefix}.bias"] = a(p["b"])
+        if u is not None:
+            sd[f"{prefix}.weight_u"] = a(u)
+
+    g = state["g"]["params"]
+    gen = {}
+    for k, layer in enumerate(g["lstm"]):
+        for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            for name in ("w_ih", "w_hh"):
+                gen[f"lstm.weight_{name[2:]}_l{k}{suffix}"] = a(layer[d][name]).T.copy()
+            for name in ("b_ih", "b_hh"):
+                gen[f"lstm.bias_{name[2:]}_l{k}{suffix}"] = a(layer[d][name])
+    linear(gen, "output_layer", g["out"])
+    e = state["e"]["params"]
+    enc = {}
+    for i, p in enumerate(e["mlp"]):
+        linear(enc, f"encoder.{2 * i}", p)
+    linear(enc, "fc_mu", e["mu"])
+    linear(enc, "fc_log_var", e["log_var"])
+    discs = {}
+    for m in ("d1", "d2"):
+        p, u, sd = state[m]["params"], state[m]["sn"], {}
+        for idx, conv, cu in zip((0, 2, 4), p["convs"], u["convs"]):
+            sd[f"temporal_conv.{idx}.weight_orig"] = a(conv["w"]).transpose(2, 1, 0).copy()
+            sd[f"temporal_conv.{idx}.bias"] = a(conv["b"])
+            sd[f"temporal_conv.{idx}.weight_u"] = a(cu)
+        for idx, lin, lu in zip((0, 2), p["mlp"], u["mlp"]):
+            linear(sd, f"mlp.{idx}", lin, lu)
+        linear(sd, "output_layer", p["out"], u["out"])
+        discs[m] = sd
+    return {"generator": gen, "encoder": enc, "discriminator_1": discs["d1"],
+            "discriminator_2": discs["d2"]}
+
+
+def serve_reference_weights(device, workdir: Path, n=512, batch=SERVE_BATCH, seed=11) -> dict:
+    """Phase 11: seeded full-width weights in the reference implementation's
+    layout through ``interop.torch_weights.trainer_state_from_torch`` (which
+    must give back the same trees), saved as a checkpoint and served through
+    ``generate.main --checkpoint-dir`` (bf16, 512 gestures, kernel 1 counted
+    from 0), then a small batch with injected noise against the CPU."""
+    from wordgesture_gan_tpu_torch.interop.torch_weights import trainer_state_from_torch
+    from wordgesture_gan_tpu_torch.train.checkpoint import save_checkpoint, save_run_metadata
+
+    mcfg = ModelConfig(time_head="tanh")
+    source = init_gan_state(seed, mcfg, device="cpu")
+    state = trainer_state_from_torch(reference_layout(source), mcfg, seed=seed, device="cpu")
+    for m in MODELS:
+        trees = [(state[m]["params"], source[m]["params"])]
+        if m in ("d1", "d2"):
+            trees.append((state[m]["sn"], source[m]["sn"]))
+        for got, want in trees:
+            if not all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want))):
+                raise AssertionError(f"trainer_state_from_torch changed {m}'s weights")
+    ckpt = workdir / "reference_weights"
+    save_checkpoint(state, str(ckpt), 0)
+    save_run_metadata(str(ckpt), generator_type="bilstm", time_head="tanh",
+                      gen_hidden_dim=HIDDEN)
+    out = workdir / "reference_gestures.npz"
+    reset_launches(fused_bilstm_fwd)
+    stats = generate.main(["--words", ",".join(WORDS), "--n", str(n), "--batch", str(batch),
+                           "--precision", "bfloat16", "--checkpoint-dir", str(ckpt),
+                           "--out", str(out), "--device", device.type])
+    launches, by_path = fused_bilstm_fwd.launches, dict(fused_bilstm_fwd.launches_by_path)
+    with np.load(out) as data:
+        gestures = data["gestures"]
+    if gestures.shape != (n, SEQ, 3) or not np.isfinite(gestures).all():
+        raise AssertionError(f"served {gestures.shape} gestures, finite "
+                             f"{np.isfinite(gestures).all()}")
+    expected = chunk_layout(n, batch)[1]
+    path = bilstm_fused.kernel_path(torch.bfloat16, HIDDEN, SEQ, LAYERS)
+    if device.type == "cuda" and by_path != only_path(fused_bilstm_fwd, path, expected):
+        raise AssertionError(f"kernel 1 launches {by_path}, expected {expected} on {path}")
+    config = ModelConfig(time_head="tanh", compute_dtype="bfloat16")
+    rng = np.random.default_rng(8)
+    kb = QWERTYKeyboard()
+    protos = np.stack([kb.get_word_prototype(WORDS[i], SEQ) for i in rng.integers(0, 40, 48)])
+    z = rng.normal(size=(len(protos), LATENT)).astype(np.float32)
+    path_ckpt = str(find_checkpoint(str(ckpt)))
+    got = generate_gestures(load_generator(path_ckpt, config, device=device), protos, config,
+                            batch=32, device=device, z=z)
+    want = generate_gestures(load_generator(path_ckpt, config, device="cpu"), protos, config,
+                             batch=32, device="cpu", z=z)
+    err = float(np.abs(got - want).max())
+    line = {"serving": "generate.main on reference-layout weights", "n": n,
+            "gestures_per_s": stats["gestures_per_s"], "launches": launches,
+            "launches_by_path": by_path, "max_abs_err_vs_cpu": err,
+            "tolerance": TOLERANCE["bfloat16"]}
+    print(json.dumps(line), flush=True)
+    if not err <= TOLERANCE["bfloat16"]:
+        raise AssertionError(f"reference weights served on the card differ from the CPU by {err}")
+    return line
+
+
 # -- the MLP and transformer generators, and the variable-length path ---------------------
 
 FAMILIES = ("mlp", "transformer")
@@ -1662,6 +2124,8 @@ def evaluate_variable(device, workdir: Path, users=EVAL_USERS, n=EVAL_N,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-worker"]:     # one rank of phase 9b
+        return dp_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
@@ -1736,6 +2200,19 @@ def main() -> int:
         contrastive(device, Path(tmp))
         contrastive_step_vs_cpu(device)
         print(json.dumps({"phase": "contrastive", "seconds": time.perf_counter() - t0}), flush=True)
+        t0 = time.perf_counter()
+        dp_cli = train_cli_nccl(device, Path(tmp))
+        print(json.dumps({"comparison": "ms per flagship bf16 step, B=512",
+                          "single_process_train_gan_phase5": trained["ms_per_step"][-1],
+                          "nccl_one_rank_train_cli_phase9a": dp_cli["ms_per_step"]}), flush=True)
+        data_parallel_vs_single(device, Path(tmp))
+        print(json.dumps({"phase": "data_parallel", "seconds": time.perf_counter() - t0}),
+              flush=True)
+        t0 = time.perf_counter()
+        realism_line = realism_report(device, Path(tmp))
+        serve_reference_weights(device, Path(tmp))
+        print(json.dumps({"phase": "realism_and_reference_weights",
+                          "seconds": time.perf_counter() - t0}), flush=True)
     timings = {name: time_kernel(device, name) for name in ("bfloat16", "float32")}
     for name in ("bfloat16", "float32"):
         time_kernel(device, name, batch=TRAIN_CALL_BATCH)
@@ -1805,13 +2282,17 @@ def main() -> int:
         "name": "dtw", "route": "cuda",
         "source": "wordgesture_gan_tpu_torch/csrc/dtw.cu",
         "replaces": "wordgesture_gan_tpu/ops/dtw_pallas.py:53",
-        "launches": evaluated["launches"]["dtw"] + evaluated_vl["launches"]["dtw"],
+        "launches": evaluated["launches"]["dtw"] + evaluated_vl["launches"]["dtw"]
+        + realism_line["launches"],
         "max_abs_err": max(max(c["max_abs_err"] for c in dtw_checks),
                            dtw_t["max_abs_err_all_pairs"]),
         "max_rel_err": max(max(c["max_rel_err"] for c in dtw_checks),
                            dtw_t["max_rel_err_all_pairs"]),
         "ms": dtw_t["ms"], "plain_ms": dtw_t["plain_ms"], "bound_ms": dtw_t["bound_ms"],
         "bound_by": dtw_t["bound_by"], "library_ms": None,
+        # The realism report's one call: aligned pairs at L=64, D=2.
+        "realism": {k: realism_line[k] for k in ("dtw_pairs", "seq", "dims", "ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "kernel_max_rel_err")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

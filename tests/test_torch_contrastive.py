@@ -543,8 +543,7 @@ def test_contrastive_cli_flags_are_the_jax_clis_flags():
     root = Path(train_contrastive_cli.__file__).resolve().parent.parent
     data_flags = {"--data", "--synthetic", "--synthetic-users", "--max-files", "--time64",
                   "--seed"}
-    for cli, script, dropped in ((train_contrastive_cli, "train_contrastive.py",
-                                  {"--data-axis-size"}),
+    for cli, script, dropped in ((train_contrastive_cli, "train_contrastive.py", set()),
                                  (eval_contrastive_cli, "eval_contrastive.py", set())):
         want = flags_of((root / script).read_text())
         got = {a.option_strings[0]: a.default for a in cli.build_parser()._actions

@@ -467,3 +467,52 @@ def test_scale_metrics_on_cuda_match_cpu(cuda_device):
     assert abs(got["energy_distance"] - want["energy_distance"]) <= 1e-4
     for k in ("precision", "recall"):
         assert abs(got[k] - want[k]) <= 1.0 / n + 1e-9, k
+
+
+# -- the realism report's DTW shape, and data parallelism on the card ------------------------
+
+
+@pytest.mark.parametrize("pairs", [1, 131, 14000])
+def test_dtw_pairs_kernel_at_the_realism_shape(cuda_device, pairs):
+    """Kernel 4 at the realism report's shape: (x, y) pairs of 64 points."""
+    x, y = _walks(2, pairs, 64, 2, cuda_device), _walks(3, pairs, 64, 2, cuda_device)
+    torch.testing.assert_close(dtw_pairs(x, y), dtw_pairs_plain(x, y), rtol=DTW_RTOL, atol=1e-6)
+
+
+def test_nccl_one_rank_steps_match_one_process(cuda_device, monkeypatch):
+    """The GAN and contrastive steps (full width, float32) under a one-rank
+    NCCL process group, one gradient all-reduce per gradient computation,
+    against the same steps with no process group, with the tolerances
+    ``chip_smoke.DP_TOL`` states."""
+    import chip_smoke
+    from wordgesture_gan_tpu_torch.parallel import (create_mesh, maybe_init_distributed,
+                                                    shutdown_distributed)
+
+    for k, v in {"WGG_DISTRIBUTED": "1", **chip_smoke.distributed_env(0, 1,
+                                                                      chip_smoke.free_port())}.items():
+        monkeypatch.setenv(k, v)
+    assert maybe_init_distributed(cuda_device, verbose=False, timeout=120)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        got = chip_smoke.dp_steps(cuda_device, create_mesh(device=cuda_device))
+    finally:
+        shutdown_distributed()
+    want = chip_smoke.dp_steps(cuda_device, None)
+    for key in want:
+        kind, lr = key.split("/")
+        n_critic = chip_smoke.FLAGSHIP_TRAIN["n_critic"]
+        err = chip_smoke._dp_errors(got[key], want[key], float(lr),
+                                    {"d1": n_critic, "d2": n_critic} if kind == "gan" else {})
+        assert err["loss"] <= chip_smoke.DP_TOL["loss"] and err["grad"] <= chip_smoke.DP_TOL["grad"]
+        assert err["bn"] <= chip_smoke.DP_TOL["bn"] and err["param_in_lr_per_adam_step"] <= 2
+        assert got[key]["collectives"] == (chip_smoke.DP_COLLECTIVES_PER_STEP if kind == "gan"
+                                           else 1)
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device, tmp_path):
+    """Phase 9b of chip_smoke.py: two gloo ranks sharing the card against one
+    process on the card; it raises outside ``chip_smoke.DP_TOL``."""
+    import chip_smoke
+
+    line = chip_smoke.data_parallel_vs_single(cuda_device, tmp_path)
+    assert set(line["collectives"].values()) <= {1, chip_smoke.DP_COLLECTIVES_PER_STEP}

@@ -18,8 +18,10 @@ import torch
 from wordgesture_gan_tpu.ops.dtw import dtw_distance_matrix as jax_dtw_distance_matrix
 from wordgesture_gan_tpu.ops.dtw import dtw_pairs as jax_dtw_pairs
 from wordgesture_gan_tpu.ops.dtw_pallas import dtw_pairs_pallas
-from wordgesture_gan_tpu.ops.fastdtw_approx import fastdtw
+from wordgesture_gan_tpu.ops import fastdtw_approx as jax_fastdtw_approx
 from wordgesture_gan_tpu_torch.ops import dtw as port_dtw
+from wordgesture_gan_tpu_torch.ops.fastdtw_approx import dtw as fastdtw_exact
+from wordgesture_gan_tpu_torch.ops.fastdtw_approx import fastdtw
 from wordgesture_gan_tpu_torch.ops.dtw import (dtw_distance_matrix, dtw_matrix, dtw_pairs,
                                                dtw_pairs_plain)
 
@@ -78,6 +80,22 @@ def test_exact_dtw_is_no_larger_than_fastdtw():
         approx, _ = fastdtw(x[p], y[p], radius=1, dist=2)
         assert exact[p] <= approx * (1 + 1e-5)
         assert exact[p] >= 0.5 * approx           # and not far below it on these walks
+
+
+@pytest.mark.parametrize("radius,dist", [(1, 2), (1, None), (3, 2)])
+def test_fastdtw_copy_matches_jax_package(radius, dist):
+    """The port's own FastDTW (numpy) returns the JAX package's distances and
+    warp paths; its exact ``dtw`` equals the port's plain DTW at dist=2."""
+    x, y = walks(11, 4, 40, 2), walks(12, 4, 40, 2)
+    for p in range(len(x)):
+        got = fastdtw(x[p], y[p], radius=radius, dist=dist)
+        want = jax_fastdtw_approx.fastdtw(x[p], y[p], radius=radius, dist=dist)
+        assert got[0] == want[0] and got[1] == want[1]
+        assert fastdtw_exact(x[p], y[p], dist=dist) == jax_fastdtw_approx.dtw(x[p], y[p],
+                                                                               dist=dist)
+    if dist == 2:
+        exact = np.array([fastdtw_exact(x[p], y[p], dist=2)[0] for p in range(len(x))])
+        np.testing.assert_allclose(plain(x, y), exact, rtol=1e-5)
 
 
 def test_identical_sequences_have_zero_distance():

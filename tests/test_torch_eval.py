@@ -351,5 +351,5 @@ def test_cli_flags_are_the_jax_clis_flags():
     want = flags_of((root / "train_gan.py").read_text())
     got = {a.option_strings[0]: a.default for a in train_cli.build_parser()._actions
            if a.option_strings and a.option_strings[0] != "-h"}
-    assert set(want) - set(got) == {"--data-axis-size", "--profile-dir"}
+    assert set(want) <= set(got)
     assert all(got[k] == v for k, v in want.items() if k in got and v is not None)

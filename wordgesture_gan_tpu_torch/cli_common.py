@@ -1,18 +1,24 @@
 """Shared CLI plumbing: dataset resolution (real zip or synthetic stand-in),
 split construction, wandb gating (the port's copy of the JAX package's
-``cli_common.py``)."""
+``cli_common.py``), and the ranks of a data-parallel run."""
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from pathlib import Path
-from typing import Tuple
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
 
 from .configs import ModelConfig, TrainingConfig
 from .data.pipeline import GestureArrays, create_train_test_split, load_dataset_from_zip
 from .data.synthetic import write_synthetic_swipelogs_zip
 from .keyboard import QWERTYKeyboard
+from .parallel.distributed import (distributed_env_requested, local_ranks, maybe_init_distributed,
+                                   rank_device, shutdown_distributed)
 from .utils.logging import log
 
 
@@ -98,3 +104,36 @@ def maybe_wandb(enabled: bool, **init_kwargs):
     except Exception as e:  # wandb missing or unreachable: degrade to logs
         log(f"wandb unavailable ({e}); continuing without it")
         return None
+
+
+def add_parallel_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--data-axis-size", type=int, default=-1,
+                        help="data-parallel ranks, one process each (-1 = every visible card, "
+                             "1 on the CPU); without torchrun's environment, N > 1 starts "
+                             "ranks 1..N-1 as copies of this command")
+
+
+def data_axis_size(requested: int, device: torch.device) -> int:
+    """Ranks for ``--data-axis-size``: -1 means every visible card (1 on the CPU)."""
+    if requested != -1:
+        return requested
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def run_ranks(module: str, args: argparse.Namespace, argv: Optional[Sequence[str]],
+              device: torch.device, body: Callable):
+    """``body(device)`` in this process: as one rank of the process group
+    the environment asks for (torchrun, ``WGG_DISTRIBUTED=1``), as rank 0 of
+    ``--data-axis-size`` local ranks started here (``python -m module
+    *argv``), or alone. A group this call joined is left at the end."""
+    world = data_axis_size(args.data_axis_size, device)
+    if world > 1 and not distributed_env_requested():
+        with local_ranks(world, module, list(sys.argv[1:] if argv is None else argv)):
+            return run_ranks(module, args, argv, device, body)
+    joined_before = dist.is_initialized()
+    owner = maybe_init_distributed(device) and not joined_before
+    try:
+        return body(rank_device(device) if dist.is_initialized() else device)
+    finally:
+        if owner:
+            shutdown_distributed()

@@ -1,7 +1,7 @@
 """Configuration dataclasses: the port's copy of ``ModelConfig``,
 ``TrainingConfig``, ``EvaluationConfig``, ``KeyboardConfig``,
-``ContrastiveConfig`` and ``PathsConfig`` from the JAX package's
-``configs.py``.
+``ContrastiveConfig``, ``PathsConfig`` and ``RuntimeConfig`` from the JAX
+package's ``configs.py``.
 
 Field names and defaults are identical, so a ``run_meta.json`` written by
 either package configures the other.
@@ -193,12 +193,36 @@ class PathsConfig:
     random_seed: int = 42
 
 
+@dataclass(frozen=True)
+class RuntimeConfig:
+    """Data parallelism and precision: one process per card, joined by
+    ``torch.distributed`` (``parallel/``), each process training on its rows
+    of every global batch.
+
+    ``donate_state`` and ``scan_epoch`` of the JAX package's ``RuntimeConfig``
+    are absent: the first asks XLA to reuse the state's buffers (the port's
+    steps update the state in place anyway), the second fuses an epoch into
+    one ``lax.scan`` program, which has no PyTorch counterpart (the loop runs
+    the step once per batch).
+    """
+
+    # Ranks on the data-parallel axis: -1 → every visible card (one process
+    # each), or every rank of an existing process group.
+    data_axis_size: int = -1
+    mesh_axis_names: Tuple[str, ...] = ("data",)
+
+    # "float32" or "bfloat16" (bf16 compute, fp32 weights, optimizer and
+    # losses). CLIs copy this into ModelConfig.compute_dtype.
+    precision: str = "float32"
+
+
 DEFAULT_MODEL_CONFIG = ModelConfig()
 DEFAULT_TRAINING_CONFIG = TrainingConfig()
 DEFAULT_EVALUATION_CONFIG = EvaluationConfig()
 DEFAULT_KEYBOARD_CONFIG = KeyboardConfig()
 DEFAULT_CONTRASTIVE_CONFIG = ContrastiveConfig()
 DEFAULT_PATHS_CONFIG = PathsConfig()
+DEFAULT_RUNTIME_CONFIG = RuntimeConfig()
 
 
 def asdict(cfg) -> dict:

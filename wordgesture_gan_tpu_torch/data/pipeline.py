@@ -181,6 +181,10 @@ class GestureArrays:
                 "word": self.words[idx]}
 
 
+# The name of the reference's map-style dataset, for code written against it.
+GestureDataset = GestureArrays
+
+
 def within_word_diversity(ds: GestureArrays, max_pairs_per_word: int = 4, seed: int = 0) -> float:
     """Mean L1 distance between two real gestures of the same word: the
     corpus's conditional diversity, the data-driven margin of
@@ -254,3 +258,44 @@ def create_train_test_split(
     if verbose:
         print(f"Training samples: {len(train_ds)}, Test samples: {len(test_ds)}")
     return train_ds, test_ds
+
+
+class ArrayLoader:
+    """Host-side batch iterator over a ``GestureArrays`` split, the
+    counterpart of the reference's DataLoader: dicts of numpy ``gesture``,
+    ``prototype`` and ``word`` batches. The training loop does not use it (it
+    shuffles and batches on the device, ``gan_step.shuffle_batches``); it is
+    for host-side consumers and interactive use. For the same seed it yields
+    the JAX package's batches in the same order (numpy ``default_rng``)."""
+
+    def __init__(self, dataset: GestureArrays, batch_size: int = 512,
+                 shuffle: bool = False, drop_last: bool = False, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self):
+        n = len(self.dataset)
+        order = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        end = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for start in range(0, end, self.batch_size):
+            idx = order[start:start + self.batch_size]
+            yield {"gesture": self.dataset.gestures[idx],
+                   "prototype": self.dataset.prototypes[idx],
+                   "word": [self.dataset.words[i] for i in idx]}
+
+
+def create_data_loaders(train_dataset: GestureArrays, test_dataset: GestureArrays,
+                        batch_size: int = 512, num_workers: int = 0,
+                        seed: int = 0) -> Tuple[ArrayLoader, ArrayLoader]:
+    """Train (shuffled, drop-last) and test (in order) batch iterators.
+    ``num_workers`` is accepted for the reference's signature; iteration runs
+    in this process."""
+    return (ArrayLoader(train_dataset, batch_size, shuffle=True, drop_last=True, seed=seed),
+            ArrayLoader(test_dataset, batch_size, shuffle=False, drop_last=False))

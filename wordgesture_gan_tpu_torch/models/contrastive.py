@@ -39,15 +39,17 @@ def contrastive_encoder_init(
 
 
 def contrastive_encoder_apply(params: Dict, state: Dict, x: torch.Tensor, train: bool,
-                              normalize: bool = True) -> Tuple[torch.Tensor, Dict]:
+                              normalize: bool = True, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """(B, L, 3) → ((B, embedding_dim), new batchnorm state); in train mode
-    BatchNorm uses the batch's statistics and advances the running ones."""
+    BatchNorm uses the batch's statistics and advances the running ones.
+    With a process group in ``mesh`` (``parallel/mesh.py``), x is this
+    rank's rows and BatchNorm's statistics are the global batch's."""
     h = x
     new_bn_states = []
     for conv_p, bn_p, bn_s, (_ci, _co, _k, stride, pad) in zip(
             params["convs"], params["bns"], state["bns"], _CONV_SPEC):
         h = conv1d(conv_p, h, stride=stride, padding=pad)
-        h, bn_s_new = batchnorm(bn_p, bn_s, h, train=train)
+        h, bn_s_new = batchnorm(bn_p, bn_s, h, train=train, mesh=mesh)
         h = torch.relu(h)
         new_bn_states.append(bn_s_new)
 

@@ -135,21 +135,39 @@ def batchnorm_init(dim: int) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.T
 
 
 def batchnorm(params: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor], x: torch.Tensor,
-              train: bool, momentum: float = 0.1,
-              eps: float = 1e-5) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              train: bool, momentum: float = 0.1, eps: float = 1e-5,
+              mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Normalize over every axis but the last → (out, new state).
 
     Train mode uses the batch's mean and biased variance and returns running
     statistics advanced with PyTorch's convention, new = (1-m)·old + m·batch,
     the variance term unbiased (n / (n-1)); the new statistics carry no
-    gradient. Eval mode uses the running statistics and returns ``state``."""
+    gradient. Eval mode uses the running statistics and returns ``state``.
+
+    ``mesh`` with a process group (``parallel/mesh.py``; the counterpart of
+    the JAX function's ``axis_name``) makes the moments, the running
+    statistics and n those of the global batch, x being this rank's rows: a
+    differentiable all-reduce of the sums and the count, then of the squared
+    deviations from the global mean (two passes, as the single-process
+    variance is computed)."""
     axes = tuple(range(x.ndim - 1))
     if train:
-        mean = x.mean(dim=axes)
-        var = x.var(dim=axes, unbiased=False)
-        n = x.numel() // x.shape[-1]
+        if mesh is not None and mesh.active:
+            from ..parallel.mesh import all_reduce_sum
+
+            sums = all_reduce_sum(mesh, torch.cat([x.sum(dim=axes), x.new_tensor(
+                [x.numel() // x.shape[-1]])]))
+            n = sums[-1]
+            mean = sums[:-1] / n
+            var = all_reduce_sum(mesh, ((x - mean) ** 2).sum(dim=axes)) / n
+            bessel = n / torch.clamp(n - 1, min=1)
+        else:
+            mean = x.mean(dim=axes)
+            var = x.var(dim=axes, unbiased=False)
+            n = x.numel() // x.shape[-1]
+            bessel = n / max(n - 1, 1)
         with torch.no_grad():
-            unbiased = var * (n / max(n - 1, 1))
+            unbiased = var * bessel
             new_state = {"mean": (1 - momentum) * state["mean"] + momentum * mean,
                          "var": (1 - momentum) * state["var"] + momentum * unbiased}
     else:

@@ -1,6 +1,6 @@
 """Contrastive encoder training: the SupCon step, the epoch over host-sampled
 index rows, centroid-based recall, checkpoint and resume (the port of the
-JAX package's ``train/contrastive_loop.py``, on one device).
+JAX package's ``train/contrastive_loop.py``).
 
 The state is a plain dict::
 
@@ -13,6 +13,16 @@ gradients with ``torch.autograd.grad`` and updates parameters and Adam
 moments in place (``train/state.py:apply_update``). An epoch is one
 (n_batches, N*K) index array drawn on the host (``data/contrastive.py``);
 each row is gathered from the gesture store, which moves to the device once.
+
+Data parallelism (``RuntimeConfig``, ``parallel/``): every rank draws the
+same index rows and trains on its contiguous block of each global batch.
+BatchNorm's moments and running statistics are the global batch's (a
+differentiable all-reduce), and SupCon runs over the all-gathered embeddings
+and labels, so a word's two gestures count as positives wherever they sit.
+Every rank then computes the same global loss; the gather's backward sums
+over ranks, so each rank differentiates 1/world_size of the loss, and one
+all-reduce of one flat buffer sums the parameter gradients. Rank 0 alone
+writes checkpoints and history, and every rank waits after each save.
 """
 
 from __future__ import annotations
@@ -24,10 +34,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..configs import DEFAULT_CONTRASTIVE_CONFIG, ContrastiveConfig
+from ..configs import (DEFAULT_CONTRASTIVE_CONFIG, DEFAULT_RUNTIME_CONFIG, ContrastiveConfig,
+                       RuntimeConfig)
 from ..data.contrastive import ContrastiveArrays, sample_epoch_batches
 from ..losses import supervised_contrastive_loss
 from ..models.contrastive import contrastive_encoder_apply, contrastive_encoder_init
+from ..parallel.mesh import (Mesh, all_gather_rows, all_reduce_gradients, barrier, create_mesh,
+                             replicate)
 from ..utils.chunking import chunk_layout, pad_to_chunks
 from ..utils.logging import log
 from ..utils.preemption import PreemptionGuard
@@ -66,13 +79,25 @@ def init_contrastive_state(seed: int = 0, config: ContrastiveConfig = DEFAULT_CO
 
 
 def contrastive_train_step(state: Dict, batch: torch.Tensor, labels: torch.Tensor, lr: float,
-                           config: ContrastiveConfig = DEFAULT_CONTRASTIVE_CONFIG) -> torch.Tensor:
+                           config: ContrastiveConfig = DEFAULT_CONTRASTIVE_CONFIG,
+                           mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One SupCon step on a (B, L, 3) batch, in place: BatchNorm's running
     statistics advance, the gradients are clipped to global norm 1 and Adam
-    updates the parameters. Returns the loss (a device scalar)."""
-    emb, new_bn = contrastive_encoder_apply(state["params"], state["bn"], batch, train=True)
-    loss = supervised_contrastive_loss(emb, labels, config.temperature)
-    grads = torch.autograd.grad(loss, tree_leaves(state["params"]))
+    updates the parameters. Returns the loss (a device scalar). With a
+    process group in ``mesh``, ``batch`` and ``labels`` are the global ones
+    and the step equals the single-process step on them (module docstring)."""
+    if mesh is None or not mesh.active:
+        emb, new_bn = contrastive_encoder_apply(state["params"], state["bn"], batch, train=True)
+        loss = objective = supervised_contrastive_loss(emb, labels, config.temperature)
+    else:
+        n = batch.shape[0]
+        local, new_bn = contrastive_encoder_apply(state["params"], state["bn"],
+                                                  batch[mesh.rows(n)], train=True, mesh=mesh)
+        loss = supervised_contrastive_loss(all_gather_rows(mesh, local, n), labels,
+                                           config.temperature)
+        objective = loss / mesh.world_size
+    grads, _ = all_reduce_gradients(mesh, torch.autograd.grad(objective,
+                                                              tree_leaves(state["params"])))
     apply_update(state["params"], grads, state["opt"], lr, GRAD_CLIP, b1=ADAM_B1, b2=ADAM_B2)
     state["bn"] = new_bn
     state["step"] += 1
@@ -86,6 +111,7 @@ def contrastive_train_epoch(
     batch_indices,
     lr_schedule: Tuple[float, float, int],
     config: ContrastiveConfig = DEFAULT_CONTRASTIVE_CONFIG,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Dict, torch.Tensor]:
     """One epoch: a step per (N*K,) index row of ``batch_indices`` into the
     device-resident ``gestures`` (N, L, 3) and ``labels`` (N,), with the
@@ -97,7 +123,7 @@ def contrastive_train_epoch(
     for row in rows:
         lr = float(cosine_annealing_lr(base_lr, min(state["step"], total_steps), total_steps,
                                        eta_min))
-        losses.append(contrastive_train_step(state, gestures[row], labels[row], lr, config))
+        losses.append(contrastive_train_step(state, gestures[row], labels[row], lr, config, mesh))
     state["epoch"] += 1
     out = torch.stack(losses) if losses else gestures.new_zeros((0,))
     return state, out
@@ -153,6 +179,7 @@ def train_contrastive(
     train_data: ContrastiveArrays,
     test_data: ContrastiveArrays,
     config: ContrastiveConfig = DEFAULT_CONTRASTIVE_CONFIG,
+    runtime_config: RuntimeConfig = DEFAULT_RUNTIME_CONFIG,
     num_epochs: Optional[int] = None,
     seed: int = 42,
     checkpoint_dir: Optional[str] = None,
@@ -162,8 +189,9 @@ def train_contrastive(
     verbose: bool = True,
     device="cuda",
 ) -> Tuple[Dict, Dict[str, list]]:
-    """A full contrastive training run on ``device`` with best-recall
-    checkpoints → (state, history).
+    """A full contrastive training run on ``device``, over the ranks of the
+    process group if there is one, with best-recall checkpoints → (state,
+    history).
 
     Per epoch: index rows from ``random.Random(seed * 1_000_003 + epoch)``
     (a resumed run draws what an unbroken one would), one step per row, a
@@ -176,20 +204,26 @@ def train_contrastive(
     the newest ``epoch_N.pt``. ``history`` holds "train_loss", "test_<metric>"
     per evaluation, and "epoch_seconds" (host clock, ending when the epoch's
     losses reached the host)."""
-    say = log if verbose else (lambda *_: None)
     num_epochs = num_epochs or config.num_epochs
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA device is available; pass device='cpu' "
                            "to train on the CPU")
+    mesh = create_mesh(runtime_config.data_axis_size, runtime_config.mesh_axis_names, device)
+    say = log if verbose and mesh.is_main else (lambda *_: None)
+    writes = checkpoint_dir if mesh.is_main else None
+    if mesh.active:
+        say(f"Data parallel: {mesh.world_size} rank(s) on axis {mesh.axis_names}")
 
     state = init_contrastive_state(seed, config, device)
     start_epoch = 0
     name = f"{checkpoint_name}.pt"
     if resume and checkpoint_dir and restore_checkpoint(state, checkpoint_dir, name) is not None:
         start_epoch = state["epoch"]
-        truncate_history(checkpoint_dir, start_epoch)
+        if writes:
+            truncate_history(checkpoint_dir, start_epoch)
         say(f"Resumed contrastive training from epoch {start_epoch}")
+    replicate(mesh, state)
 
     g_dev = torch.as_tensor(np.asarray(train_data.gestures, np.float32), device=device)
     l_dev = torch.as_tensor(np.asarray(train_data.labels, np.int64), device=device)
@@ -207,12 +241,12 @@ def train_contrastive(
                                              config.gestures_per_word, sampler_rng)
             t0 = time.perf_counter()
             state, losses = contrastive_train_epoch(state, g_dev, l_dev, batch_idx, schedule,
-                                                    config)
+                                                    config, mesh)
             avg_loss = float(losses.mean().item()) if len(losses) else float("nan")
             dt = time.perf_counter() - t0
             history["train_loss"].append(avg_loss)
             history["epoch_seconds"].append(dt)
-            append_history(checkpoint_dir, epoch, {"train_loss": avg_loss})
+            append_history(writes, epoch, {"train_loss": avg_loss})
             say(f"Epoch {epoch + 1}/{num_epochs} [{dt:.1f}s] loss: {avg_loss:.4f}")
 
             if (epoch + 1) % eval_every == 0 or epoch == num_epochs - 1:
@@ -225,18 +259,27 @@ def train_contrastive(
                     best_recall = metrics["recall@1"]
                     state["best_recall"] = best_recall
                     if checkpoint_dir:
-                        save_checkpoint(state, checkpoint_dir, epoch, keep_latest=False)
-                        save_named(state, checkpoint_dir, checkpoint_name)
+                        _save(state, writes, epoch, checkpoint_name, mesh)
                     say(f"New best recall@1: {best_recall:.4f}")
 
-            if preempt.requested:
+            if preempt.agreed(mesh):
                 if checkpoint_dir:
-                    save_checkpoint(state, checkpoint_dir, epoch, keep_latest=False)
-                    save_named(state, checkpoint_dir, checkpoint_name)
+                    _save(state, writes, epoch, checkpoint_name, mesh)
                 say(f"Preemption signal received — stopped cleanly after epoch {epoch + 1}; "
                     f"rerun to resume.")
                 break
 
     if checkpoint_dir:
-        save_named(state, checkpoint_dir, checkpoint_name)
+        _save(state, writes, None, checkpoint_name, mesh)
     return state, history
+
+
+def _save(state: Dict, writes: Optional[str], epoch: Optional[int], name: str,
+          mesh: Mesh) -> None:
+    """Rank 0 writes ``epoch_{epoch+1}.pt`` (unless ``epoch`` is None) and
+    ``<name>.pt``; every rank waits until both are whole."""
+    if writes:
+        if epoch is not None:
+            save_checkpoint(state, writes, epoch, keep_latest=False)
+        save_named(state, writes, name)
+    barrier(mesh)

@@ -1,7 +1,14 @@
 """The GAN training loop and batched sampling from the generator (the port
-of the JAX package's ``train/gan_loop.py``: ``train_gan`` on one device,
-and ``generate_gestures``), with the epoch loop the variable-length trainer
-shares (``run_epochs``)."""
+of the JAX package's ``train/gan_loop.py``: ``train_gan`` and
+``generate_gestures``), with the epoch loop the variable-length trainer
+shares (``run_epochs``).
+
+Data parallelism (``RuntimeConfig``, ``parallel/``): in a process group each
+rank holds the whole training set on its card, draws the same epoch
+permutation and the same noise, and trains on its rows of each global batch
+(``gan_step.py``); rank 0 alone writes the run metadata, the history, the log
+and the checkpoints, and every rank waits at a barrier after each save, so a
+resume on any rank reads a whole checkpoint."""
 
 from __future__ import annotations
 
@@ -13,12 +20,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..configs import (DEFAULT_MODEL_CONFIG, DEFAULT_TRAINING_CONFIG, ModelConfig,
-                       TrainingConfig)
+from ..configs import (DEFAULT_MODEL_CONFIG, DEFAULT_RUNTIME_CONFIG, DEFAULT_TRAINING_CONFIG,
+                       ModelConfig, RuntimeConfig, TrainingConfig)
 from ..data.pipeline import GestureArrays, within_word_diversity
 from ..models.gan import Generator
 from ..utils.chunking import chunk_layout, pad_to_chunks
+from ..parallel.mesh import barrier, create_mesh, is_main_process, replicate
 from ..utils.preemption import PreemptionGuard
+from ..utils.profiling import Throughput
 from .checkpoint import restore_checkpoint, save_checkpoint, save_run_metadata
 from .gan_step import METRIC_KEYS, gan_train_step, shuffle_batches
 from .history import append_history, truncate_history
@@ -34,6 +43,9 @@ class TrainResult:
     # the epoch's losses reached the host), and the gestures it trained on.
     epoch_seconds: List[float] = field(default_factory=list)
     gestures_per_epoch: int = 0
+    # Gestures per second over the run's epochs, and per chip (n_chips: the
+    # ranks of the data axis).
+    throughput: Throughput = field(default_factory=lambda: Throughput(1))
 
 
 # The losses each epoch's log line shows, as (label, metric).
@@ -45,6 +57,7 @@ def train_gan(
     train_ds: GestureArrays,
     model_config: ModelConfig = DEFAULT_MODEL_CONFIG,
     training_config: TrainingConfig = DEFAULT_TRAINING_CONFIG,
+    runtime_config: RuntimeConfig = DEFAULT_RUNTIME_CONFIG,
     num_epochs: Optional[int] = None,
     seed: int = 42,
     checkpoint_dir: Optional[str] = None,
@@ -53,7 +66,8 @@ def train_gan(
     verbose: bool = True,
     device="cuda",
 ) -> TrainResult:
-    """Train the two-cycle GAN on ``train_ds`` on one ``device``.
+    """Train the two-cycle GAN on ``train_ds`` on ``device``, over the ranks
+    of the process group if there is one (``runtime_config.data_axis_size``).
 
     Per epoch: the cosine learning rate, a seeded shuffle with drop-last,
     one ``gan_train_step`` per batch, the epoch's mean losses (a non-finite
@@ -63,53 +77,66 @@ def train_gan(
     ``save_every`` epochs and after the last. With ``resume`` and a
     checkpoint in ``checkpoint_dir`` the run continues after the saved
     epoch. A first SIGTERM/SIGINT stops cleanly after the epoch in flight,
-    with a checkpoint."""
-    say = print if verbose else (lambda *_: None)
+    with a checkpoint; in a process group every rank stops on the same epoch.
+    ``epoch_callback`` runs on rank 0 only."""
+    say = print if verbose and is_main_process() else (lambda *_: None)
     if training_config.lambda_div and training_config.div_margin is None:
         margin = within_word_diversity(train_ds)
         training_config = dataclasses.replace(training_config, div_margin=margin)
         say(f"Diversity hinge margin measured from data: {margin:.4f} (mean within-word L1)")
     arrays = {"gesture": train_ds.gestures, "prototype": train_ds.prototypes}
     return run_epochs(
-        arrays, lambda s, b, lr: gan_train_step(s, b, lr, model_config, training_config),
-        METRIC_KEYS, _LOG_FIELDS, model_config, training_config, num_epochs, seed,
-        checkpoint_dir, resume, epoch_callback, say, device)
+        arrays, lambda s, b, lr, mesh: gan_train_step(s, b, lr, model_config, training_config,
+                                                      mesh=mesh),
+        METRIC_KEYS, _LOG_FIELDS, model_config, training_config, runtime_config, num_epochs,
+        seed, checkpoint_dir, resume, epoch_callback, say, device)
 
 
 def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, metric_keys: Sequence[str],
                log_fields: Sequence[Tuple[str, str]], model_config: ModelConfig,
-               training_config: TrainingConfig, num_epochs: Optional[int], seed: int,
-               checkpoint_dir: Optional[str], resume: bool,
-               epoch_callback: Optional[Callable], say: Callable, device) -> TrainResult:
+               training_config: TrainingConfig, runtime_config: RuntimeConfig,
+               num_epochs: Optional[int], seed: int, checkpoint_dir: Optional[str],
+               resume: bool, epoch_callback: Optional[Callable], say: Callable,
+               device) -> TrainResult:
     """The epoch loop ``train_gan`` and ``train_variable_gan`` share:
     ``arrays`` (the training set, one (n, ...) array per batch key) move to
-    ``device`` once, and ``step(state, batch, lr)`` runs once per batch,
-    returning the metrics ``metric_keys`` names."""
+    ``device`` once, and ``step(state, batch, lr, mesh)`` runs once per
+    global batch, returning the metrics ``metric_keys`` names."""
     num_epochs = num_epochs or training_config.num_epochs
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA device is available; pass device='cpu' "
                            "to train on the CPU")
+    mesh = create_mesh(runtime_config.data_axis_size, runtime_config.mesh_axis_names, device)
+    if not mesh.is_main:
+        say = lambda *_: None   # noqa: E731
+    writes = checkpoint_dir if mesh.is_main else None
+    if mesh.active:
+        say(f"Data parallel: {mesh.world_size} rank(s) on axis {mesh.axis_names}")
     data = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
             for k, v in arrays.items()}
 
     state = init_gan_state(seed, model_config, device)
     start_epoch = 0
     if checkpoint_dir:
-        save_run_metadata(checkpoint_dir, generator_type=model_config.generator_type,
-                          time_head=model_config.time_head,
-                          gen_hidden_dim=model_config.gen_hidden_dim)
+        if writes:
+            save_run_metadata(checkpoint_dir, generator_type=model_config.generator_type,
+                              time_head=model_config.time_head,
+                              gen_hidden_dim=model_config.gen_hidden_dim)
         if resume and restore_checkpoint(state, checkpoint_dir) is not None:
             start_epoch = state["epoch"]
-            truncate_history(checkpoint_dir, start_epoch)
+            if writes:
+                truncate_history(checkpoint_dir, start_epoch)
             say(f"Resumed from checkpoint at epoch {start_epoch}")
+    replicate(mesh, state)
     if start_epoch >= num_epochs:
         say(f"Already trained to epoch {start_epoch}, nothing to do.")
-        return TrainResult(state=state)
+        return TrainResult(state=state, throughput=Throughput(mesh.world_size))
 
     B = training_config.batch_size
     n_batches = next(iter(data.values())).shape[0] // B
-    result = TrainResult(state=state, gestures_per_epoch=n_batches * B)
+    result = TrainResult(state=state, gestures_per_epoch=n_batches * B,
+                         throughput=Throughput(mesh.world_size))
     with PreemptionGuard() as preempt:
         for epoch in range(start_epoch, num_epochs):
             lr = float(cosine_annealing_lr(training_config.learning_rate, epoch, num_epochs,
@@ -121,7 +148,7 @@ def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, metric_keys: Seque
             t0 = time.perf_counter()
             traces: Dict[str, List[torch.Tensor]] = {k: [] for k in metric_keys}
             for i in range(n_batches):
-                _, metrics = step(state, {k: v[i] for k, v in batches.items()}, lr)
+                _, metrics = step(state, {k: v[i] for k, v in batches.items()}, lr, mesh)
                 for k in metric_keys:
                     traces[k].append(metrics[k])
             if n_batches:
@@ -141,27 +168,37 @@ def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, metric_keys: Seque
                                          f"Last good checkpoint is in {checkpoint_dir!r}.")
             result.history.append(losses)
             result.epoch_seconds.append(dt)
-            append_history(checkpoint_dir, epoch, losses)
+            result.throughput.update(result.gestures_per_epoch, dt)
+            append_history(writes, epoch, losses)
             say(f"Epoch {epoch + 1}/{num_epochs} [{dt:.1f}s, "
                 f"{result.gestures_per_epoch / max(dt, 1e-9):.0f} gestures/s] - "
                 + " ".join(f"{label}:{losses[k]:.3f}" for label, k in log_fields)
                 + f" LR:{lr:.6f}")
-            if epoch_callback is not None:
+            if epoch_callback is not None and mesh.is_main:
                 epoch_callback(epoch, state, losses)
 
             saved = False
             if checkpoint_dir and ((epoch + 1) % training_config.save_every == 0
                                    or epoch == num_epochs - 1):
-                save_checkpoint(state, checkpoint_dir, epoch)
+                _save(state, writes, epoch, mesh)
                 say(f"  Checkpoint saved at epoch {epoch + 1}")
                 saved = True
-            if preempt.requested:
+            if preempt.agreed(mesh):
                 if checkpoint_dir and not saved:
-                    save_checkpoint(state, checkpoint_dir, epoch)
+                    _save(state, writes, epoch, mesh)
                 say(f"Preemption signal received — stopped cleanly after epoch {epoch + 1}; "
                     f"rerun to resume.")
                 break
+    say(f"Training done: {result.throughput.per_sec:.0f} gestures/s "
+        f"({result.throughput.per_sec_per_chip:.0f}/chip over {mesh.world_size} chip(s))")
     return result
+
+
+def _save(state: Dict, writes: Optional[str], epoch: int, mesh) -> None:
+    """Rank 0 writes the checkpoint; every rank waits until it is whole."""
+    if writes:
+        save_checkpoint(state, writes, epoch)
+    barrier(mesh)
 
 
 def generate_gestures(generator: Generator, prototypes: np.ndarray,

@@ -19,6 +19,18 @@ critic in the joint step, whose advanced u's are kept.
 The step updates ``state`` in place (parameters and Adam moments are
 overwritten, the critics' u trees replaced) and returns it with its metrics
 as 0-d float32 tensors on the device, so no step waits for the host.
+
+Data parallelism (``mesh`` with a process group, ``parallel/mesh.py``): every
+rank gets the global batch, draws the global batch's noise from its copy of
+the random generator (the same on every rank), and keeps its own contiguous
+rows of both. Each loss is a mean over rows, so a rank's share of the global
+loss is its local loss times its share of the rows; each gradient
+computation (one per critic update, one for G and E together) ends in one
+all-reduce of one flat buffer that sums those shares, the metrics riding
+along. Clipping and Adam then see the global gradient, so every rank applies
+the same update and the step equals the single-process step on the global
+batch. The critics' u vectors depend on the weights alone and stay
+replicated.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from ..losses import (diversity_hinge_loss, feature_matching_loss, kl_divergence
                       speed_profile_loss, time_delta_corr_loss, time_delta_loss,
                       wgan_critic_loss, wgan_generator_loss)
 from ..models.gan import disc_apply, encoder_apply, generator_apply
+from ..parallel.mesh import Mesh, all_reduce_gradients
 from ..utils.tree import tree_leaves
 from .state import apply_update
 
@@ -42,13 +55,20 @@ METRIC_KEYS = ("d1_loss", "d2_loss", "cycle1_total", "cycle1_wgan", "cycle1_feat
                "cycle2_total", "cycle2_wgan", "cycle2_feat", "cycle2_rec", "cycle2_kld")
 
 
+def _active(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    return mesh if mesh is not None and mesh.active else None
+
+
 def critic_update(disc: Dict, real: torch.Tensor, fake: torch.Tensor, lr: float,
                   model_config: ModelConfig, grad_clip_norm: float,
-                  fused: bool = False) -> torch.Tensor:
+                  fused: bool = False, mesh: Optional[Mesh] = None,
+                  share: float = 1.0) -> torch.Tensor:
     """One critic step on (real, detached fake): WGAN loss, clip, Adam.
     Updates ``disc`` (``{"params", "opt", "sn"}``) in place; returns the loss.
     Real and fake are two critic forwards, real first, unless ``fused``
-    scores them in one."""
+    scores them in one. With a process group in ``mesh``, ``real`` and
+    ``fake`` are this rank's rows, ``share`` its fraction of the global
+    batch, and the gradient and the returned loss are the global ones."""
     fake = fake.detach()
     params, sn = disc["params"], disc["sn"]
     if fused:
@@ -58,16 +78,20 @@ def critic_update(disc: Dict, real: torch.Tensor, fake: torch.Tensor, lr: float,
         real_scores, _, sn = disc_apply(params, sn, real, True, model_config)
         fake_scores, _, sn = disc_apply(params, sn, fake, True, model_config)
     loss = wgan_critic_loss(real_scores, fake_scores)
+    mesh = _active(mesh)
+    if mesh is not None:
+        loss = loss * share
     grads = torch.autograd.grad(loss, tree_leaves(params))
+    grads, total = all_reduce_gradients(mesh, grads, None if mesh is None else loss.detach()[None])
     apply_update(params, grads, disc["opt"], lr, grad_clip_norm)
     disc["sn"] = sn
-    return loss.detach()
+    return loss.detach() if total is None else total[0]
 
 
 def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
                    model_config: ModelConfig, training_config: TrainingConfig,
-                   noise: Optional[Dict[str, torch.Tensor]] = None
-                   ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+                   noise: Optional[Dict[str, torch.Tensor]] = None,
+                   mesh: Optional[Mesh] = None) -> Tuple[Dict, Dict[str, torch.Tensor]]:
     """One two-cycle step on one batch (``gesture``, ``prototype``: (B, L, 3)).
 
     ``noise`` injects every random draw instead of taking it from
@@ -75,26 +99,33 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
     loop, ``z1``/``eps_rec``/``eps2`` (B, Z) for the joint step, and
     ``z_ms`` (B, Z), the second prior draw, when ``lambda_ms`` or
     ``lambda_div`` is on. The random streams of JAX and PyTorch differ, so
-    the tests hand both packages the same noise this way."""
+    the tests hand both packages the same noise this way.
+
+    With a process group in ``mesh`` the batch and ``noise`` are the global
+    ones; the step trains on this rank's rows (module docstring) and returns
+    the global metrics."""
     tc = training_config
-    real, proto = batch["gesture"], batch["prototype"]
-    B, Z, device = real.shape[0], model_config.latent_dim, real.device
+    mesh = _active(mesh)
+    B, Z, device = batch["gesture"].shape[0], model_config.latent_dim, batch["gesture"].device
+    rows = mesh.rows(B) if mesh is not None else slice(0, B)
+    real, proto = batch["gesture"][rows], batch["prototype"][rows]
+    b, share = real.shape[0], real.shape[0] / B
     rng = state["rng"]
     g_params, e_params = state["g"]["params"], state["e"]["params"]
     d1, d2 = state["d1"], state["d2"]
 
-    def draw(name, shape):
-        if noise is not None:
-            return noise[name]
-        return torch.randn(shape, generator=rng, device=device, dtype=torch.float32)
+    def draw(name, shape, axis=0):
+        x = noise[name] if noise is not None else torch.randn(
+            shape, generator=rng, device=device, dtype=torch.float32)
+        return x if mesh is None else x.narrow(axis, rows.start, b)
 
     # -- critic loop: G and E frozen; the encoder runs once, with fresh ε per
     # iteration; each iteration draws both fakes in one 2B inference call.
     n_c = tc.n_critic
     d1_loss = d2_loss = torch.zeros((), device=device)
     if n_c > 0:
-        z_rands = draw("z_rand", (n_c, B, Z))
-        eps_encs = draw("eps_enc", (n_c, B, Z))
+        z_rands = draw("z_rand", (n_c, B, Z), axis=1)
+        eps_encs = draw("eps_enc", (n_c, B, Z), axis=1)
         with torch.no_grad():
             _, mu_c, log_var_c = encoder_apply(e_params, real, model_config, eps=eps_encs[0])
             z_encs = mu_c[None] + eps_encs * torch.exp(0.5 * log_var_c)[None]
@@ -103,10 +134,10 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
             with torch.no_grad():
                 fakes = generator_apply(g_params, proto2, torch.cat([z_rands[i], z_encs[i]]),
                                         model_config, inference=True)
-            d1_loss = critic_update(d1, real, fakes[:B], lr, model_config, tc.grad_clip_norm,
-                                    tc.fused_critic_forward)
-            d2_loss = critic_update(d2, real, fakes[B:], lr, model_config, tc.grad_clip_norm,
-                                    tc.fused_critic_forward)
+            d1_loss = critic_update(d1, real, fakes[:b], lr, model_config, tc.grad_clip_norm,
+                                    tc.fused_critic_forward, mesh, share)
+            d2_loss = critic_update(d2, real, fakes[b:], lr, model_config, tc.grad_clip_norm,
+                                    tc.fused_critic_forward, mesh, share)
 
     # -- joint G + E step.
     z = draw("z1", (B, Z))
@@ -157,14 +188,19 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
     if tc.lambda_dtc:
         c2_total = c2_total + tc.lambda_dtc * time_delta_corr_loss(real, fake2)
 
+    joint = (c1_total, c1_wgan, c1_feat, c1_lat, c2_total, c2_wgan, c2_feat, c2_rec, c2_kld)
+    objective, extra = c1_total + c2_total, None
+    if mesh is not None:
+        objective = objective * share
+        extra = torch.stack([v.detach().to(torch.float32) for v in joint]) * share
     g_leaves, e_leaves = tree_leaves(g_params), tree_leaves(e_params)
-    grads = torch.autograd.grad(c1_total + c2_total, g_leaves + e_leaves)
+    grads = torch.autograd.grad(objective, g_leaves + e_leaves)
+    grads, totals = all_reduce_gradients(mesh, grads, extra)
     apply_update(g_params, grads[:len(g_leaves)], state["g"]["opt"], lr, tc.grad_clip_norm)
     apply_update(e_params, grads[len(g_leaves):], state["e"]["opt"], lr, tc.grad_clip_norm)
     d1["sn"], d2["sn"] = d1_sn, d2_sn
 
-    values = (d1_loss, d2_loss, c1_total, c1_wgan, c1_feat, c1_lat, c2_total, c2_wgan, c2_feat,
-              c2_rec, c2_kld)
+    values = (d1_loss, d2_loss, *(joint if totals is None else totals.unbind()))
     return state, {k: v.detach().to(torch.float32) for k, v in zip(METRIC_KEYS, values)}
 
 

@@ -7,8 +7,11 @@ Batches carry a per-point validity mask. The generator is the transformer
 padding, the critics and the encoder see the real traces with the padding
 zeroed, and the reconstruction and timing losses count valid points only.
 The masked step has no diversity terms (``lambda_ms``, ``lambda_div``), as
-in the JAX package. Gradient flow, power-iteration order and the in-place
-update are ``gan_step.gan_train_step``'s.
+in the JAX package. Gradient flow, power-iteration order, the in-place
+update and data parallelism are ``gan_step.gan_train_step``'s, with one
+difference under a process group: the masked reconstruction loss is a mean
+over the batch's valid points, so a rank's share of it is its fraction of
+the global batch's valid points, not of its rows.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from ..losses import (feature_matching_loss, kl_divergence_loss, latent_encoding
 from ..models.gan import disc_apply, encoder_apply
 from ..models.generators import transformer_generator_apply
 from ..utils.tree import tree_leaves
-from .gan_step import critic_update, shuffle_batches
+from ..parallel.mesh import Mesh, all_reduce_gradients
+from .gan_step import _active, critic_update, shuffle_batches
 from .state import apply_update
 
 # The step's metrics, in order; a zero-batch epoch records each at 0.0.
@@ -40,29 +44,34 @@ def masked_reconstruction_loss(real: torch.Tensor, fake: torch.Tensor,
 
 def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
                           model_config: ModelConfig, training_config: TrainingConfig,
-                          noise: Optional[Dict[str, torch.Tensor]] = None
-                          ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+                          noise: Optional[Dict[str, torch.Tensor]] = None,
+                          mesh: Optional[Mesh] = None) -> Tuple[Dict, Dict[str, torch.Tensor]]:
     """One two-cycle step on one masked batch (``gesture``, ``prototype``:
     (B, L, 3); ``mask``: (B, L)), transformer generator only.
 
     ``noise`` injects every random draw, with the names ``gan_train_step``
     uses: ``z_rand``/``eps_enc`` (n_critic, B, Z) for the critic loop,
-    ``z1``/``eps_rec``/``eps2`` (B, Z) for the joint step."""
+    ``z1``/``eps_rec``/``eps2`` (B, Z) for the joint step. With a process
+    group in ``mesh``: the global batch and noise, this rank's rows trained
+    on, the global metrics returned."""
     if model_config.generator_type != "transformer":
         raise ValueError("variable-length training uses the transformer generator "
                          "(ModelConfig.generator_type='transformer')")
     tc = training_config
-    real, proto, mask = batch["gesture"], batch["prototype"], batch["mask"]
-    B, Z, device = real.shape[0], model_config.latent_dim, real.device
+    mesh = _active(mesh)
+    B, Z, device = batch["gesture"].shape[0], model_config.latent_dim, batch["gesture"].device
+    rows = mesh.rows(B) if mesh is not None else slice(0, B)
+    real, proto, mask = batch["gesture"][rows], batch["prototype"][rows], batch["mask"][rows]
+    b, share = real.shape[0], real.shape[0] / B
     rng = state["rng"]
     g_params, e_params = state["g"]["params"], state["e"]["params"]
     d1, d2 = state["d1"], state["d2"]
     real_m = real * mask[:, :, None]
 
-    def draw(name, shape):
-        if noise is not None:
-            return noise[name]
-        return torch.randn(shape, generator=rng, device=device, dtype=torch.float32)
+    def draw(name, shape, axis=0):
+        x = noise[name] if noise is not None else torch.randn(
+            shape, generator=rng, device=device, dtype=torch.float32)
+        return x if mesh is None else x.narrow(axis, rows.start, b)
 
     def gen(params, prototype, z, pad_mask):
         out = transformer_generator_apply(params, prototype, z, model_config, pad_mask=pad_mask)
@@ -73,8 +82,8 @@ def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float
     n_c = tc.n_critic
     d1_loss = d2_loss = torch.zeros((), device=device)
     if n_c > 0:
-        z_rands = draw("z_rand", (n_c, B, Z))
-        eps_encs = draw("eps_enc", (n_c, B, Z))
+        z_rands = draw("z_rand", (n_c, B, Z), axis=1)
+        eps_encs = draw("eps_enc", (n_c, B, Z), axis=1)
         with torch.no_grad():
             _, mu_c, log_var_c = encoder_apply(e_params, real_m, model_config, eps=eps_encs[0])
             z_encs = mu_c[None] + eps_encs * torch.exp(0.5 * log_var_c)[None]
@@ -82,8 +91,10 @@ def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float
         for i in range(n_c):
             with torch.no_grad():
                 fakes = gen(g_params, proto2, torch.cat([z_rands[i], z_encs[i]]), mask2)
-            d1_loss = critic_update(d1, real_m, fakes[:B], lr, model_config, tc.grad_clip_norm)
-            d2_loss = critic_update(d2, real_m, fakes[B:], lr, model_config, tc.grad_clip_norm)
+            d1_loss = critic_update(d1, real_m, fakes[:b], lr, model_config, tc.grad_clip_norm,
+                                    mesh=mesh, share=share)
+            d2_loss = critic_update(d2, real_m, fakes[b:], lr, model_config, tc.grad_clip_norm,
+                                    mesh=mesh, share=share)
 
     # -- joint G + E step.
     z = draw("z1", (B, Z))
@@ -109,23 +120,36 @@ def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float
     with torch.no_grad():
         _, real2_feats, d2_sn = disc_apply(d2["params"], d2_sn, real_m, True, model_config)
     c2_rec = masked_reconstruction_loss(real, fake2, mask)
-    c2_total = (wgan_generator_loss(fake2_scores)
-                + tc.lambda_feat * feature_matching_loss(real2_feats, fake2_feats)
-                + tc.lambda_rec * c2_rec + tc.lambda_kld * kl_divergence_loss(mu, log_var))
+    # The cycle-2 terms that are means over rows; c2_rec is a mean over points.
+    c2_rows = (wgan_generator_loss(fake2_scores)
+               + tc.lambda_feat * feature_matching_loss(real2_feats, fake2_feats)
+               + tc.lambda_kld * kl_divergence_loss(mu, log_var))
     if tc.lambda_dt:
-        c2_total = c2_total + tc.lambda_dt * masked_time_delta_loss(real, fake2, mask)
+        c2_rows = c2_rows + tc.lambda_dt * masked_time_delta_loss(real, fake2, mask)
     if tc.lambda_speed:
-        c2_total = c2_total + tc.lambda_speed * masked_speed_profile_loss(real, fake2, mask)
+        c2_rows = c2_rows + tc.lambda_speed * masked_speed_profile_loss(real, fake2, mask)
     if tc.lambda_dtc:
-        c2_total = c2_total + tc.lambda_dtc * masked_time_delta_corr_loss(real, fake2, mask)
+        c2_rows = c2_rows + tc.lambda_dtc * masked_time_delta_corr_loss(real, fake2, mask)
+    c2_total = c2_rows + tc.lambda_rec * c2_rec
 
+    objective, extra = c1_total + c2_total, None
+    if mesh is not None:
+        # This rank's share of the valid points, with the loss's own clamp.
+        points = torch.clamp(mask.sum() * real.shape[-1], min=1.0) / torch.clamp(
+            batch["mask"].sum() * real.shape[-1], min=1.0)
+        rec = c2_rec * points
+        c2_share = c2_rows * share + tc.lambda_rec * rec
+        objective = c1_total * share + c2_share
+        extra = torch.stack([c1_total.detach() * share, c2_share.detach(), rec.detach()])
     g_leaves, e_leaves = tree_leaves(g_params), tree_leaves(e_params)
-    grads = torch.autograd.grad(c1_total + c2_total, g_leaves + e_leaves)
+    grads = torch.autograd.grad(objective, g_leaves + e_leaves)
+    grads, totals = all_reduce_gradients(mesh, grads, extra)
     apply_update(g_params, grads[:len(g_leaves)], state["g"]["opt"], lr, tc.grad_clip_norm)
     apply_update(e_params, grads[len(g_leaves):], state["e"]["opt"], lr, tc.grad_clip_norm)
     d1["sn"], d2["sn"] = d1_sn, d2_sn
 
-    values = (d1_loss, d2_loss, c1_total, c2_total, c2_rec)
+    joint = (c1_total, c2_total, c2_rec) if totals is None else totals.unbind()
+    values = (d1_loss, d2_loss, *joint)
     return state, {k: v.detach().to(torch.float32) for k, v in zip(METRIC_KEYS, values)}
 
 

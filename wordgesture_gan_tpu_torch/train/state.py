@@ -18,7 +18,8 @@ parameters and moments in place, where the JAX step returns new arrays.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import functools
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -66,6 +67,20 @@ def apply_update(params, grads: List[torch.Tensor], opt: Dict, lr: float,
     update = torch._foreach_div(mu, 1.0 - b1 ** opt["count"])
     torch._foreach_div_(update, denom)
     torch._foreach_add_(p, update, alpha=-lr)
+
+
+def make_optimizer(grad_clip_norm: float = 1.0, b1: float = ADAM_B1,
+                   b2: float = ADAM_B2) -> Callable[..., None]:
+    """The GAN models' optimizer as one call, ``update(params, grads, opt,
+    lr)``: global-norm clipping to ``grad_clip_norm``, then Adam
+    (``apply_update``); the counterpart of the JAX package's optax chain.
+    Its state is ``adam_init(params)``."""
+    return functools.partial(apply_update, grad_clip_norm=grad_clip_norm, b1=b1, b2=b2)
+
+
+def param_count(state: Dict) -> Dict[str, int]:
+    """Parameters per model of a GAN train state: {"g", "e", "d1", "d2": n}."""
+    return {m: sum(int(t.numel()) for t in tree_leaves(state[m]["params"])) for m in MODELS}
 
 
 def _state(t, device) -> torch.Tensor:

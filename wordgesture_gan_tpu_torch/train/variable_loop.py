@@ -13,7 +13,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from ..configs import DEFAULT_TRAINING_CONFIG, ModelConfig, TrainingConfig
+from ..configs import (DEFAULT_RUNTIME_CONFIG, DEFAULT_TRAINING_CONFIG, ModelConfig,
+                       RuntimeConfig, TrainingConfig)
 from ..data.variable_length import VariableGestureArrays
 from ..models.gan import Generator
 from .gan_loop import TrainResult, generate_gestures, run_epochs
@@ -34,6 +35,7 @@ def train_variable_gan(
     train_ds: VariableGestureArrays,
     model_config: ModelConfig,
     training_config: TrainingConfig = DEFAULT_TRAINING_CONFIG,
+    runtime_config: RuntimeConfig = DEFAULT_RUNTIME_CONFIG,
     num_epochs: Optional[int] = None,
     seed: int = 42,
     checkpoint_dir: Optional[str] = None,
@@ -42,15 +44,17 @@ def train_variable_gan(
     verbose: bool = True,
     device="cuda",
 ) -> TrainResult:
-    """Train the two-cycle GAN on variable-length traces on one ``device``
-    (transformer generator only); per epoch what ``train_gan`` does, with
-    the masked step and its five losses."""
+    """Train the two-cycle GAN on variable-length traces on ``device``
+    (transformer generator only), over the ranks of the process group if
+    there is one; per epoch what ``train_gan`` does, with the masked step
+    and its five losses."""
     _require_transformer(model_config)
     arrays = {"gesture": train_ds.gestures, "prototype": train_ds.prototypes,
               "mask": train_ds.masks()}
     return run_epochs(
-        arrays, lambda s, b, lr: gan_train_step_masked(s, b, lr, model_config, training_config),
-        METRIC_KEYS, _LOG_FIELDS, model_config, training_config, num_epochs, seed,
+        arrays, lambda s, b, lr, mesh: gan_train_step_masked(s, b, lr, model_config,
+                                                             training_config, mesh=mesh),
+        METRIC_KEYS, _LOG_FIELDS, model_config, training_config, runtime_config, num_epochs, seed,
         checkpoint_dir, resume, epoch_callback, print if verbose else (lambda *_: None), device)
 
 

@@ -1,17 +1,25 @@
 """Train WordGesture-GAN on the GPU.
 
-The PyTorch twin of ``train_gan.py``: the same flags and defaults, minus the
-mesh and profiler flags of the TPU host (``--data-axis-size``,
-``--profile-dir``), plus ``--device`` (default ``cuda``). ``--generator``
-picks the family (bilstm, mlp, transformer); ``--variable-length`` trains
-the transformer on natural-resolution traces with validity masks
-(``train/variable_loop.py``). It writes the run metadata sidecar that
-``eval_cli`` and ``generate`` read, and checkpoints (``epoch_N.pt``,
-``latest.pt``) into ``--checkpoint-dir``.
+The PyTorch twin of ``train_gan.py``: the same flags and defaults, plus
+``--device`` (default ``cuda``). ``--generator`` picks the family (bilstm,
+mlp, transformer); ``--variable-length`` trains the transformer on
+natural-resolution traces with validity masks (``train/variable_loop.py``).
+It writes the run metadata sidecar that ``eval_cli`` and ``generate`` read,
+and checkpoints (``epoch_N.pt``, ``latest.pt``) into ``--checkpoint-dir``.
+
+Data parallelism: under torchrun (``WORLD_SIZE`` > 1) or with
+``WGG_DISTRIBUTED=1`` each process joins the process group as one rank
+(NCCL on CUDA, gloo on the CPU). Without that environment,
+``--data-axis-size N`` > 1 makes this process rank 0 of N local ranks and
+starts the other N-1 as copies of the same command (one per card; on the
+CPU over gloo); the default -1 takes every visible card, so a one-card host
+trains in this process with no process group. ``--profile-dir DIR`` writes
+a ``torch.profiler`` trace of the training run into DIR.
 
 Usage:
     python -m wordgesture_gan_tpu_torch.train_cli [--epochs N] [--no-resume]
-        [--batch-size B] [--synthetic] [--wandb]
+        [--batch-size B] [--synthetic] [--wandb] [--data-axis-size N]
+        [--profile-dir DIR]
 """
 
 from __future__ import annotations
@@ -23,15 +31,18 @@ from typing import Optional, Sequence
 
 import torch
 
-from .cli_common import add_data_args, load_split, maybe_wandb, resolve_dataset_zip
-from .configs import ModelConfig, PathsConfig, TrainingConfig, asdict
+from .cli_common import (add_data_args, add_parallel_args, load_split, maybe_wandb,
+                         resolve_dataset_zip, run_ranks)
+from .configs import ModelConfig, PathsConfig, RuntimeConfig, TrainingConfig, asdict
 from .data.variable_length import create_variable_split, load_variable_dataset_from_zip
 from .keyboard import QWERTYKeyboard
+from .parallel.mesh import is_main_process, main_rank_first
 from .train.checkpoint import (generator_from_state, latest_epoch, load_run_metadata,
                                save_run_metadata)
 from .train.gan_loop import TrainResult, generate_gestures, train_gan
 from .train.variable_loop import train_variable_gan
 from .utils.logging import log, seed_everything
+from .utils.profiling import trace_profile
 
 _LAMBDAS = ("lambda_rec", "lambda_kld", "lambda_dt", "lambda_speed", "lambda_dtc", "lambda_ms",
             "lambda_div", "div_margin")
@@ -79,19 +90,28 @@ def build_parser() -> argparse.ArgumentParser:
                         help="arc-length per point for --variable-length")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain versions")
+    add_parallel_args(parser)
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace of the training run into this dir")
     add_data_args(parser)
     return parser
 
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
-    """Run the CLI; returns ``train_gan``'s result."""
+    """Run the CLI; returns ``train_gan``'s result (rank 0's in a
+    data-parallel run)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda but no CUDA device is available; pass --device cpu")
+    return run_ranks("wordgesture_gan_tpu_torch.train_cli", args, argv, device,
+                     lambda dev: _main(args, dev))
 
-    log(f"Device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
+
+def _main(args: argparse.Namespace, device: torch.device) -> TrainResult:
+    say = log if is_main_process() else (lambda *_: None)
+    say(f"Device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
     seed_everything(args.seed)
 
     model_config = ModelConfig(
@@ -101,18 +121,21 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     training_config = TrainingConfig(
         num_epochs=args.epochs, batch_size=args.batch_size,
         **{k: getattr(args, k) for k in _LAMBDAS if getattr(args, k) is not None})
+    runtime_config = RuntimeConfig(data_axis_size=args.data_axis_size, precision=args.precision)
     if args.variable_length:
-        return _train_variable(args, model_config, training_config, device)
+        return _train_variable(args, model_config, training_config, runtime_config, device)
 
-    train_ds, test_ds, _keyboard = load_split(args, model_config, training_config)
-    log(f"Data: {len(train_ds)} train, {len(test_ds)} test")
+    with main_rank_first(device):   # rank 0 writes the corpus and its cache
+        train_ds, test_ds, _keyboard = load_split(args, model_config, training_config,
+                                                  verbose=is_main_process())
+    say(f"Data: {len(train_ds)} train, {len(test_ds)} test")
 
     # Attach to a prior W&B run only when there is a checkpoint to resume
     # from — otherwise a fresh run would overwrite the old run's history.
     resuming = not args.no_resume and latest_epoch(args.checkpoint_dir) > 0
     prior_run_id = load_run_metadata(args.checkpoint_dir).get("wandb_run_id") if resuming else None
     wb = maybe_wandb(
-        args.wandb,
+        args.wandb and is_main_process(),
         project=PathsConfig().wandb_project,
         name=f"{'temporal' if model_config.use_temporal_disc else 'mlp'}_"
              f"{'xy' if not model_config.prototype_has_time else 'xyt'}_"
@@ -126,14 +149,15 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
         save_run_metadata(args.checkpoint_dir, wandb_run_id=wb.run.id)
     # The architecture knobs evaluation and serving must match to restore
     # the checkpoint.
-    save_run_metadata(args.checkpoint_dir,
-                      generator_type=model_config.generator_type,
-                      time_head=model_config.time_head,
-                      gen_hidden_dim=model_config.gen_hidden_dim)
+    if is_main_process():
+        save_run_metadata(args.checkpoint_dir,
+                          generator_type=model_config.generator_type,
+                          time_head=model_config.time_head,
+                          gen_hidden_dim=model_config.gen_hidden_dim)
 
     draw_figures = importlib.util.find_spec("matplotlib") is not None
     if not draw_figures:
-        log("matplotlib is not installed: no sample figures will be written")
+        say("matplotlib is not installed: no sample figures will be written")
 
     def epoch_callback(epoch, state, losses):
         if wb is not None:
@@ -158,45 +182,53 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
                 wb.log({"gestures/training_samples": wb.Image(fig)}, step=epoch + 1)
             plt.close(fig)
 
-    result = train_gan(
-        train_ds,
-        model_config=model_config,
-        training_config=training_config,
-        num_epochs=args.epochs,
-        seed=args.seed,
-        checkpoint_dir=args.checkpoint_dir,
-        resume=not args.no_resume,
-        epoch_callback=epoch_callback,
-        device=device,
-    )
+    with trace_profile(args.profile_dir):
+        result = train_gan(
+            train_ds,
+            model_config=model_config,
+            training_config=training_config,
+            runtime_config=runtime_config,
+            num_epochs=args.epochs,
+            seed=args.seed,
+            checkpoint_dir=args.checkpoint_dir,
+            resume=not args.no_resume,
+            epoch_callback=epoch_callback,
+            device=device,
+        )
 
     if wb is not None:
         wb.finish()
-    log("Training complete!")
+    say("Training complete!")
     return result
 
 
 def _train_variable(args, model_config: ModelConfig, training_config: TrainingConfig,
-                    device) -> TrainResult:
+                    runtime_config: RuntimeConfig, device) -> TrainResult:
     """``--variable-length``: natural-resolution traces with validity masks,
     the masked transformer step."""
     keyboard = QWERTYKeyboard()
-    by_word, _ = load_variable_dataset_from_zip(
-        resolve_dataset_zip(args), keyboard, max_len=model_config.seq_length,
-        arc_step=args.arc_step, max_samples_per_word=training_config.max_samples_per_word,
-        max_files=args.max_files, seed=args.seed)
+    main = is_main_process()
+    with main_rank_first(device):   # rank 0 writes the corpus and its cache
+        by_word, _ = load_variable_dataset_from_zip(
+            resolve_dataset_zip(args), keyboard, max_len=model_config.seq_length,
+            arc_step=args.arc_step, max_samples_per_word=training_config.max_samples_per_word,
+            max_files=args.max_files, seed=args.seed, verbose=main)
     train_ds, test_ds = create_variable_split(by_word, keyboard, max_len=model_config.seq_length,
                                               train_ratio=training_config.train_ratio,
                                               seed=args.seed)
-    log(f"Data: {len(train_ds)} train, {len(test_ds)} test (variable-length)")
-    save_run_metadata(args.checkpoint_dir,
-                      generator_type=model_config.generator_type,
-                      time_head=model_config.time_head,
-                      gen_hidden_dim=model_config.gen_hidden_dim)
-    result = train_variable_gan(train_ds, model_config, training_config, num_epochs=args.epochs,
-                                seed=args.seed, checkpoint_dir=args.checkpoint_dir,
-                                resume=not args.no_resume, device=device)
-    log("Training complete!")
+    if main:
+        log(f"Data: {len(train_ds)} train, {len(test_ds)} test (variable-length)")
+        save_run_metadata(args.checkpoint_dir,
+                          generator_type=model_config.generator_type,
+                          time_head=model_config.time_head,
+                          gen_hidden_dim=model_config.gen_hidden_dim)
+    with trace_profile(args.profile_dir):
+        result = train_variable_gan(train_ds, model_config, training_config, runtime_config,
+                                    num_epochs=args.epochs, seed=args.seed,
+                                    checkpoint_dir=args.checkpoint_dir,
+                                    resume=not args.no_resume, device=device)
+    if main:
+        log("Training complete!")
     return result
 
 
