@@ -61,6 +61,21 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 5b. the same in float32 (``compute_dtype="float32"``, as ``train_cli
    --precision float32``): 5/3/3 launches per step, all on the float32
    paths; ms per step and one steady step profiled;
+5c, 5d. phases 5 and 5b with ``RuntimeConfig(scan_epoch=True)``: each epoch
+   through ``gan_train_epoch``, the step captured once as a CUDA graph and
+   replayed once per batch; the same checkpoints, resume and launch counts
+   (a replay adds the launches its capture counted), ms per step beside
+   the eager phase's; one replay profiled (device busy, idle share, events);
+5e-5g. from two copies of one state and its random generator, two epochs of
+   3 batches of 512 through one captured graph against the same steps run
+   eagerly: flagship bf16 (5e), float32 (5f) and the masked transformer
+   step (5g, ``gan_train_epoch_masked``): traces, every state tensor, Adam's
+   counts and the generator bit-equal, the critics' u vectors moving across
+   replays, kernels 1-3 counted 5/3/3 a step (none in 5g); 5f runs with
+   ``torch.backends.cudnn.deterministic``, since cuDNN's float32 convolution
+   backward is not run-to-run deterministic even eagerly (measured each
+   run: two eager float32 epochs, cuDNN as trained); before them,
+   ``apply_update``'s two forms (Python numbers, device tensors) bit-equal;
 6. one step on the card against the CPU's plain path from the same state,
    batch and injected noise (B=32, full width, float32, n_critic 5), for
    the reference recipe and the flagship one: losses, the gradients (Adam
@@ -83,6 +98,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 7b. on the same corpus, ``train_cli.main --variable-length`` (the masked
    transformer step, bf16, batch 512) for 2 epochs, checkpointed, losses
    finite, one steady masked step profiled;
+7b'. ``train_variable_gan`` with ``RuntimeConfig(scan_epoch=True)`` on 7b's
+   corpus and recipe: 2 epochs checkpointed, losses finite, ms per step
+   beside 7b's, one replay profiled;
 7c. one float32 masked step (full-width transformer, B=32, n_critic 5, a mask
    of varied lengths) on the card against the CPU from the same state and
    injected noise, with phase 6's tolerances;
@@ -132,6 +150,11 @@ Then, run before phase 8's timings:
    all-reduces per step (one per gradient computation), kernels 1-3 5/3/3
    per step on their tensor-core paths, rank 0's checkpoints, a trace that
    names the kernels; ms per step beside phase 5's;
+9a'. a third epoch of 9a, resumed, with ``RuntimeConfig(scan_epoch=True)``:
+   the step and its 11 all-reduces captured as one CUDA graph, the same
+   counts (all-reduces and kernels, per capture times the replays), ms per
+   step beside 9a's; one replay under the group profiled; phase 5e's
+   graphed-vs-eager check under the group, bit-equal;
 9b. two ranks sharing the card (gloo; NCCL refuses two ranks on one GPU),
    started as ``chip_smoke.py --dp-worker``: a float32 full-width
    ``gan_train_step`` (reference recipe) at global B=32 and a contrastive
@@ -173,7 +196,7 @@ from wordgesture_gan_tpu_torch import (eval_cli, eval_contrastive_cli, generate,
                                        train_contrastive_cli)
 from wordgesture_gan_tpu_torch.cli_common import load_split, resolve_dataset_zip
 from wordgesture_gan_tpu_torch.configs import (ContrastiveConfig, EvaluationConfig, ModelConfig,
-                                               TrainingConfig)
+                                               RuntimeConfig, TrainingConfig)
 from wordgesture_gan_tpu_torch.data.contrastive import create_contrastive_datasets
 from wordgesture_gan_tpu_torch.data.pipeline import GestureArrays, load_dataset_from_zip
 from wordgesture_gan_tpu_torch.data.variable_length import (create_variable_split,
@@ -206,10 +229,13 @@ from wordgesture_gan_tpu_torch.train.checkpoint import (find_checkpoint, latest_
 from wordgesture_gan_tpu_torch.train.contrastive_loop import (contrastive_train_step,
                                                               make_contrastive_state)
 from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures, train_gan
-from wordgesture_gan_tpu_torch.train.gan_step import gan_train_step
+from wordgesture_gan_tpu_torch.train.gan_step import gan_train_epoch, gan_train_step
 from wordgesture_gan_tpu_torch.train.masked_step import METRIC_KEYS as MASKED_METRIC_KEYS
-from wordgesture_gan_tpu_torch.train.masked_step import gan_train_step_masked
-from wordgesture_gan_tpu_torch.train.state import MODELS, init_gan_state
+from wordgesture_gan_tpu_torch.train.masked_step import (gan_train_epoch_masked,
+                                                         gan_train_step_masked)
+from wordgesture_gan_tpu_torch.train.state import MODELS, apply_update, init_gan_state
+from wordgesture_gan_tpu_torch.train.step_graph import StepGraph
+from wordgesture_gan_tpu_torch.train.variable_loop import train_variable_gan
 from wordgesture_gan_tpu_torch.utils.chunking import chunk_layout
 from wordgesture_gan_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -958,24 +984,31 @@ def smoke_dataset(n: int, seq: int = SEQ, seed: int = 0) -> GestureArrays:
     return GestureArrays(gestures.astype(np.float32), prototypes, words)
 
 
-def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int = 512) -> dict:
-    """Phases 5 and 5b: 2 epochs through ``train_gan``, then a resumed third
-    epoch whose kernel launches are counted from 0, every one on the path its
-    dispatch rule names for the recipe's dtype and width. ``model``
-    overrides fields of the flagship configuration: ``compute_dtype`` for
-    phase 5b (float32), the widths for a rehearsal on the CPU at a tiny size."""
+def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int = 512,
+          scan: bool = False) -> dict:
+    """Phases 5 and 5b (and, with ``scan``, 5c and 5d: the same through the
+    captured CUDA graph of the step, ``RuntimeConfig.scan_epoch``): 2 epochs
+    through ``train_gan``, then a resumed third epoch whose kernel launches
+    are counted from 0 (a replay adds the launches its capture counted),
+    every one on the path its dispatch rule names for the recipe's dtype and
+    width. ``model`` overrides fields of the flagship configuration:
+    ``compute_dtype`` for phase 5b (float32), the widths for a rehearsal on
+    the CPU at a tiny size."""
     mcfg = ModelConfig(**{"time_head": "monotone", "compute_dtype": "bfloat16", **(model or {})})
     recipe = dict(FLAGSHIP_TRAIN, batch_size=batch_size)
     tcfg = TrainingConfig(**recipe, save_every=1)
+    runtime = RuntimeConfig(scan_epoch=scan)
     ds = smoke_dataset(n, mcfg.seq_length)
     steps = n // tcfg.batch_size
-    first = train_gan(ds, mcfg, tcfg, num_epochs=2, checkpoint_dir=str(workdir), device=device)
+    first = train_gan(ds, mcfg, tcfg, runtime, num_epochs=2, checkpoint_dir=str(workdir),
+                      device=device)
     if latest_epoch(str(workdir)) != 2 or len(first.history) != 2:
         raise AssertionError("the first two epochs were not checkpointed")
     counters = {"bilstm_fused": fused_bilstm_fwd, "bilstm_train_fwd": bilstm_train_fwd,
                 "bilstm_train_bwd": bilstm_train_bwd}
     reset_launches(*counters.values())
-    third = train_gan(ds, mcfg, tcfg, num_epochs=3, checkpoint_dir=str(workdir), device=device)
+    third = train_gan(ds, mcfg, tcfg, runtime, num_epochs=3, checkpoint_dir=str(workdir),
+                      device=device)
     launches = {name: c.launches for name, c in counters.items()}
     by_path = {name: dict(c.launches_by_path) for name, c in counters.items()}
     if len(third.history) != 1 or third.state["epoch"] != 3 or latest_epoch(str(workdir)) != 3:
@@ -1000,8 +1033,8 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
             raise AssertionError(f"{name} launches by path {counts}, expected all on "
                                  f"{paths[name]}")
     seconds = first.epoch_seconds + third.epoch_seconds
-    line = {"training": "train_gan", "n": n, "batch": tcfg.batch_size, "steps_per_epoch": steps,
-            "dtype": mcfg.compute_dtype, "epoch_seconds": seconds,
+    line = {"training": "train_gan", "scan_epoch": scan, "n": n, "batch": tcfg.batch_size,
+            "steps_per_epoch": steps, "dtype": mcfg.compute_dtype, "epoch_seconds": seconds,
             "gestures_per_s": [first.gestures_per_epoch / t for t in seconds],
             "ms_per_step": [t / steps * 1e3 for t in seconds],
             "launches_resumed_epoch": launches, "kernel_path": paths,
@@ -1011,11 +1044,209 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
         batch = {"gesture": torch.from_numpy(ds.gestures[:batch_size]).to(device),
                  "prototype": torch.from_numpy(ds.prototypes[:batch_size]).to(device)}
         tcfg_m = TrainingConfig(**recipe, div_margin=0.25)
-        gan_train_step(third.state, batch, 1e-5, mcfg, tcfg_m)             # warm
-        line["profile"] = device_profile(
-            lambda: gan_train_step(third.state, batch, 1e-5, mcfg, tcfg_m), "gan_train_step",
-            batch=batch_size, dtype=mcfg.compute_dtype)
+        if scan:
+            line["profile"] = profile_replay(
+                lambda s, eb, graph: gan_train_epoch(s, eb, 1e-5, mcfg, tcfg_m, graph=graph),
+                third.state, batch, "gan_train_step (CUDA graph replay)", batch=batch_size,
+                dtype=mcfg.compute_dtype)
+        else:
+            gan_train_step(third.state, batch, 1e-5, mcfg, tcfg_m)             # warm
+            line["profile"] = device_profile(
+                lambda: gan_train_step(third.state, batch, 1e-5, mcfg, tcfg_m), "gan_train_step",
+                batch=batch_size, dtype=mcfg.compute_dtype)
     line["launches"] = launches
+    return line
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def profile_replay(epoch, state: dict, inputs: dict, label: str, **extra) -> dict:
+    """One replay of a captured step under torch.profiler: ``epoch(state,
+    epoch_batches, graph)`` on a one-batch epoch of ``inputs`` first warms up
+    and captures (no replay), then, profiled, replays once (the noise draws
+    and input copies around it included)."""
+    graph = StepGraph()
+    stacked = {k: v[None] for k, v in inputs.items()}
+    epoch(state, stacked, graph)
+    line = device_profile(lambda: epoch(state, stacked, graph), label, **extra)
+    if graph.captures != 1 or graph.replays != 1:
+        raise AssertionError(f"{graph.captures} captures and {graph.replays} replays, "
+                             f"expected 1 and 1")
+    return line
+
+
+# Phases 5e-5g: two copies of one state, two epochs of 3 batches of 512 each,
+# the captured step replayed against the same steps run eagerly.
+GRAPH_CHECK_BATCHES, GRAPH_CHECK_EPOCHS, GRAPH_CHECK_LR = 3, 2, 2e-4
+
+
+def graphed_vs_eager(device, kind: str, batch: int = 512, model: dict = None,
+                     mesh=None) -> dict:
+    """Phases 5e-5g: from two copies of one state (and so of its random
+    generator), ``gan_train_epoch`` (``kind`` "bfloat16" or "float32", the
+    flagship recipe) or ``gan_train_epoch_masked`` ("masked": the
+    transformer, bf16, the default recipe, varied lengths) with one
+    ``StepGraph`` for two epochs (the second all replays) against the same
+    steps run eagerly, each drawing its own noise. The traces, every tensor
+    of the state, Adam's counts and the generator's state must be bit-equal;
+    the critics' u vectors must move in every epoch; the BiLSTM kernels must
+    count PER_STEP launches a step. ``model`` overrides widths for a
+    rehearsal on the CPU (where both sides run the same eager steps);
+    ``mesh``, a process group's, runs both sides under it (phase 9a').
+
+    cuDNN's float32 convolution backward is not run-to-run deterministic on
+    the card (two eager float32 epochs from one state differ in the last
+    bits, which the GAN's steps amplify), so the float32 check runs with
+    ``torch.backends.cudnn.deterministic``; bf16 and the masked step are
+    deterministic as they run."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = kind == "float32"
+    try:
+        return _graphed_vs_eager(device, kind, batch, model, mesh)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _graph_check_inputs(device, kind: str, batch: int, model: dict) -> tuple:
+    """Phases 5e-5g's configuration, GRAPH_CHECK_BATCHES stacked batches and
+    the epoch and step functions of ``kind``."""
+    masked = kind == "masked"
+    mcfg = ModelConfig(**{"time_head": "monotone",
+                          "compute_dtype": "float32" if kind == "float32" else "bfloat16",
+                          **({"generator_type": "transformer"} if masked else {}),
+                          **(model or {})})
+    tcfg = TrainingConfig(**(dict(batch_size=batch) if masked
+                             else dict(FLAGSHIP_TRAIN, batch_size=batch)), div_margin=0.25)
+    ds = smoke_dataset(GRAPH_CHECK_BATCHES * batch, mcfg.seq_length, seed=11)
+    arrays = {"gesture": ds.gestures, "prototype": ds.prototypes}
+    if masked:
+        rng = np.random.default_rng(12)
+        lengths = rng.integers(min(VL_STEP_LENGTHS[0], mcfg.seq_length), mcfg.seq_length + 1,
+                               len(ds.gestures))
+        arrays["mask"] = (np.arange(mcfg.seq_length)[None, :]
+                          < lengths[:, None]).astype(np.float32)
+    batches = {k: torch.from_numpy(v).to(device).reshape(GRAPH_CHECK_BATCHES, batch, *v.shape[1:])
+               for k, v in arrays.items()}
+    epoch_fn, step_fn = ((gan_train_epoch_masked, gan_train_step_masked) if masked
+                         else (gan_train_epoch, gan_train_step))
+    return mcfg, tcfg, batches, epoch_fn, step_fn
+
+
+def _state_diff(a: dict, b: dict) -> float:
+    return max((x.detach() - y.detach()).abs().max().item() for m in MODELS
+               for x, y in zip(tree_leaves(a[m]), tree_leaves(b[m])) if torch.is_tensor(x))
+
+
+def eager_determinism(device, kind: str = "float32", batch: int = 512) -> dict:
+    """Phase 5f's control: phase 5e-5g's epochs run eagerly twice from one
+    state with cuDNN as the training runs it (not deterministic). A
+    difference here is the eager step's own, which is why phase 5f runs with
+    ``torch.backends.cudnn.deterministic``."""
+    mcfg, tcfg, batches, _, step_fn = _graph_check_inputs(device, kind, batch, None)
+    runs = [init_gan_state(0, mcfg, device), init_gan_state(0, mcfg, device)]
+    losses = [[], []]
+    for _ in range(GRAPH_CHECK_EPOCHS):
+        for state, trace in zip(runs, losses):
+            trace += [step_fn(state, {k: v[i] for k, v in batches.items()}, GRAPH_CHECK_LR,
+                              mcfg, tcfg)[1] for i in range(GRAPH_CHECK_BATCHES)]
+    loss_diff = max(abs(a[k].item() - b[k].item()) for a, b in zip(*losses) for k in a)
+    line = {"check": "eager epoch vs eager epoch, cuDNN as trained (phase 5f's control)",
+            "kind": kind, "batch": batch, "steps": GRAPH_CHECK_BATCHES * GRAPH_CHECK_EPOCHS,
+            "cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "max_abs_loss_diff": loss_diff, "max_abs_state_diff": _state_diff(*runs)}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def adam_forms(device, sizes=(4096, 333, 7), updates: int = 5, lr: float = 2e-4) -> dict:
+    """``apply_update`` with a Python learning rate and an int step count
+    against its captured form (a 0-d device learning rate and step count),
+    ``updates`` updates from one state: bit-equal, or it raises. Beside it,
+    how far ``_foreach_div`` by a Python number and by a 0-d device tensor
+    lie apart on the card (the first multiplies by the reciprocal), which is
+    why both forms multiply by the reciprocal of the bias correction."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    params = [torch.randn(n, generator=gen, device=device) for n in sizes]
+    runs = [([p.clone() for p in params], {"mu": [torch.zeros_like(p) for p in params],
+                                           "nu": [torch.zeros_like(p) for p in params],
+                                           "count": count})
+            for count in (0, torch.zeros((), dtype=torch.int64, device=device))]
+    (p0, o0), (p1, o1) = runs
+    for _ in range(updates):
+        grads = [torch.randn(n, generator=gen, device=device) for n in sizes]
+        apply_update(p0, grads, o0, lr, 1.0)
+        apply_update(p1, grads, o1, torch.tensor(lr, device=device), 1.0)
+    equal = all(torch.equal(a, b) for a, b in zip(p0 + o0["mu"] + o0["nu"],
+                                                  p1 + o1["mu"] + o1["nu"]))
+    nu = o0["nu"][0]
+    correction = 1.0 - 0.999 ** updates
+    by_number = torch._foreach_div([nu], correction)[0]
+    by_tensor = torch._foreach_div([nu], torch.tensor(correction, device=device))[0]
+    line = {"check": "apply_update, Python lr and count vs device tensors", "updates": updates,
+            "bit_equal": equal and int(o1["count"]) == o0["count"] == updates,
+            "foreach_div_number_vs_tensor_max_abs": (by_number - by_tensor).abs().max().item()}
+    print(json.dumps(line), flush=True)
+    if not line["bit_equal"]:
+        raise AssertionError(f"apply_update's two forms differ: {line}")
+    return line
+
+
+def _graphed_vs_eager(device, kind: str, batch: int, model: dict, mesh) -> dict:
+    masked = kind == "masked"
+    mcfg, tcfg, batches, epoch_fn, step_fn = _graph_check_inputs(device, kind, batch, model)
+    graphed, eager = init_gan_state(0, mcfg, device), init_gan_state(0, mcfg, device)
+    graph = StepGraph()
+    counters = (fused_bilstm_fwd, bilstm_train_fwd, bilstm_train_bwd)
+    before = [c.launches for c in counters]
+    worst = {"max_abs_loss_diff": 0.0, "max_abs_state_diff": 0.0}
+    t_graphed = t_eager = 0.0
+    for _ in range(GRAPH_CHECK_EPOCHS):
+        u = [t.clone() for t in tree_leaves(graphed["d1"]["sn"])]
+        t0 = time.perf_counter()
+        _, traces = epoch_fn(graphed, batches, GRAPH_CHECK_LR, mcfg, tcfg, mesh=mesh,
+                             graph=graph)
+        _sync(device)
+        t1 = time.perf_counter()
+        rows = [step_fn(eager, {k: v[i] for k, v in batches.items()}, GRAPH_CHECK_LR, mcfg,
+                        tcfg, mesh=mesh)[1] for i in range(GRAPH_CHECK_BATCHES)]
+        eager["epoch"] += 1
+        _sync(device)
+        t_graphed, t_eager = t_graphed + t1 - t0, t_eager + time.perf_counter() - t1
+        for k, v in traces.items():
+            want = torch.stack([r[k] for r in rows])
+            worst["max_abs_loss_diff"] = max(worst["max_abs_loss_diff"],
+                                             (v - want).abs().max().item())
+        if all(torch.equal(a, b) for a, b in zip(tree_leaves(graphed["d1"]["sn"]), u)):
+            raise AssertionError("the critics' u vectors did not move in a graphed epoch")
+    worst["max_abs_state_diff"] = _state_diff(graphed, eager)
+    for m in MODELS:
+        if graphed[m]["opt"]["count"] != eager[m]["opt"]["count"]:
+            raise AssertionError(f"{m}: Adam's count {graphed[m]['opt']['count']} graphed, "
+                                 f"{eager[m]['opt']['count']} eager")
+    steps = GRAPH_CHECK_BATCHES * GRAPH_CHECK_EPOCHS
+    launches = dict(zip(("bilstm_fused", "bilstm_train_fwd", "bilstm_train_bwd"),
+                        (c.launches - b for c, b in zip(counters, before))))
+    line = {"check": "graphed epoch vs eager epoch on the card", "kind": kind, "batch": batch,
+            "dtype": mcfg.compute_dtype, "steps": steps,
+            "cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "process_group": mesh is not None, **worst,
+            "bit_equal": worst["max_abs_loss_diff"] == 0.0 == worst["max_abs_state_diff"],
+            "rng_equal": torch.equal(graphed["rng"].get_state(), eager["rng"].get_state()),
+            "captures": graph.captures, "replays": graph.replays, "launches": launches,
+            "ms_per_step_graphed_with_capture": t_graphed / steps * 1e3,
+            "ms_per_step_eager": t_eager / steps * 1e3}
+    print(json.dumps(line), flush=True)
+    if not (line["bit_equal"] and line["rng_equal"]):
+        raise AssertionError(f"the graphed epoch differs from the eager one: {line}")
+    if device.type == "cuda":
+        want = dict.fromkeys(launches, 0) if masked else {
+            name: 2 * per * steps for name, per in PER_STEP.items()}
+        if graph.captures != 1 or graph.replays != steps - 1 or launches != want:
+            raise AssertionError(f"{graph.captures} captures, {graph.replays} replays, "
+                                 f"launches {launches} (graphed and eager), expected {want}")
     return line
 
 
@@ -1541,11 +1772,16 @@ def train_cli_nccl(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
     ``--profile-dir``, then one more, resumed, with every count set to 0
     just before. Gradient all-reduces 11 per step, kernels 1-3 5/3/3 per step
     on their tensor-core paths, rank 0's checkpoints, a trace naming the
-    kernels; ms per step."""
+    kernels; ms per step. Then phase 9a': a third epoch, resumed, with
+    ``RuntimeConfig.scan_epoch`` (the step and its 11 NCCL all-reduces
+    captured as one CUDA graph, replayed per batch), counted the same way,
+    one replay under the group profiled, and phase 5e's check (graphed
+    against eager epochs, bit-equal) run under the group."""
+    import functools
     import os
     from unittest import mock
 
-    from wordgesture_gan_tpu_torch.parallel import (all_reduce_gradients,
+    from wordgesture_gan_tpu_torch.parallel import (all_reduce_gradients, create_mesh,
                                                     maybe_init_distributed,
                                                     shutdown_distributed)
 
@@ -1567,18 +1803,45 @@ def train_cli_nccl(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
                         "bilstm_train_bwd": bilstm_train_bwd}
             reset_launches(*counters.values(), all_reduce_gradients)
             second = train_cli.main(["--epochs", "2", *args])
+            second_epoch = latest_epoch(str(ckpt))
             launches = {name: c.launches for name, c in counters.items()}
             by_path = {name: dict(c.launches_by_path) for name, c in counters.items()}
             collectives = all_reduce_gradients.launches
+            reset_launches(*counters.values(), all_reduce_gradients)
+            with mock.patch.object(train_cli, "RuntimeConfig",
+                                   functools.partial(RuntimeConfig, scan_epoch=True)):
+                third = train_cli.main(["--epochs", "3", *args])
+            scan = {"launches": {name: c.launches for name, c in counters.items()},
+                    "by_path": {name: dict(c.launches_by_path) for name, c in counters.items()},
+                    "collectives": all_reduce_gradients.launches}
             still_up = torch.distributed.is_initialized()
+            if device.type == "cuda":
+                mcfg = ModelConfig(time_head="monotone", compute_dtype="bfloat16")
+                tcfg = TrainingConfig(**dict(FLAGSHIP_TRAIN, batch_size=batch_size),
+                                      div_margin=0.25)
+                ds = smoke_dataset(batch_size, mcfg.seq_length)
+                batch = {"gesture": torch.from_numpy(ds.gestures).to(device),
+                         "prototype": torch.from_numpy(ds.prototypes).to(device)}
+                mesh = create_mesh(device=device)
+                scan["profile"] = profile_replay(
+                    lambda s, eb, graph: gan_train_epoch(s, eb, 1e-5, mcfg, tcfg, mesh=mesh,
+                                                         graph=graph),
+                    third.state, batch, "gan_train_step under NCCL (CUDA graph replay)",
+                    batch=batch_size, dtype="bfloat16")
+                scan["check"] = graphed_vs_eager(device, "bfloat16", batch=batch_size, mesh=mesh)
         finally:
             shutdown_distributed()
     steps = second.gestures_per_epoch // batch_size
-    if not still_up or latest_epoch(str(ckpt)) != 2 or len(second.history) != 1 or steps < 1:
+    if not still_up or second_epoch != 2 or len(second.history) != 1 or steps < 1:
         raise AssertionError("train_cli under the process group did not checkpoint 2 epochs")
     if first.throughput.n_chips != 1 or collectives != DP_COLLECTIVES_PER_STEP * steps:
         raise AssertionError(f"{collectives} gradient all-reduces in {steps} steps, expected "
                              f"{DP_COLLECTIVES_PER_STEP} a step")
+    if latest_epoch(str(ckpt)) != 3 or len(third.history) != 1:
+        raise AssertionError("the scan_epoch run under the process group did not resume")
+    if scan["collectives"] != DP_COLLECTIVES_PER_STEP * steps:
+        raise AssertionError(f"{scan['collectives']} gradient all-reduces in {steps} graphed "
+                             f"steps, expected {DP_COLLECTIVES_PER_STEP} a step")
     if device.type == "cuda":
         expected = {name: per * steps for name, per in PER_STEP.items()}
         paths = {name: (bilstm_fused.kernel_path if name == "bilstm_fused" else kernel_path)(
@@ -1586,6 +1849,9 @@ def train_cli_nccl(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
         want = {name: only_path(counters[name], paths[name], expected[name]) for name in counters}
         if launches != expected or by_path != want:
             raise AssertionError(f"launches {launches} by path {by_path}, expected {want}")
+        if scan["launches"] != expected or scan["by_path"] != want:
+            raise AssertionError(f"graphed launches {scan['launches']} by path "
+                                 f"{scan['by_path']}, expected {want}")
     trace_files = sorted(traces.glob("trace_rank0_*.json"))
     if len(trace_files) != 1:
         raise AssertionError(f"--profile-dir wrote {trace_files}")
@@ -1593,9 +1859,17 @@ def train_cli_nccl(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
     named = {k: k in text for k in TRACE_KERNELS}
     if device.type == "cuda" and not all(named.values()):
         raise AssertionError(f"the trace does not name every kernel: {named}")
-    for losses in first.history + second.history:
+    for losses in first.history + second.history + third.history:
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"non-finite losses {losses}")
+    scan_line = {"training": "train_cli.main, NCCL process group of 1 rank, scan_epoch",
+                 "steps_per_epoch": steps, "dtype": "bfloat16",
+                 "ms_per_step": third.epoch_seconds[0] / steps * 1e3,
+                 "eager_ms_per_step": second.epoch_seconds[0] / steps * 1e3,
+                 "gradient_all_reduces": scan["collectives"], "launches": scan["launches"],
+                 "launches_by_path": scan["by_path"], "profile": scan.get("profile"),
+                 "check_vs_eager": scan.get("check")}
+    print(json.dumps(scan_line), flush=True)
     line = {"training": "train_cli.main, NCCL process group of 1 rank", "backend": backend,
             "gestures_per_epoch": second.gestures_per_epoch, "steps_per_epoch": steps,
             "dtype": "bfloat16", "ms_per_step": second.epoch_seconds[0] / steps * 1e3,
@@ -1604,6 +1878,7 @@ def train_cli_nccl(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
             "gradient_all_reduces_per_step": collectives / steps, "launches": launches,
             "trace_file_mb": trace_files[0].stat().st_size / 2 ** 20, "trace_names": named}
     print(json.dumps(line), flush=True)
+    line["scan"] = scan_line
     return line
 
 
@@ -2053,6 +2328,47 @@ def train_variable(device, workdir: Path, users=EVAL_USERS, epochs=VL_TRAIN_EPOC
     return line
 
 
+def train_variable_scan(device, workdir: Path, users=EVAL_USERS, epochs=VL_TRAIN_EPOCHS,
+                        batch_size=512) -> dict:
+    """Phase 7b': ``train_variable_gan`` with ``RuntimeConfig(scan_epoch=True)``
+    (the masked step captured once as a CUDA graph, replayed per batch) on
+    phase 7b's corpus and recipe (bfloat16), ``epochs`` epochs checkpointed;
+    losses finite; one replay profiled."""
+    data = variable_data(workdir, users, checkpoint_dir="checkpoints_vl_scan")
+    args = train_cli.build_parser().parse_args([*data, "--device", device.type])
+    by_word, _ = load_variable_dataset_from_zip(resolve_dataset_zip(args), QWERTYKeyboard(),
+                                                seed=args.seed, verbose=False)
+    train_ds, _ = create_variable_split(by_word, QWERTYKeyboard(), seed=args.seed, verbose=False)
+    mcfg = ModelConfig(generator_type="transformer", time_head="monotone",
+                       compute_dtype="bfloat16")
+    tcfg = TrainingConfig(batch_size=batch_size)
+    ckpt = data[data.index("--checkpoint-dir") + 1]
+    result = train_variable_gan(train_ds, mcfg, tcfg, RuntimeConfig(scan_epoch=True),
+                                num_epochs=epochs, checkpoint_dir=ckpt, device=device)
+    if latest_epoch(ckpt) != epochs or len(result.history) != epochs:
+        raise AssertionError("train_variable_gan with scan_epoch did not train the epochs")
+    for losses in result.history:
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"variable-length losses {losses}")
+    steps = result.gestures_per_epoch // batch_size
+    line = {"training": "train_variable_gan, scan_epoch", "synthetic_users": users,
+            "n": result.gestures_per_epoch, "batch": batch_size, "steps_per_epoch": steps,
+            "dtype": "bfloat16", "epoch_seconds": result.epoch_seconds,
+            "ms_per_step": [t / steps * 1e3 for t in result.epoch_seconds],
+            "losses_last_epoch": result.history[-1]}
+    print(json.dumps(line), flush=True)
+    if device.type == "cuda":
+        batch = {"gesture": train_ds.gestures[:batch_size],
+                 "prototype": train_ds.prototypes[:batch_size],
+                 "mask": train_ds.masks()[:batch_size]}
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        line["profile"] = profile_replay(
+            lambda s, eb, graph: gan_train_epoch_masked(s, eb, 1e-5, mcfg, tcfg, graph=graph),
+            result.state, batch, "gan_train_step_masked (CUDA graph replay)", batch=batch_size,
+            dtype="bfloat16")
+    return line
+
+
 def masked_step_vs_cpu(device, batch=STEP_BATCH, model: dict = None) -> dict:
     """Phase 10: one float32 masked step (full-width transformer, n_critic 5,
     the reference recipe) on the card and on the CPU from the same state,
@@ -2183,10 +2499,33 @@ def main() -> int:
         trained = train(device, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         trained_fp32 = train(device, Path(tmp), model={"compute_dtype": "float32"})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        graphed = train(device, Path(tmp), scan=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        graphed_fp32 = train(device, Path(tmp), model={"compute_dtype": "float32"}, scan=True)
+    adam_forms(device)
+    for kind in ("bfloat16", "float32", "masked"):
+        graphed_vs_eager(device, kind)
+    eager_determinism(device)
+    # Per epoch: the graphed run's first epoch and its resumed third (a new
+    # train_gan call) each pay one eager warm-up step and the capture; its
+    # second epoch is all replays.
+    print(json.dumps({"comparison": "ms per flagship step, B=512, eager vs CUDA graph",
+                      "bfloat16": {"eager": trained["ms_per_step"],
+                                   "graphed": graphed["ms_per_step"]},
+                      "float32": {"eager": trained_fp32["ms_per_step"],
+                                  "graphed": graphed_fp32["ms_per_step"]}}), flush=True)
+    print(json.dumps({"phase": "graphed_training", "seconds": time.perf_counter() - t0}),
+          flush=True)
     step_vs_cpu(device)
     with tempfile.TemporaryDirectory() as tmp:
         evaluated = evaluate(device, Path(tmp))
-        train_variable(device, Path(tmp))
+        eager_vl = train_variable(device, Path(tmp))
+        graphed_vl = train_variable_scan(device, Path(tmp))
+        print(json.dumps({"comparison": "ms per masked step, B=512, eager vs CUDA graph",
+                          "eager": eager_vl["ms_per_step"],
+                          "graphed": graphed_vl["ms_per_step"]}), flush=True)
         masked_step_vs_cpu(device)
         evaluated_vl = evaluate_variable(device, Path(tmp))
         t0 = time.perf_counter()
@@ -2204,7 +2543,11 @@ def main() -> int:
         dp_cli = train_cli_nccl(device, Path(tmp))
         print(json.dumps({"comparison": "ms per flagship bf16 step, B=512",
                           "single_process_train_gan_phase5": trained["ms_per_step"][-1],
-                          "nccl_one_rank_train_cli_phase9a": dp_cli["ms_per_step"]}), flush=True)
+                          "nccl_one_rank_train_cli_phase9a": dp_cli["ms_per_step"],
+                          "single_process_graphed_phase5c_replays_only": graphed["ms_per_step"][1],
+                          "nccl_one_rank_graphed_phase9a_with_capture": dp_cli["scan"]["ms_per_step"],
+                          "nccl_one_rank_graphed_replay_profiled": dp_cli["scan"]["profile"]["wall_ms"]}),
+              flush=True)
         data_parallel_vs_single(device, Path(tmp))
         print(json.dumps({"phase": "data_parallel", "seconds": time.perf_counter() - t0}),
               flush=True)
@@ -2224,13 +2567,28 @@ def main() -> int:
     time_dtw(device, dims=3)    # (x, y, t) gestures: not on the evaluation's path, timed beside it
 
     main_t, main_p, fp32_p = timings["bfloat16"], pair["bfloat16"], pair["float32"]
-    launches, launches_fp32 = trained["launches"], trained_fp32["launches"]
+    # The launches of the eager and the graphed resumed epochs (phases 5, 5c;
+    # 5b, 5d); a replay counts what its capture counted.
+    launches = {k: trained["launches"][k] + graphed["launches"][k] for k in PER_STEP}
+    launches_fp32 = {k: trained_fp32["launches"][k] + graphed_fp32["launches"][k]
+                     for k in PER_STEP}
+
+    def graphed_launches(name: str, fp32: bool = False) -> dict:
+        """A kernel's launches in the graphed resumed epochs, by phase."""
+        if fp32:
+            return {"train_gan_scan_epoch_fp32": graphed_fp32["launches"][name]}
+        return {"train_gan_scan_epoch": graphed["launches"][name],
+                "train_cli_nccl_scan_epoch": dp_cli["scan"]["launches"][name]}
+
     kernels = [{
         "name": "bilstm_fused", "route": "cuda", "path": main_t["path"],
-        "launches_by_path": {k: served["launches_by_path"][k] + trained["launches_by_path"][
-            "bilstm_fused"][k] + trained_fp32["launches_by_path"]["bilstm_fused"][k]
+        "launches_by_path": {k: served["launches_by_path"][k] + sum(
+            run["launches_by_path"]["bilstm_fused"][k] for run in (trained, trained_fp32, graphed,
+                                                          graphed_fp32))
             + evaluated["bilstm_fused_launches_by_path"][k]
             + large["bilstm_fused_launches_by_path"][k] for k in served["launches_by_path"]},
+        "graphed_launches": {**graphed_launches("bilstm_fused"),
+                             **graphed_launches("bilstm_fused", fp32=True)},
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_fused.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_fused.py:54",
         "launches": served["launches"] + launches["bilstm_fused"] + launches_fp32["bilstm_fused"]
@@ -2243,6 +2601,7 @@ def main() -> int:
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:57",
         "launches": launches["bilstm_train_fwd"],
+        "graphed_launches": graphed_launches("bilstm_train_fwd"),
         "max_abs_err": max(c["fwd_max_abs_err"] for c in train_checks),
         "ms": main_p["fwd_ms"], "plain_ms": main_p["plain_fwd_ms"],
         "bound_ms": main_p["fwd_bound_ms"], "bound_by": main_p["fwd_bound_by"],
@@ -2252,6 +2611,7 @@ def main() -> int:
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:206",
         "launches": launches["bilstm_train_bwd"],
+        "graphed_launches": graphed_launches("bilstm_train_bwd"),
         "max_abs_err": max(c["bwd_max_abs_err"] for c in train_checks),
         "ms": main_p["bwd_ms"], "plain_ms": main_p["plain_bwd_ms"],
         "bound_ms": main_p["bwd_bound_ms"], "bound_by": main_p["bwd_bound_by"],
@@ -2262,6 +2622,7 @@ def main() -> int:
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:57",
         "launches": launches_fp32["bilstm_train_fwd"],
+        "graphed_launches": graphed_launches("bilstm_train_fwd", fp32=True),
         "max_abs_err": max(c["fwd_max_abs_err"] for c in train_checks
                            if c["dtype"] == "float32"),
         "ms": fp32_p["fwd_ms"], "plain_ms": fp32_p["plain_fwd_ms"],
@@ -2272,6 +2633,7 @@ def main() -> int:
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:206",
         "launches": launches_fp32["bilstm_train_bwd"],
+        "graphed_launches": graphed_launches("bilstm_train_bwd", fp32=True),
         "max_abs_err": max(c["bwd_max_abs_err"] for c in train_checks
                            if c["dtype"] == "float32"),
         "ms": fp32_p["bwd_ms"], "plain_ms": fp32_p["plain_bwd_ms"],

@@ -516,3 +516,47 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device, tmp_path):
 
     line = chip_smoke.data_parallel_vs_single(cuda_device, tmp_path)
     assert set(line["collectives"].values()) <= {1, chip_smoke.DP_COLLECTIVES_PER_STEP}
+
+
+# -- the scanned epoch: the train step captured as a CUDA graph ------------------------------
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "masked"])
+def test_graphed_epoch_equals_eager_epoch(cuda_device, kind):
+    """``gan_train_epoch`` (flagship bf16, float32) and
+    ``gan_train_epoch_masked`` at full width, B=64: one capture replayed for
+    two epochs of 3 batches, against the same steps run eagerly from a copy
+    of the state and its generator. Traces, every state tensor, Adam's
+    counts and the generator's state bit-equal; the critics' u vectors move
+    across replays; kernels 1-3 counted PER_STEP a step in the replays
+    (``chip_smoke.graphed_vs_eager`` raises otherwise)."""
+    import chip_smoke
+
+    line = chip_smoke.graphed_vs_eager(cuda_device, kind, batch=64)
+    assert line["bit_equal"] and line["rng_equal"]
+    assert line["captures"] == 1 and line["replays"] == line["steps"] - 1
+
+
+def test_graphed_epoch_refuses_a_gloo_group(cuda_device, tmp_path):
+    """A gloo process group's collectives run on the host and cannot be
+    captured: a graphed epoch on the card under one raises ValueError,
+    naming the backend, before any step runs."""
+    import torch.distributed as dist
+
+    from wordgesture_gan_tpu_torch.configs import TrainingConfig
+    from wordgesture_gan_tpu_torch.parallel.mesh import Mesh
+    from wordgesture_gan_tpu_torch.train import gan_train_epoch
+    from wordgesture_gan_tpu_torch.train.state import init_gan_state
+
+    mcfg = ModelConfig(gen_hidden_dim=16, gen_num_layers=2, seq_length=16, latent_dim=4)
+    state = init_gan_state(0, mcfg, cuda_device)
+    batches = {k: torch.zeros((2, 8, 16, 3), device=cuda_device) for k in ("gesture", "prototype")}
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = Mesh(world_size=1, rank=0, group=dist.group.WORLD, device=cuda_device)
+        with pytest.raises(ValueError, match="'gloo'"):
+            gan_train_epoch(state, batches, 1e-4, mcfg, TrainingConfig(batch_size=8), mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert state["epoch"] == 0 and all(state[m]["opt"]["count"] == 0 for m in ("g", "d1"))

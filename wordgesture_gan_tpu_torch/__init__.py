@@ -21,9 +21,10 @@ and keyboard here, the major entry points lazily (``train_gan``,
 ``create_data_loaders``, ``evaluate_all_metrics``, ...), and each
 sub-package the counterparts of its JAX twin's names. Left out, as
 TPU-only: ``ops/tpu_platform.py``, ``utils/compile_cache.py`` (XLA's
-compilation cache), ``train.gan_train_epoch`` (an epoch as one ``lax.scan``)
-and ``parallel.packed_replicate`` / ``batch_sharding`` / ``replicated``
-(transfers and sharding annotations of XLA).
+compilation cache) and ``parallel.packed_replicate`` / ``batch_sharding`` /
+``replicated`` (transfers and sharding annotations of XLA). The JAX
+package's epoch as one ``lax.scan`` (``train.gan_train_epoch``,
+``RuntimeConfig.scan_epoch``) is a captured CUDA graph of the step here.
 """
 
 from . import configs, keyboard, losses

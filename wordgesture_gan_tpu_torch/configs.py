@@ -199,11 +199,9 @@ class RuntimeConfig:
     ``torch.distributed`` (``parallel/``), each process training on its rows
     of every global batch.
 
-    ``donate_state`` and ``scan_epoch`` of the JAX package's ``RuntimeConfig``
-    are absent: the first asks XLA to reuse the state's buffers (the port's
-    steps update the state in place anyway), the second fuses an epoch into
-    one ``lax.scan`` program, which has no PyTorch counterpart (the loop runs
-    the step once per batch).
+    ``donate_state`` of the JAX package's ``RuntimeConfig`` is absent: it asks
+    XLA to reuse the state's buffers, and the port's steps update the state in
+    place anyway.
     """
 
     # Ranks on the data-parallel axis: -1 → every visible card (one process
@@ -214,6 +212,14 @@ class RuntimeConfig:
     # "float32" or "bfloat16" (bf16 compute, fp32 weights, optimizer and
     # losses). CLIs copy this into ModelConfig.compute_dtype.
     precision: str = "float32"
+
+    # Epoch strategy: False (default, as in the JAX package) runs the step
+    # eagerly once per batch, one Python dispatch per kernel; True runs the
+    # epoch through ``gan_train_epoch`` / ``gan_train_epoch_masked``, the
+    # counterparts of the JAX package's ``lax.scan`` epoch: on a CUDA device
+    # the step is captured once as a CUDA graph and replayed once per batch
+    # (``train/step_graph.py``); on the CPU the same steps run in a loop.
+    scan_epoch: bool = False
 
 
 DEFAULT_MODEL_CONFIG = ModelConfig()

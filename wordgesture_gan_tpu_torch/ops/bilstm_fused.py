@@ -37,7 +37,9 @@ shape alone (never by trying one and falling back):
 The first two read the packed weights (``packed_weights``: one flat buffer in
 the model's own layout, one concatenation and one cast per call).
 ``fused_bilstm_fwd.launches`` counts all launches, ``.launches_by_path`` the
-launches of each path.
+launches of each path. The counts are bumped in Python where a launch is
+made; a replayed CUDA graph of a train step makes none there, so each replay
+adds the launches its capture counted (``train/step_graph.py``).
 """
 
 from __future__ import annotations

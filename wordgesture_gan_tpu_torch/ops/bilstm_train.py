@@ -52,7 +52,10 @@ shape alone (never by trying one and falling back):
   kernels, every product in full float32.
 
 ``bilstm_train_fwd.launches`` / ``bilstm_train_bwd.launches`` count all
-launches, ``.launches_by_path`` the launches of each path.
+launches, ``.launches_by_path`` the launches of each path. A replayed CUDA
+graph of a train step adds the launches its capture counted
+(``train/step_graph.py``): the counts are bumped in Python, which a replay
+does not run.
 """
 
 from __future__ import annotations

@@ -21,6 +21,11 @@ the collectives themselves:
 A ``Mesh`` without a process group (the default single-process run) makes
 every function here return its input untouched, launching nothing.
 
+A train step captured as a CUDA graph (``RuntimeConfig.scan_epoch``,
+``train/step_graph.py``) takes its all-reduces into the graph under NCCL;
+gloo's collectives run on the host and cannot be captured
+(``require_capturable``).
+
 ``packed_replicate`` (one host-to-device transfer per dtype through a remote
 TPU link), ``batch_sharding`` and ``replicated`` (XLA sharding annotations)
 have no counterpart here.
@@ -142,7 +147,8 @@ def all_reduce_gradients(mesh: Optional[Mesh], grads: Sequence[torch.Tensor],
     buffer. Each rank passes gradients already weighted by its share of the
     global objective, so the sum is the global gradient.
     ``all_reduce_gradients.launches`` counts the all-reduces. Without a
-    process group: the inputs, untouched."""
+    process group: the inputs, untouched. A replay of a captured step adds
+    the all-reduces its capture counted (``train/step_graph.py``)."""
     mesh = _mesh(mesh)
     if not mesh.active:
         return list(grads), extra
@@ -159,6 +165,18 @@ def all_reduce_gradients(mesh: Optional[Mesh], grads: Sequence[torch.Tensor],
 
 
 all_reduce_gradients.launches = 0
+
+
+def require_capturable(mesh: Optional[Mesh]) -> None:
+    """Raise ValueError unless the step's collectives can be captured into a
+    CUDA graph: no process group, or an NCCL one (gloo's run on the host)."""
+    mesh = _mesh(mesh)
+    if mesh.active:
+        backend = dist.get_backend(mesh.group)
+        if backend != "nccl":
+            raise ValueError(f"scan_epoch on a CUDA device captures the train step as a CUDA "
+                             f"graph, which the {backend!r} backend's collectives cannot join; "
+                             f"train under an NCCL process group, or without scan_epoch")
 
 
 class _SumRanks(torch.autograd.Function):

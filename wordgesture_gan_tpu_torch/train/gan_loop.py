@@ -8,7 +8,12 @@ rank holds the whole training set on its card, draws the same epoch
 permutation and the same noise, and trains on its rows of each global batch
 (``gan_step.py``); rank 0 alone writes the run metadata, the history, the log
 and the checkpoints, and every rank waits at a barrier after each save, so a
-resume on any rank reads a whole checkpoint."""
+resume on any rank reads a whole checkpoint.
+
+``RuntimeConfig.scan_epoch`` runs each epoch through the scanned epoch
+(``gan_step.gan_train_epoch``, ``masked_step.gan_train_epoch_masked``): on a
+CUDA device one captured CUDA graph of the step, replayed once per batch and
+kept for the whole run; everything around the epoch is the same."""
 
 from __future__ import annotations
 
@@ -29,10 +34,11 @@ from ..parallel.mesh import barrier, create_mesh, is_main_process, replicate
 from ..utils.preemption import PreemptionGuard
 from ..utils.profiling import Throughput
 from .checkpoint import restore_checkpoint, save_checkpoint, save_run_metadata
-from .gan_step import METRIC_KEYS, gan_train_step, shuffle_batches
+from .gan_step import METRIC_KEYS, gan_train_epoch, gan_train_step, shuffle_batches
 from .history import append_history, truncate_history
 from .schedules import cosine_annealing_lr
 from .state import init_gan_state
+from .step_graph import StepGraph
 
 
 @dataclass
@@ -70,7 +76,9 @@ def train_gan(
     of the process group if there is one (``runtime_config.data_axis_size``).
 
     Per epoch: the cosine learning rate, a seeded shuffle with drop-last,
-    one ``gan_train_step`` per batch, the epoch's mean losses (a non-finite
+    one ``gan_train_step`` per batch (with ``runtime_config.scan_epoch``,
+    ``gan_train_epoch``: on a CUDA device one captured CUDA graph of the
+    step, replayed per batch), the epoch's mean losses (a non-finite
     one aborts the run before anything is written; an epoch with no batch
     records every loss at 0.0), a history line, a log line with gestures/s,
     ``epoch_callback(epoch, state, losses)``, and a checkpoint every
@@ -88,20 +96,25 @@ def train_gan(
     return run_epochs(
         arrays, lambda s, b, lr, mesh: gan_train_step(s, b, lr, model_config, training_config,
                                                       mesh=mesh),
+        lambda s, eb, lr, mesh, graph: gan_train_epoch(s, eb, lr, model_config, training_config,
+                                                       mesh=mesh, graph=graph),
         METRIC_KEYS, _LOG_FIELDS, model_config, training_config, runtime_config, num_epochs,
         seed, checkpoint_dir, resume, epoch_callback, say, device)
 
 
-def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, metric_keys: Sequence[str],
-               log_fields: Sequence[Tuple[str, str]], model_config: ModelConfig,
-               training_config: TrainingConfig, runtime_config: RuntimeConfig,
-               num_epochs: Optional[int], seed: int, checkpoint_dir: Optional[str],
-               resume: bool, epoch_callback: Optional[Callable], say: Callable,
-               device) -> TrainResult:
+def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, scanned_epoch: Callable,
+               metric_keys: Sequence[str], log_fields: Sequence[Tuple[str, str]],
+               model_config: ModelConfig, training_config: TrainingConfig,
+               runtime_config: RuntimeConfig, num_epochs: Optional[int], seed: int,
+               checkpoint_dir: Optional[str], resume: bool, epoch_callback: Optional[Callable],
+               say: Callable, device) -> TrainResult:
     """The epoch loop ``train_gan`` and ``train_variable_gan`` share:
     ``arrays`` (the training set, one (n, ...) array per batch key) move to
     ``device`` once, and ``step(state, batch, lr, mesh)`` runs once per
-    global batch, returning the metrics ``metric_keys`` names."""
+    global batch, returning the metrics ``metric_keys`` names; with
+    ``runtime_config.scan_epoch``, ``scanned_epoch(state, epoch_batches, lr,
+    mesh, graph)`` runs the epoch instead, with one ``StepGraph`` for the
+    whole run."""
     num_epochs = num_epochs or training_config.num_epochs
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -137,6 +150,7 @@ def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, metric_keys: Seque
     n_batches = next(iter(data.values())).shape[0] // B
     result = TrainResult(state=state, gestures_per_epoch=n_batches * B,
                          throughput=Throughput(mesh.world_size))
+    graph = StepGraph() if runtime_config.scan_epoch else None
     with PreemptionGuard() as preempt:
         for epoch in range(start_epoch, num_epochs):
             lr = float(cosine_annealing_lr(training_config.learning_rate, epoch, num_epochs,
@@ -146,14 +160,18 @@ def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, metric_keys: Seque
             batches = shuffle_batches(shuffle, data, B)
 
             t0 = time.perf_counter()
-            traces: Dict[str, List[torch.Tensor]] = {k: [] for k in metric_keys}
-            for i in range(n_batches):
-                _, metrics = step(state, {k: v[i] for k, v in batches.items()}, lr, mesh)
-                for k in metric_keys:
-                    traces[k].append(metrics[k])
+            if graph is not None:
+                _, traces = scanned_epoch(state, batches, lr, mesh, graph)
+            else:
+                steps: Dict[str, List[torch.Tensor]] = {k: [] for k in metric_keys}
+                for i in range(n_batches):
+                    _, metrics = step(state, {k: v[i] for k, v in batches.items()}, lr, mesh)
+                    for k in metric_keys:
+                        steps[k].append(metrics[k])
+                traces = {k: torch.stack(v) for k, v in steps.items() if v}
             if n_batches:
                 # One host transfer per epoch; it waits for the device.
-                means = torch.stack([torch.stack(traces[k]).mean() for k in metric_keys])
+                means = torch.stack([traces[k].mean() for k in metric_keys])
                 losses = dict(zip(metric_keys, means.cpu().tolist()))
             else:
                 # No batch (fewer samples than batch_size, drop-last): every

@@ -1,6 +1,5 @@
-"""The two-cycle WGAN train step and epoch batching (the port of the JAX
-package's ``train/gan_step.py``; the scanned epoch has no counterpart, the
-loop runs the step once per batch).
+"""The two-cycle WGAN train step, the scanned epoch and epoch batching (the
+port of the JAX package's ``train/gan_step.py``).
 
 Gradient-flow rules, as in the JAX step:
   * critics train on detached fakes;
@@ -16,9 +15,15 @@ Spectral-norm power iteration advances once per critic forward: twice per
 critic update (real, then fake) unless ``fused_critic_forward``, and twice per
 critic in the joint step, whose advanced u's are kept.
 
-The step updates ``state`` in place (parameters and Adam moments are
-overwritten, the critics' u trees replaced) and returns it with its metrics
+The step updates ``state`` in place (parameters, Adam moments and the
+critics' u vectors are overwritten, so every tensor of the state keeps its
+address, as a CUDA graph of the step needs) and returns it with its metrics
 as 0-d float32 tensors on the device, so no step waits for the host.
+
+``gan_train_epoch`` runs the step over every batch of an epoch, the
+counterpart of the JAX package's ``lax.scan`` epoch: on a CUDA device as one
+captured CUDA graph replayed once per batch (``step_graph.py``), on the CPU
+as a loop.
 
 Data parallelism (``mesh`` with a process group, ``parallel/mesh.py``): every
 rank gets the global batch, draws the global batch's noise from its copy of
@@ -48,6 +53,7 @@ from ..models.gan import disc_apply, encoder_apply, generator_apply
 from ..parallel.mesh import Mesh, all_reduce_gradients
 from ..utils.tree import tree_leaves
 from .state import apply_update
+from .step_graph import StepGraph, draw_noise, run_epoch
 
 
 # The step's metrics, in order; a zero-batch epoch records each at 0.0.
@@ -57,6 +63,30 @@ METRIC_KEYS = ("d1_loss", "d2_loss", "cycle1_total", "cycle1_wgan", "cycle1_feat
 
 def _active(mesh: Optional[Mesh]) -> Optional[Mesh]:
     return mesh if mesh is not None and mesh.active else None
+
+
+def noise_shapes(batch: int, latent: int, n_critic: int,
+                 diversity: bool = False) -> Dict[str, Tuple[int, ...]]:
+    """The step's random draws in the order it takes them: ``z_rand`` and
+    ``eps_enc`` (n_critic, B, Z) when there is a critic loop, then ``z1``,
+    ``eps_rec``, ``eps2`` (B, Z), and ``z_ms`` (B, Z) with the diversity
+    terms (``lambda_ms`` or ``lambda_div``)."""
+    shapes = {}
+    if n_critic > 0:
+        shapes["z_rand"] = (n_critic, batch, latent)
+        shapes["eps_enc"] = (n_critic, batch, latent)
+    shapes.update(z1=(batch, latent), eps_rec=(batch, latent), eps2=(batch, latent))
+    if diversity:
+        shapes["z_ms"] = (batch, latent)
+    return shapes
+
+
+def keep_in_place(tree, new) -> None:
+    """Copy the tensors of ``new`` into those of ``tree`` (the critics'
+    advanced u vectors into the state's own), so that the state keeps its
+    addresses: a replayed CUDA graph reads the addresses its capture saw."""
+    with torch.no_grad():
+        torch._foreach_copy_(tree_leaves(tree), tree_leaves(new))
 
 
 def critic_update(disc: Dict, real: torch.Tensor, fake: torch.Tensor, lr: float,
@@ -84,7 +114,7 @@ def critic_update(disc: Dict, real: torch.Tensor, fake: torch.Tensor, lr: float,
     grads = torch.autograd.grad(loss, tree_leaves(params))
     grads, total = all_reduce_gradients(mesh, grads, None if mesh is None else loss.detach()[None])
     apply_update(params, grads, disc["opt"], lr, grad_clip_norm)
-    disc["sn"] = sn
+    keep_in_place(disc["sn"], sn)
     return loss.detach() if total is None else total[0]
 
 
@@ -98,8 +128,9 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
     ``state["rng"]``: ``z_rand``/``eps_enc`` (n_critic, B, Z) for the critic
     loop, ``z1``/``eps_rec``/``eps2`` (B, Z) for the joint step, and
     ``z_ms`` (B, Z), the second prior draw, when ``lambda_ms`` or
-    ``lambda_div`` is on. The random streams of JAX and PyTorch differ, so
-    the tests hand both packages the same noise this way.
+    ``lambda_div`` is on (``noise_shapes``). The random streams of JAX and
+    PyTorch differ, so the tests hand both packages the same noise this way.
+    ``lr`` is a Python number, or a 0-d device tensor in a captured step.
 
     With a process group in ``mesh`` the batch and ``noise`` are the global
     ones; the step trains on this rank's rows (module docstring) and returns
@@ -110,13 +141,14 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
     rows = mesh.rows(B) if mesh is not None else slice(0, B)
     real, proto = batch["gesture"][rows], batch["prototype"][rows]
     b, share = real.shape[0], real.shape[0] / B
-    rng = state["rng"]
     g_params, e_params = state["g"]["params"], state["e"]["params"]
     d1, d2 = state["d1"], state["d2"]
+    diversity = bool(tc.lambda_ms or tc.lambda_div)
+    if noise is None:
+        noise = draw_noise(state["rng"], noise_shapes(B, Z, tc.n_critic, diversity), device)
 
-    def draw(name, shape, axis=0):
-        x = noise[name] if noise is not None else torch.randn(
-            shape, generator=rng, device=device, dtype=torch.float32)
+    def draw(name, axis=0):
+        x = noise[name]
         return x if mesh is None else x.narrow(axis, rows.start, b)
 
     # -- critic loop: G and E frozen; the encoder runs once, with fresh ε per
@@ -124,8 +156,8 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
     n_c = tc.n_critic
     d1_loss = d2_loss = torch.zeros((), device=device)
     if n_c > 0:
-        z_rands = draw("z_rand", (n_c, B, Z), axis=1)
-        eps_encs = draw("eps_enc", (n_c, B, Z), axis=1)
+        z_rands = draw("z_rand", axis=1)
+        eps_encs = draw("eps_enc", axis=1)
         with torch.no_grad():
             _, mu_c, log_var_c = encoder_apply(e_params, real, model_config, eps=eps_encs[0])
             z_encs = mu_c[None] + eps_encs * torch.exp(0.5 * log_var_c)[None]
@@ -140,11 +172,10 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
                                     tc.fused_critic_forward, mesh, share)
 
     # -- joint G + E step.
-    z = draw("z1", (B, Z))
-    eps_rec = draw("eps_rec", (B, Z))
-    eps2 = draw("eps2", (B, Z))
-    diversity = bool(tc.lambda_ms or tc.lambda_div)
-    z_ms = draw("z_ms", (B, Z)) if diversity else None
+    z = draw("z1")
+    eps_rec = draw("eps_rec")
+    eps2 = draw("eps2")
+    z_ms = draw("z_ms") if diversity else None
 
     # Cycle 1: z → X' → z'.
     fake1 = generator_apply(g_params, proto, z, model_config)
@@ -198,10 +229,39 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
     grads, totals = all_reduce_gradients(mesh, grads, extra)
     apply_update(g_params, grads[:len(g_leaves)], state["g"]["opt"], lr, tc.grad_clip_norm)
     apply_update(e_params, grads[len(g_leaves):], state["e"]["opt"], lr, tc.grad_clip_norm)
-    d1["sn"], d2["sn"] = d1_sn, d2_sn
+    keep_in_place(d1["sn"], d1_sn)
+    keep_in_place(d2["sn"], d2_sn)
 
     values = (d1_loss, d2_loss, *(joint if totals is None else totals.unbind()))
     return state, {k: v.detach().to(torch.float32) for k, v in zip(METRIC_KEYS, values)}
+
+
+def gan_train_epoch(state: Dict, epoch_batches: Dict[str, torch.Tensor], lr: float,
+                    model_config: ModelConfig, training_config: TrainingConfig,
+                    noise: Optional[Dict[str, torch.Tensor]] = None,
+                    mesh: Optional[Mesh] = None,
+                    graph: Optional[StepGraph] = None) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+    """A whole epoch of ``gan_train_step`` over stacked batches
+    (``gesture``, ``prototype``: (n_batches, B, L, 3), already shuffled on
+    the device): the counterpart of the JAX package's ``lax.scan`` epoch.
+
+    On a CUDA device the step is captured once as a CUDA graph and replayed
+    once per batch (``step_graph.py``); ``graph`` is the ``StepGraph`` to
+    reuse across epochs (``train_gan`` keeps one per run; None captures
+    afresh). On the CPU the steps run in a loop. Each step draws from
+    ``state["rng"]`` what the eager step draws, unless ``noise`` gives every
+    step's draws stacked (n_batches, ...) under ``gan_train_step``'s names.
+    Returns the state, its epoch advanced by one, and {metric: (n_batches,)
+    float32 trace on the device}."""
+    tc = training_config
+    shapes = noise_shapes(epoch_batches["gesture"].shape[1], model_config.latent_dim,
+                          tc.n_critic, bool(tc.lambda_ms or tc.lambda_div))
+
+    def step(s, batch, lr_, noise_):
+        return gan_train_step(s, batch, lr_, model_config, tc, noise=noise_, mesh=mesh)
+
+    return run_epoch(step, state, epoch_batches, lr, shapes, METRIC_KEYS, noise, graph,
+                     key=("gan_train_step", model_config, tc, mesh), mesh=mesh)
 
 
 def shuffle_batches(generator: torch.Generator, arrays: Dict[str, torch.Tensor],

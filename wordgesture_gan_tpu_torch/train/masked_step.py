@@ -1,6 +1,6 @@
-"""The two-cycle WGAN step on variable-length (masked) batches and its epoch
-batching (the port of the JAX package's ``train/masked_step.py``; the scanned
-epoch has no counterpart, the loop runs the step once per batch).
+"""The two-cycle WGAN step on variable-length (masked) batches, its scanned
+epoch and its epoch batching (the port of the JAX package's
+``train/masked_step.py``).
 
 Batches carry a per-point validity mask. The generator is the transformer
 (its attention and time head take the mask), its outputs are zeroed on the
@@ -8,10 +8,13 @@ padding, the critics and the encoder see the real traces with the padding
 zeroed, and the reconstruction and timing losses count valid points only.
 The masked step has no diversity terms (``lambda_ms``, ``lambda_div``), as
 in the JAX package. Gradient flow, power-iteration order, the in-place
-update and data parallelism are ``gan_step.gan_train_step``'s, with one
-difference under a process group: the masked reconstruction loss is a mean
-over the batch's valid points, so a rank's share of it is its fraction of
-the global batch's valid points, not of its rows.
+update, the scanned epoch (``gan_train_epoch_masked``: a captured CUDA graph
+replayed once per batch on a CUDA device; the batches are padded to one L,
+so every replay has the same shapes) and data parallelism are
+``gan_step``'s, with one difference under a process group: the masked
+reconstruction loss is a mean over the batch's valid points, so a rank's
+share of it is its fraction of the global batch's valid points, not of its
+rows.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ from ..models.gan import disc_apply, encoder_apply
 from ..models.generators import transformer_generator_apply
 from ..utils.tree import tree_leaves
 from ..parallel.mesh import Mesh, all_reduce_gradients
-from .gan_step import _active, critic_update, shuffle_batches
+from .gan_step import _active, critic_update, keep_in_place, noise_shapes, shuffle_batches
 from .state import apply_update
+from .step_graph import StepGraph, draw_noise, run_epoch
 
 # The step's metrics, in order; a zero-batch epoch records each at 0.0.
 METRIC_KEYS = ("d1_loss", "d2_loss", "cycle1_total", "cycle2_total", "cycle2_rec")
@@ -63,14 +67,14 @@ def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float
     rows = mesh.rows(B) if mesh is not None else slice(0, B)
     real, proto, mask = batch["gesture"][rows], batch["prototype"][rows], batch["mask"][rows]
     b, share = real.shape[0], real.shape[0] / B
-    rng = state["rng"]
     g_params, e_params = state["g"]["params"], state["e"]["params"]
     d1, d2 = state["d1"], state["d2"]
     real_m = real * mask[:, :, None]
+    if noise is None:
+        noise = draw_noise(state["rng"], noise_shapes(B, Z, tc.n_critic), device)
 
-    def draw(name, shape, axis=0):
-        x = noise[name] if noise is not None else torch.randn(
-            shape, generator=rng, device=device, dtype=torch.float32)
+    def draw(name, axis=0):
+        x = noise[name]
         return x if mesh is None else x.narrow(axis, rows.start, b)
 
     def gen(params, prototype, z, pad_mask):
@@ -82,8 +86,8 @@ def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float
     n_c = tc.n_critic
     d1_loss = d2_loss = torch.zeros((), device=device)
     if n_c > 0:
-        z_rands = draw("z_rand", (n_c, B, Z), axis=1)
-        eps_encs = draw("eps_enc", (n_c, B, Z), axis=1)
+        z_rands = draw("z_rand", axis=1)
+        eps_encs = draw("eps_enc", axis=1)
         with torch.no_grad():
             _, mu_c, log_var_c = encoder_apply(e_params, real_m, model_config, eps=eps_encs[0])
             z_encs = mu_c[None] + eps_encs * torch.exp(0.5 * log_var_c)[None]
@@ -97,9 +101,9 @@ def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float
                                     mesh=mesh, share=share)
 
     # -- joint G + E step.
-    z = draw("z1", (B, Z))
-    eps_rec = draw("eps_rec", (B, Z))
-    eps2 = draw("eps2", (B, Z))
+    z = draw("z1")
+    eps_rec = draw("eps_rec")
+    eps2 = draw("eps2")
 
     # Cycle 1: z → X' → z'.
     fake1 = gen(g_params, proto, z, mask)
@@ -146,11 +150,33 @@ def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float
     grads, totals = all_reduce_gradients(mesh, grads, extra)
     apply_update(g_params, grads[:len(g_leaves)], state["g"]["opt"], lr, tc.grad_clip_norm)
     apply_update(e_params, grads[len(g_leaves):], state["e"]["opt"], lr, tc.grad_clip_norm)
-    d1["sn"], d2["sn"] = d1_sn, d2_sn
+    keep_in_place(d1["sn"], d1_sn)
+    keep_in_place(d2["sn"], d2_sn)
 
     joint = (c1_total, c2_total, c2_rec) if totals is None else totals.unbind()
     values = (d1_loss, d2_loss, *joint)
     return state, {k: v.detach().to(torch.float32) for k, v in zip(METRIC_KEYS, values)}
+
+
+def gan_train_epoch_masked(state: Dict, epoch_batches: Dict[str, torch.Tensor], lr: float,
+                           model_config: ModelConfig, training_config: TrainingConfig,
+                           noise: Optional[Dict[str, torch.Tensor]] = None,
+                           mesh: Optional[Mesh] = None, graph: Optional[StepGraph] = None
+                           ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+    """A whole variable-length epoch of ``gan_train_step_masked`` over
+    stacked batches (``gesture``, ``prototype`` (n_batches, B, L, 3),
+    ``mask`` (n_batches, B, L)): the masked twin of
+    ``gan_step.gan_train_epoch``, with the same arguments and results."""
+    shapes = noise_shapes(epoch_batches["gesture"].shape[1], model_config.latent_dim,
+                          training_config.n_critic)
+
+    def step(s, batch, lr_, noise_):
+        return gan_train_step_masked(s, batch, lr_, model_config, training_config,
+                                     noise=noise_, mesh=mesh)
+
+    return run_epoch(step, state, epoch_batches, lr, shapes, METRIC_KEYS, noise, graph,
+                     key=("gan_train_step_masked", model_config, training_config, mesh),
+                     mesh=mesh)
 
 
 def make_epoch_batches_masked(generator: torch.Generator, gestures: torch.Tensor,

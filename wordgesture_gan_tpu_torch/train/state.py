@@ -38,17 +38,59 @@ def adam_init(params) -> Dict:
             "count": 0}
 
 
+@functools.lru_cache(maxsize=8)
+def _inverse_correction_table(beta: float, device: torch.device) -> torch.Tensor:
+    """1 / (1 - β^c) for c = 1, 2, ... (row c - 1), up to the first c at
+    which it rounds to 1.0 in float32 (it stays there for every larger c):
+    each value computed in Python's double precision, as ``apply_update``
+    computes it for an int count, then rounded to float32, as a kernel
+    rounds a Python number."""
+    if not 0.0 <= beta < 1.0:
+        raise ValueError(f"Adam's beta must lie in [0, 1), got {beta}")
+    values, count = [], 1
+    while not values or np.float32(values[-1]) != 1.0:
+        values.append(1.0 / (1.0 - beta ** count))
+        count += 1
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def inverse_bias_corrections(count, b1: float, b2: float):
+    """The reciprocals of Adam's bias corrections, 1 / (1 - β1^count) and
+    1 / (1 - β2^count), count >= 1. For an int count they are Python numbers.
+    For a 0-d int64 count on the device (a step captured as a CUDA graph,
+    ``train/step_graph.py``) they are 0-d float32 tensors read from a table
+    of the same numbers, so a replay and an eager step multiply by the same
+    float32 values and no host number is frozen into the graph."""
+    if not torch.is_tensor(count):
+        return 1.0 / (1.0 - b1 ** count), 1.0 / (1.0 - b2 ** count)
+    out = []
+    for beta in (b1, b2):
+        table = _inverse_correction_table(beta, count.device)
+        index = torch.clamp(count - 1, min=0, max=table.shape[0] - 1).reshape(1)
+        out.append(table.index_select(0, index).reshape(()))
+    return tuple(out)
+
+
 @torch.no_grad()
-def apply_update(params, grads: List[torch.Tensor], opt: Dict, lr: float,
+def apply_update(params, grads: List[torch.Tensor], opt: Dict, lr,
                  grad_clip_norm: float, b1: float = ADAM_B1, b2: float = ADAM_B2) -> None:
     """One optimizer step, in place: global-norm clipping, then Adam
     (β = (0.5, 0.999) for the GAN's models, ε = 1e-8 outside the square root,
-    bias-corrected), then ``p -= lr · u``.
+    bias-corrected), then ``p -= lr · u`` (``lr · u`` rounded, then
+    subtracted, as optax's ``p + (-lr · u)``). The moments are bias-corrected
+    by multiplying with the float32 reciprocal of 1 - β^count, which is what
+    CUDA's division by a Python number computes (the CPU's divides).
 
     Clipping is optax's ``clip_by_global_norm``: the gradients are scaled by
     max / ‖g‖ only when ‖g‖ >= max (no ε in the denominator), decided on the
     device without a host round trip. ``grads`` are in ``tree_leaves(params)``
-    order."""
+    order.
+
+    ``lr`` is a Python number, or a 0-d float32 tensor on the device, and
+    ``opt["count"]`` an int, or a 0-d int64 tensor on the device that is
+    incremented in place: the forms a step captured as a CUDA graph takes,
+    so that every replay reads its own learning rate and step count. The
+    two forms give bit-equal results."""
     p = tree_leaves(params)
     g = list(grads)
     mu, nu = tree_leaves(opt["mu"]), tree_leaves(opt["nu"])
@@ -61,12 +103,14 @@ def apply_update(params, grads: List[torch.Tensor], opt: Dict, lr: float,
     torch._foreach_mul_(nu, b2)
     torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
     opt["count"] += 1
-    denom = torch._foreach_div(nu, 1.0 - b2 ** opt["count"])
+    r1, r2 = inverse_bias_corrections(opt["count"], b1, b2)
+    denom = torch._foreach_mul(nu, r2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, ADAM_EPS)
-    update = torch._foreach_div(mu, 1.0 - b1 ** opt["count"])
+    update = torch._foreach_mul(mu, r1)
     torch._foreach_div_(update, denom)
-    torch._foreach_add_(p, update, alpha=-lr)
+    torch._foreach_mul_(update, lr)
+    torch._foreach_sub_(p, update)
 
 
 def make_optimizer(grad_clip_norm: float = 1.0, b1: float = ADAM_B1,

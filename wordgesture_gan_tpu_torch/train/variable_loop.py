@@ -3,8 +3,9 @@ JAX package's ``train/variable_loop.py``).
 
 The masked twin of ``gan_loop.train_gan``: padded traces with validity
 masks, the transformer generator, ``masked_step.gan_train_step_masked`` once
-per batch, and the same learning-rate schedule, shuffle, checkpoint,
-history, preemption and non-finite-loss contract (``gan_loop.run_epochs``).
+per batch (with ``RuntimeConfig.scan_epoch``, ``gan_train_epoch_masked``),
+and the same learning-rate schedule, shuffle, checkpoint, history,
+preemption and non-finite-loss contract (``gan_loop.run_epochs``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..configs import (DEFAULT_RUNTIME_CONFIG, DEFAULT_TRAINING_CONFIG, ModelCon
 from ..data.variable_length import VariableGestureArrays
 from ..models.gan import Generator
 from .gan_loop import TrainResult, generate_gestures, run_epochs
-from .masked_step import METRIC_KEYS, gan_train_step_masked
+from .masked_step import METRIC_KEYS, gan_train_epoch_masked, gan_train_step_masked
 
 # The losses each epoch's log line shows, as (label, metric).
 _LOG_FIELDS = (("D1", "d1_loss"), ("D2", "d2_loss"), ("C1", "cycle1_total"),
@@ -54,6 +55,9 @@ def train_variable_gan(
     return run_epochs(
         arrays, lambda s, b, lr, mesh: gan_train_step_masked(s, b, lr, model_config,
                                                              training_config, mesh=mesh),
+        lambda s, eb, lr, mesh, graph: gan_train_epoch_masked(s, eb, lr, model_config,
+                                                              training_config, mesh=mesh,
+                                                              graph=graph),
         METRIC_KEYS, _LOG_FIELDS, model_config, training_config, runtime_config, num_epochs, seed,
         checkpoint_dir, resume, epoch_callback, print if verbose else (lambda *_: None), device)
 
