@@ -169,7 +169,15 @@ Then, run before phase 8's timings:
    through ``interop.torch_weights.trainer_state_from_torch`` (the same trees
    back), saved as a checkpoint and served through ``generate.main
    --checkpoint-dir`` (bf16, 512 gestures, one kernel-1 launch), a small
-   batch with injected noise against the CPU.
+   batch with injected noise against the CPU;
+12. ``tools/port_quality_runs.py --runs flag`` on phase 9a's corpus (the
+   first 120 logs of phase 7's) cut to 2 epochs, FID autoencoders 5 epochs:
+   the flagship recipe through ``train_cli.main(..., scan_epoch=True)``,
+   then ``eval_cli.main --model both``, then the report against the JAX
+   package's committed runs. Launches counted from 0 just before: kernels
+   1-3 5/3/3 a step of the training call, on their tensor-core paths, and
+   in all what the runner recorded per call; ``results.json`` written with
+   both columns, the bands and the checks.
 
 Output: check, timing and profile lines as JSON, then the kernel table as
 one JSON line ({"kernels": [...]}), then the nvidia-smi line, then as the
@@ -1777,7 +1785,6 @@ def train_cli_nccl(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
     captured as one CUDA graph, replayed per batch), counted the same way,
     one replay under the group profiled, and phase 5e's check (graphed
     against eager epochs, bit-equal) run under the group."""
-    import functools
     import os
     from unittest import mock
 
@@ -1808,9 +1815,7 @@ def train_cli_nccl(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
             by_path = {name: dict(c.launches_by_path) for name, c in counters.items()}
             collectives = all_reduce_gradients.launches
             reset_launches(*counters.values(), all_reduce_gradients)
-            with mock.patch.object(train_cli, "RuntimeConfig",
-                                   functools.partial(RuntimeConfig, scan_epoch=True)):
-                third = train_cli.main(["--epochs", "3", *args])
+            third = train_cli.main(["--epochs", "3", *args], scan_epoch=True)
             scan = {"launches": {name: c.launches for name, c in counters.items()},
                     "by_path": {name: dict(c.launches_by_path) for name, c in counters.items()},
                     "collectives": all_reduce_gradients.launches}
@@ -1879,6 +1884,80 @@ def train_cli_nccl(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
             "trace_file_mb": trace_files[0].stat().st_size / 2 ** 20, "trace_names": named}
     print(json.dumps(line), flush=True)
     line["scan"] = scan_line
+    return line
+
+
+QUALITY_EPOCHS = 2
+
+
+def quality_runner(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
+                   epochs=QUALITY_EPOCHS, batch_size=512, train_args: str = "",
+                   eval_args: str = f"--fid-epochs {EVAL_FID_EPOCHS}") -> dict:
+    """Phase 12: ``tools/port_quality_runs.py`` on phase 9a's corpus, cut to
+    ``epochs`` epochs: the flagship run trained through ``train_cli.main(...,
+    scan_epoch=True)``, scored by ``eval_cli --model both`` and reported
+    against the JAX package's runs. Launches counted from 0 just before:
+    5/3/3 a training step on the tensor-core paths; the totals are the sums
+    of what the runner recorded per call; ``results.json`` holds both
+    columns, the bands and the checks."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "port_quality_runs", Path(__file__).resolve().parent / "tools" / "port_quality_runs.py")
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    out = workdir / "quality_runs"
+    counters = {"bilstm_fused": fused_bilstm_fwd, "bilstm_train_fwd": bilstm_train_fwd,
+                "bilstm_train_bwd": bilstm_train_bwd, "dtw": dtw_matrix,
+                "dtw_aligned_pairs": dtw_pairs}
+    reset_launches(*counters.values())
+    t0 = time.perf_counter()
+    runner.main(["--runs", "flag", "--out", str(out), "--device", device.type,
+                 "--data", str(workdir / "swipelogs.zip"), "--epochs", str(epochs),
+                 "--synthetic-users", str(users), "--max-files", str(files),
+                 "--train-args", f"--batch-size {batch_size} {train_args}",
+                 "--eval-args", eval_args])
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    by_path = {name: dict(c.launches_by_path) for name, c in counters.items()
+               if hasattr(c, "launches_by_path")}
+    saved = json.loads((out / "results.json").read_text())
+    flag = saved["runs"]["flag"]
+    train_call, eval_call = flag["runner"]["train_calls"][0], flag["runner"]["eval_calls"][0]
+    steps = epochs * (train_call["gestures_per_epoch"] // batch_size)
+    for table in ("metrics", "minjerk"):
+        if not all(isinstance(row["outside"], bool) and np.isfinite(row["port"])
+                   for key, row in flag[table].items() if row["jax"] is not None
+                   and row["port"] is not None):
+            raise AssertionError(f"the report's {table} rows are not whole: {flag[table]}")
+    if flag["epochs"] != epochs or not {"margin", "counts_flag", "minjerk_flag"} <= set(
+            saved["checks"]):
+        raise AssertionError(f"the report misses epochs or checks: {saved['checks']}")
+    for name, c in counters.items():
+        recorded = [call["launches"][name] for call in (train_call, eval_call)]
+        total = sum(sum(r.values()) if isinstance(r, dict) else r for r in recorded)
+        if total != launches[name]:
+            raise AssertionError(f"{name}: {launches[name]} launches, the runner recorded "
+                                 f"{recorded}")
+    if device.type == "cuda":
+        paths = {name: (bilstm_fused.kernel_path if name == "bilstm_fused" else kernel_path)(
+            torch.bfloat16, HIDDEN, SEQ, 1) for name in PER_STEP}
+        want = {name: {paths[name]: per * steps} for name, per in PER_STEP.items()}
+        got = {name: train_call["launches"][name] for name in PER_STEP}
+        if steps < 1 or got != want:
+            raise AssertionError(f"training launches {got}, expected {want}")
+        if eval_call["launches"]["dtw"] != 2:
+            raise AssertionError(f"evaluation launches {eval_call['launches']}")
+    line = {"runner": "tools/port_quality_runs.py --runs flag", "epochs": epochs,
+            "steps": steps, "seconds": wall, "train_seconds": train_call["seconds"],
+            "eval_seconds": eval_call["seconds"],
+            "ms_per_step_replays": [t / (steps // epochs) * 1e3
+                                    for t in train_call["epoch_seconds"]],
+            "launches": launches, "launches_by_path": by_path,
+            "train_launches": train_call["launches"], "eval_launches": eval_call["launches"],
+            "checks": {k: v["ok"] for k, v in saved["checks"].items()},
+            "outside": sorted(k for k, row in flag["metrics"].items() if row["outside"])}
+    print(json.dumps(line), flush=True)
     return line
 
 
@@ -2556,6 +2635,8 @@ def main() -> int:
         serve_reference_weights(device, Path(tmp))
         print(json.dumps({"phase": "realism_and_reference_weights",
                           "seconds": time.perf_counter() - t0}), flush=True)
+        quality = quality_runner(device, Path(tmp))
+        print(json.dumps({"phase": "quality_runner", "seconds": quality["seconds"]}), flush=True)
     timings = {name: time_kernel(device, name) for name in ("bfloat16", "float32")}
     for name in ("bfloat16", "float32"):
         time_kernel(device, name, batch=TRAIN_CALL_BATCH)
@@ -2578,7 +2659,9 @@ def main() -> int:
         if fp32:
             return {"train_gan_scan_epoch_fp32": graphed_fp32["launches"][name]}
         return {"train_gan_scan_epoch": graphed["launches"][name],
-                "train_cli_nccl_scan_epoch": dp_cli["scan"]["launches"][name]}
+                "train_cli_nccl_scan_epoch": dp_cli["scan"]["launches"][name],
+                "quality_runner_train_cli_scan_epoch": sum(
+                    quality["train_launches"][name].values())}
 
     kernels = [{
         "name": "bilstm_fused", "route": "cuda", "path": main_t["path"],
@@ -2586,13 +2669,15 @@ def main() -> int:
             run["launches_by_path"]["bilstm_fused"][k] for run in (trained, trained_fp32, graphed,
                                                           graphed_fp32))
             + evaluated["bilstm_fused_launches_by_path"][k]
-            + large["bilstm_fused_launches_by_path"][k] for k in served["launches_by_path"]},
+            + large["bilstm_fused_launches_by_path"][k]
+            + quality["launches_by_path"]["bilstm_fused"][k] for k in served["launches_by_path"]},
         "graphed_launches": {**graphed_launches("bilstm_fused"),
                              **graphed_launches("bilstm_fused", fp32=True)},
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_fused.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_fused.py:54",
         "launches": served["launches"] + launches["bilstm_fused"] + launches_fp32["bilstm_fused"]
-        + evaluated["launches"]["bilstm_fused"] + large["launches"]["bilstm_fused"],
+        + evaluated["launches"]["bilstm_fused"] + large["launches"]["bilstm_fused"]
+        + quality["launches"]["bilstm_fused"],
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"], "library_ms": main_t["library_ms"],
@@ -2600,7 +2685,7 @@ def main() -> int:
         "name": "bilstm_train_fwd", "route": "cuda", "path": main_p["path"],
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:57",
-        "launches": launches["bilstm_train_fwd"],
+        "launches": launches["bilstm_train_fwd"] + quality["launches"]["bilstm_train_fwd"],
         "graphed_launches": graphed_launches("bilstm_train_fwd"),
         "max_abs_err": max(c["fwd_max_abs_err"] for c in train_checks),
         "ms": main_p["fwd_ms"], "plain_ms": main_p["plain_fwd_ms"],
@@ -2610,7 +2695,7 @@ def main() -> int:
         "name": "bilstm_train_bwd", "route": "cuda", "path": main_p["path"],
         "source": "wordgesture_gan_tpu_torch/csrc/bilstm_train.cu",
         "replaces": "wordgesture_gan_tpu/ops/bilstm_train.py:206",
-        "launches": launches["bilstm_train_bwd"],
+        "launches": launches["bilstm_train_bwd"] + quality["launches"]["bilstm_train_bwd"],
         "graphed_launches": graphed_launches("bilstm_train_bwd"),
         "max_abs_err": max(c["bwd_max_abs_err"] for c in train_checks),
         "ms": main_p["bwd_ms"], "plain_ms": main_p["plain_bwd_ms"],
@@ -2645,7 +2730,7 @@ def main() -> int:
         "source": "wordgesture_gan_tpu_torch/csrc/dtw.cu",
         "replaces": "wordgesture_gan_tpu/ops/dtw_pallas.py:53",
         "launches": evaluated["launches"]["dtw"] + evaluated_vl["launches"]["dtw"]
-        + realism_line["launches"],
+        + realism_line["launches"] + quality["launches"]["dtw"],
         "max_abs_err": max(max(c["max_abs_err"] for c in dtw_checks),
                            dtw_t["max_abs_err_all_pairs"]),
         "max_rel_err": max(max(c["max_rel_err"] for c in dtw_checks),

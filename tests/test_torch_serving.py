@@ -242,7 +242,7 @@ FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "flax", "wordgesture_gan_tpu"}
 
 def _port_sources():
     files = sorted((REPO / "wordgesture_gan_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "tools" / "port_quality_runs.py"]
 
 
 def test_port_imports_no_jax():
@@ -269,7 +269,7 @@ def test_port_imports_no_jax():
         "data/contrastive.py", "train/contrastive_loop.py", "eval/contrastive_eval.py",
         "train_contrastive_cli.py", "eval_contrastive_cli.py", "parallel/distributed.py",
         "parallel/mesh.py", "utils/profiling.py", "ops/fastdtw_approx.py", "data/realism.py",
-        "interop/torch_weights.py")} <= covered
+        "interop/torch_weights.py")} | {"chip_smoke.py", "tools/port_quality_runs.py"} <= covered
     assert not offending, offending
 
 
@@ -280,7 +280,7 @@ def test_port_runs_with_jax_unimportable():
             "import wordgesture_gan_tpu_torch.eval_cli, wordgesture_gan_tpu_torch.train_cli\n"
             "import wordgesture_gan_tpu_torch.viz, wordgesture_gan_tpu_torch.data.native\n"
             "import wordgesture_gan_tpu_torch.train.variable_loop\n"
-            "import chip_smoke\n"
+            "import chip_smoke, tools.port_quality_runs\n"
             "print('ok')\n")
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                             text=True, timeout=120)

@@ -97,19 +97,24 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
+def main(argv: Optional[Sequence[str]] = None, *, scan_epoch: bool = False) -> TrainResult:
     """Run the CLI; returns ``train_gan``'s result (rank 0's in a
-    data-parallel run)."""
+    data-parallel run). ``scan_epoch`` trains with
+    ``RuntimeConfig(scan_epoch=True)``: on the card each epoch replays one
+    captured CUDA graph of the step, bit-equal to the eager epoch. It is a
+    keyword of the library call, not a flag, as the JAX package's
+    ``train_gan.py`` has none; ranks that ``--data-axis-size`` starts as
+    copies of the command train eagerly."""
     parser = build_parser()
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda but no CUDA device is available; pass --device cpu")
     return run_ranks("wordgesture_gan_tpu_torch.train_cli", args, argv, device,
-                     lambda dev: _main(args, dev))
+                     lambda dev: _main(args, dev, scan_epoch))
 
 
-def _main(args: argparse.Namespace, device: torch.device) -> TrainResult:
+def _main(args: argparse.Namespace, device: torch.device, scan_epoch: bool = False) -> TrainResult:
     say = log if is_main_process() else (lambda *_: None)
     say(f"Device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
     seed_everything(args.seed)
@@ -121,7 +126,8 @@ def _main(args: argparse.Namespace, device: torch.device) -> TrainResult:
     training_config = TrainingConfig(
         num_epochs=args.epochs, batch_size=args.batch_size,
         **{k: getattr(args, k) for k in _LAMBDAS if getattr(args, k) is not None})
-    runtime_config = RuntimeConfig(data_axis_size=args.data_axis_size, precision=args.precision)
+    runtime_config = RuntimeConfig(data_axis_size=args.data_axis_size, precision=args.precision,
+                                   scan_epoch=scan_epoch)
     if args.variable_length:
         return _train_variable(args, model_config, training_config, runtime_config, device)
 
