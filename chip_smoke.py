@@ -1926,7 +1926,8 @@ def quality_runner(device, workdir: Path, users=EVAL_USERS, files=DP_CLI_FILES,
     train_call, eval_call = flag["runner"]["train_calls"][0], flag["runner"]["eval_calls"][0]
     steps = epochs * (train_call["gestures_per_epoch"] // batch_size)
     for table in ("metrics", "minjerk"):
-        if not all(isinstance(row["outside"], bool) and np.isfinite(row["port"])
+        if not all(np.isfinite(row["port"]) and (row["outside"] is None) == (
+                       key in runner.NO_BAND)
                    for key, row in flag[table].items() if row["jax"] is not None
                    and row["port"] is not None):
             raise AssertionError(f"the report's {table} rows are not whole: {flag[table]}")

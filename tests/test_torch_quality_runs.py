@@ -24,10 +24,16 @@ At full width with the flagship's terms that moves G's and E's gradients by
 itself on 1 and on 8 CPU threads (another summation order); with no
 auxiliary term the gap to JAX is 1e-6. On identical inputs the two
 packages' auxiliary losses agree in their gradients to 2e-7 of the largest.
+
+Over several steps (``tests/jax_trajectory.py`` at H=8, with the flagship's
+terms and with none) the port trains from one JAX initial state to within
+1e-3 of JAX's parameters and losses; the full-width runs of that script are
+in ``runs_torch/diagnostics/``.
 """
 
 import importlib.util
 import json
+import shutil
 from pathlib import Path
 
 import jax
@@ -49,7 +55,8 @@ from wordgesture_gan_tpu_torch.interop.from_jax import adam_moments, train_state
 from wordgesture_gan_tpu_torch.keyboard import QWERTYKeyboard
 from wordgesture_gan_tpu_torch.train.gan_step import gan_train_step
 from wordgesture_gan_tpu_torch.train.masked_step import gan_train_step_masked
-from wordgesture_gan_tpu_torch.train.state import MODELS
+from wordgesture_gan_tpu_torch.train.state import MODELS, init_gan_state
+from tests.jax_trajectory import jax_step_draws, trajectory
 
 REPO = Path(__file__).resolve().parent.parent
 _spec = importlib.util.spec_from_file_location("port_quality_runs",
@@ -192,6 +199,17 @@ def test_train_cli_scan_epoch_is_bit_equal_on_cpu(tmp_path):
         assert torch.equal(a, b) if torch.is_tensor(a) else a == b
 
 
+def test_train_cli_scan_epoch_refuses_local_ranks(tmp_path, monkeypatch):
+    """The ranks ``--data-axis-size`` would start are copies of the command
+    line and cannot carry ``scan_epoch``: the call raises before any starts."""
+    monkeypatch.delenv("WGG_DISTRIBUTED", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = ["--epochs", "1", "--data-axis-size", "2", *_tiny_corpus(tmp_path, "ranks")]
+    with pytest.raises(ValueError, match="scan_epoch"):
+        train_cli.main(argv, scan_epoch=True)
+    assert not (tmp_path / "ranks").exists()
+
+
 def test_runner_end_to_end_on_cpu(tmp_path, capsys):
     argv = ["--device", "cpu", "--out", str(tmp_path / "out"), "--data",
             str(tmp_path / "swipelogs.zip"), "--epochs", "1", "--synthetic-users", "4",
@@ -218,6 +236,8 @@ def test_runner_end_to_end_on_cpu(tmp_path, capsys):
     lo, hi = flag["metrics"]["l2_wasserstein"]["lo"], flag["metrics"]["l2_wasserstein"]["hi"]
     assert (lo, hi) == pytest.approx((2.019 - 3 * d["l2_wasserstein"],
                                       2.019 + 3 * d["l2_wasserstein"]))
+    for key in runner.NO_BAND:      # FID: shown, with no band and no flag
+        assert flag["metrics"][key]["lo"] is None and flag["metrics"][key]["outside"] is None
     assert flag["wins_vs_own_minjerk"]["jax"] == 8
     assert saved["checks"]["counts_flag"]["ok"] is False          # 4 users, not 1338
     assert set(saved["checks"]["minjerk_flag"]["rows"]) == set(runner.MINJERK_EXACT)
@@ -228,6 +248,12 @@ def test_runner_end_to_end_on_cpu(tmp_path, capsys):
     train_calls = flag["runner"]["train_calls"]
     assert len(train_calls) == 1 and train_calls[0]["epochs"] == [0, 1]
     assert "## flag" in (tmp_path / "out" / "results.md").read_text()
+    # Another seed draws other min-jerk samples: its column is shown unflagged.
+    shutil.copytree(run_dir, tmp_path / "out" / "flag_seed43")
+    other = runner.report(tmp_path / "out")["runs"]["flag_seed43"]
+    assert all(row["outside"] is None for row in other["minjerk"].values())
+    assert isinstance(other["metrics"]["l2_wasserstein"]["outside"], bool)
+    shutil.rmtree(tmp_path / "out" / "flag_seed43")
     # A trained and scored run is neither trained nor scored again.
     capsys.readouterr()
     again = runner.main(argv)["runs"]["flag"]["runner"]
@@ -271,28 +297,6 @@ def _gesture_batch(seq: int, masked: bool) -> dict:
     return batch
 
 
-def _jax_step_draws(key, n_critic: int, latent: int, diversity: bool) -> dict:
-    """The draws the JAX step makes from its state key, by repeating its
-    splits: split(rng, 3) per critic iteration, then split(rng, 4), then
-    (with a diversity term) split(rng, 2) for the second prior draw."""
-    draws = {"z_rand": [], "eps_enc": []}
-    for _ in range(n_critic):
-        key, kz, ke = jax.random.split(key, 3)
-        draws["z_rand"].append(kz)
-        draws["eps_enc"].append(ke)
-    key, kz1, ke1, ke2 = jax.random.split(key, 4)
-    keys = {"z1": kz1, "eps_rec": ke1, "eps2": ke2}
-    if diversity:
-        _, keys["z_ms"] = jax.random.split(key)
-
-    def normal(k):
-        return torch.from_numpy(np.array(jax.random.normal(k, (STEP_B, latent)), np.float32))
-
-    return {"z_rand": torch.stack([normal(k) for k in draws["z_rand"]]),
-            "eps_enc": torch.stack([normal(k) for k in draws["eps_enc"]]),
-            **{name: normal(k) for name, k in keys.items()}}
-
-
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return {p: v for k in tree for p, v in _leaves(tree[k], f"{prefix}/{k}").items()}
@@ -315,8 +319,8 @@ def test_the_recipe_step_at_full_width_matches_jax(run):
         lambda s, b: jax_step(s, b, jnp.float32(0.0), jcfg, jtcfg))(
         start, jax.tree.map(jnp.asarray, batch)))
     state = train_state_from_jax(start, device="cpu")
-    noise = _jax_step_draws(start["rng"], jtcfg.n_critic, jcfg.latent_dim,
-                            bool(jtcfg.lambda_div) and not masked)
+    noise = jax_step_draws(start["rng"], STEP_B, jtcfg.n_critic, jcfg.latent_dim,
+                           bool(jtcfg.lambda_div) and not masked)
     step = gan_train_step_masked if masked else gan_train_step
     _, metrics = step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, 0.0,
                       ModelConfig(**fields), TrainingConfig(**tfields), noise=noise)
@@ -333,3 +337,56 @@ def test_the_recipe_step_at_full_width_matches_jax(run):
             np.testing.assert_allclose(leaf.numpy(), w,
                                        atol=grad_tol * max(np.abs(w).max(), 1e-30),
                                        err_msg=f"{model_name}{path}")
+
+
+# -- several steps from one initial state ------------------------------------------------
+
+TRAJECTORY_STEPS = 8
+
+
+@pytest.mark.parametrize("recipe", ["flag", "none"])
+def test_the_recipe_tracks_jax_over_steps(recipe):
+    """``tests/jax_trajectory.py`` at a small size (H=8, four gestures, one
+    batch repeated): the port and the JAX package train from one JAX initial
+    state on the JAX step's own draws, with the flagship's auxiliary terms
+    and with none. Over TRAJECTORY_STEPS steps G's and E's parameters stay
+    within 1e-3 of JAX's (relative norm of the difference; measured up to
+    4.5e-4) and the reconstruction, latent and KLD losses within 1e-3 relative
+    (measured up to 5.4e-4, the KLD at the last step without auxiliary
+    terms). The control, JAX from its initial state nudged by one float32
+    rounding step, must stay within the same bound on its parameters."""
+    batch = _gesture_batch(128, False)
+    records = list(trajectory([(batch["gesture"], batch["prototype"])] * TRAJECTORY_STEPS,
+                              recipe, hidden=8))
+    assert len(records) == TRAJECTORY_STEPS
+    for rec in records:
+        for model in ("g", "e"):
+            assert rec["port"][model] < 1e-3, (rec["step"], model, rec["port"])
+            assert rec["control"][model] < 1e-3, (rec["step"], model, rec["control"])
+        for name in ("cycle2_rec", "cycle1_lat", "cycle2_kld"):
+            want, got, _ = rec["losses"][name]
+            assert abs(got - want) <= 1e-3 * max(1.0, abs(want)), (rec["step"], name, got, want)
+
+
+def test_initial_state_draws_like_jax():
+    """The flagship's initial state cannot equal JAX's (the random streams
+    differ), but each leaf is drawn from the same distribution: every
+    parameter leaf of G, E, D1 and D2 has JAX's shape, and each of n >= 1000
+    entries (the weights) has its standard deviation and mean within four
+    standard errors of JAX's (|ratio - 1| < 4/sqrt(n), |mean difference| <
+    4·std·sqrt(2/n)), at seed 42 in both packages. A normal draw in place of
+    a uniform one of the same bound would move the ratio by 73%."""
+    cfg = dict(time_head="monotone")
+    ref = jax.device_get(jax_init_gan_state(42, JaxModelConfig(**cfg), JaxTrainingConfig()))
+    state = init_gan_state(42, ModelConfig(**cfg), "cpu")
+    for model in MODELS:
+        want = _leaves(ref[model]["params"])
+        got = {k: v.detach().numpy() for k, v in _leaves(state[model]["params"]).items()}
+        assert set(got) == set(want), model
+        for path, w in want.items():
+            w, g = np.asarray(w, np.float64), np.asarray(got[path], np.float64)
+            assert g.shape == w.shape, (model, path)
+            n = w.size
+            if n >= 1000:
+                assert abs(g.std() / w.std() - 1) < 4 / np.sqrt(n), (model, path, g.std(), w.std())
+                assert abs(g.mean() - w.mean()) < 4 * w.std() * np.sqrt(2 / n), (model, path)

@@ -2,7 +2,8 @@
 """Train and score the port's 200-epoch runs, and hold every number against
 the JAX package's committed runs.
 
-    python tools/port_quality_runs.py [--runs flag base varlen2 contrastive]
+    python tools/port_quality_runs.py [--runs flag base varlen2 contrastive
+                                       div03 dtc4 flag_fp32]
         [--seed 42] [--out runs_torch] [--device cuda] [--data dataset/swipelogs.zip]
         [--epochs N] [--synthetic-users N] [--max-files N]
         [--train-args "..."] [--eval-args "..."] [--report-only]
@@ -10,7 +11,9 @@ the JAX package's committed runs.
 The counterpart of the JAX package's sweep scripts: each run calls the
 port's entry points in this process (``train_cli.main``, ``eval_cli.main``,
 ``train_contrastive_cli.main``, ``eval_contrastive_cli.main``) with the
-arguments of the JAX sweep, letter for letter (``RUNS``). The GAN runs
+arguments of the JAX sweep, letter for letter (``RUNS``; by default the
+flagship, the control, the variable-length and the contrastive run;
+``div03``, ``dtc4`` and ``flag_fp32`` take the flagship apart). The GAN runs
 train with ``train_cli.main(..., scan_epoch=True)``: each epoch replays one
 captured CUDA graph of the step, bit-equal to the eager epoch, about three
 times faster. ``--epochs``, ``--synthetic-users``, ``--max-files``,
@@ -28,11 +31,12 @@ scored again.
 Then the report, ``<out>/results.json`` and ``<out>/results.md``: every
 metric of every run beside the JAX run's value and its band, the JAX value
 ± 3·d, where d is |r4_sp2 − r5_base| for that metric (the only same-recipe
-pair the JAX package trained twice), at least 0.01; the deterministic
-checks (corpus counts, the diversity margin, the minimum-jerk column within
-0.002); each GAN run's wins against its own minimum-jerk column; and the
-mean of every loss over three windows of epochs beside the JAX run's and
-the pair's spread. The JAX logs and histories are read as text.
+pair the JAX package trained twice), at least 0.01, and no band for FID
+(``NO_BAND``); the deterministic checks (corpus counts, the diversity
+margin, the seed-42 minimum-jerk column within 0.002); each GAN run's wins
+against its own minimum-jerk column; and the mean of every loss over three
+windows of epochs beside the JAX run's and the pair's spread. The JAX logs
+and histories are read as text.
 """
 
 from __future__ import annotations
@@ -87,6 +91,32 @@ RUNS = {
         "jax": {"train_log": "runs/r5_train_varlen2.log", "eval_log": "runs/r5_eval_varlen2.log",
                 "history": "runs/r5_varlen2/history.jsonl"},
     },
+    # The flagship's two auxiliary terms one at a time, each beside
+    # lambda_speed=2 as in the flagship, to see which one a lean follows.
+    "div03": {
+        "kind": "gan", "source": "runs/r5_sweep3.sh:14-24",
+        "train": f"--epochs 200 {CORPUS} --lambda-speed 2 --lambda-div 0.3",
+        "eval": f"--model gan --n-samples 2000 {CORPUS}",
+        "jax": {"train_log": "runs/r5_train_div03.log", "eval_log": "runs/r5_eval_div03.log",
+                "history": "runs/r5_div03/history.jsonl"},
+    },
+    "dtc4": {
+        "kind": "gan", "source": "runs/r5_sweep2.sh:33-42",
+        "train": f"--epochs 200 {CORPUS} --lambda-speed 2 --lambda-dtc 4",
+        "eval": f"--model gan --n-samples 2000 {CORPUS}",
+        "jax": {"train_log": "runs/r5_train_dtc4.log", "eval_log": "runs/r5_eval_dtc4.log",
+                "history": "runs/r5_dtc4/history.jsonl"},
+    },
+    # The flagship trained in float32 (the JAX sweep trained in bfloat16):
+    # the BiLSTM kernels' float32 paths in place of their tensor-core ones.
+    "flag_fp32": {
+        "kind": "gan", "source": "runs/r5_sweep4.sh:14-21 with --precision float32",
+        "train": f"--epochs 200 {CORPUS} --lambda-speed 2 --lambda-div 0.3 --lambda-dtc 4 "
+                 "--precision float32",
+        "eval": f"--model gan --n-samples 2000 {CORPUS}",
+        "jax": {"train_log": "runs/r5_train_flag.log", "eval_log": "runs/r5_eval_flag.log",
+                "history": "runs/r5_flag/history.jsonl"},
+    },
     "contrastive": {
         "kind": "contrastive", "source": "runs/r4_timing_sweep.sh:35-41",
         "train": f"--epochs 100 {CORPUS}",
@@ -96,15 +126,19 @@ RUNS = {
                 "history": "runs/r4_contrastive/history.jsonl"},
     },
 }
+DEFAULT_RUNS = ("flag", "base", "varlen2", "contrastive")
 # The λ_speed=2 recipe trained twice by the JAX package (runs/r5_sweep.sh:5
 # retrains r4_sp2 as r5_base): its spread is the only measured seed spread.
 PAIR = {"eval_log": ("runs/r4_eval_sp2.log", "runs/r5_eval_base.log"),
         "history": ("runs/r4_sp2/history.jsonl", "runs/r5_base/history.jsonl")}
 BAND_K, BAND_FLOOR = 3.0, 0.01
-# r4_sp2's FID was taken in another feature space (runs/r4_eval_sp2.log:38,
-# "≠paper-space", an older autoencoder): the pair measures no seed spread of
-# FID, so its d is the floor.
-NO_PAIR_SPREAD = ("fid_paper", "fid_positional")
+# FID gets no band. The pair measures no seed spread of it: r4_sp2's FID was
+# taken in another feature space (runs/r4_eval_sp2.log:38, "≠paper-space").
+# And the FID autoencoder's initialisation alone moves it by more than the
+# floor's ±0.03: the JAX package's min-jerk column, the same samples scored
+# twice, reads 0.2234 / 0.1525 (paper / positional) in runs/r5_eval_base.log
+# and 0.2271 / 0.2013 on the CPU (runs_torch/diagnostics/jax_minjerk_cpu.log).
+NO_BAND = ("fid_paper", "fid_positional")
 MINJERK_TOL = 0.002
 # Min-jerk sampling and precision/recall run on numpy draws: these do not
 # depend on any training or on torch's random streams (FID's autoencoder
@@ -328,22 +362,30 @@ def _band_d(repo: Path) -> Dict[str, float]:
     a, b = (parse_log((repo / p).read_text())["tables"]["gan"] for p in PAIR["eval_log"])
     d = {}
     for key in set(a) | set(b):
-        spread = (abs(a[key] - b[key]) if key in a and key in b and key not in NO_PAIR_SPREAD
+        spread = (abs(a[key] - b[key]) if key in a and key in b and key not in NO_BAND
                   and a[key] is not None and b[key] is not None else 0.0)
         d[key] = max(spread, BAND_FLOOR)
     return d
 
 
-def _compare(port: dict, jax: dict, d: Dict[str, float], tol: Optional[dict] = None) -> dict:
+def _compare(port: dict, jax: dict, d: Optional[Dict[str, float]],
+             tol: Optional[dict] = None) -> dict:
     """Per metric of ``jax``: the port's value, the JAX value, the band (or
-    the tolerance ``tol`` names) and whether the port's value lies outside."""
+    the tolerance ``tol`` names) and whether the port's value lies outside.
+    A metric of NO_BAND that ``tol`` does not name, and every metric when
+    ``d`` is None, gets no band and no flag."""
     rows = {}
     for key, want in jax.items():
         got = port.get(key)
-        half = (tol or {}).get(key, BAND_K * d.get(key, BAND_FLOOR))
-        lo, hi = (None, None) if want is None else (want - half, want + half)
+        if key in (tol or {}):
+            half = tol[key]
+        elif d is None or key in NO_BAND:
+            half = None
+        else:
+            half = BAND_K * d.get(key, BAND_FLOOR)
+        lo, hi = (None, None) if want is None or half is None else (want - half, want + half)
         rows[key] = {"port": got, "jax": want, "lo": lo, "hi": hi,
-                     "outside": None if got is None or want is None else not lo <= got <= hi}
+                     "outside": None if got is None or lo is None else not lo <= got <= hi}
     return rows
 
 
@@ -398,8 +440,13 @@ def report(out: Path, repo: Path = REPO) -> dict:
             jax_minjerk = jax_logs["base"]["eval_log"]["tables"]["minjerk"]
             entry["metrics"] = _compare(port_tables.get("gan", {}), jax_tables["gan"], d)
             if "minjerk" in port_tables:
-                entry["minjerk"] = _compare(port_tables["minjerk"], jax_minjerk, d,
-                                            tol=dict.fromkeys(MINJERK_EXACT, MINJERK_TOL))
+                # The JAX column's draws are seed 42's; another seed draws
+                # other min-jerk samples, shown beside it without a flag.
+                entry["minjerk"] = (
+                    _compare(port_tables["minjerk"], jax_minjerk, d,
+                             tol=dict.fromkeys(MINJERK_EXACT, MINJERK_TOL))
+                    if run_dir.name == name else _compare(port_tables["minjerk"], jax_minjerk,
+                                                          None))
             entry["wins_vs_own_minjerk"] = {
                 "port": wins(port_tables.get("gan"), port_tables.get("minjerk")),
                 "jax": wins(jax_tables["gan"], jax_minjerk)}
@@ -447,7 +494,10 @@ def markdown(results: dict) -> str:
     """The report as Markdown tables."""
     lines = ["# The port's runs against the JAX package's", "",
              f"Band: JAX value ± {results['band']['k']:g}·d, d = |r4_sp2 − r5_base| per metric, "
-             f"at least {results['band']['floor']}; `OUT` marks a value outside.", ""]
+             f"at least {results['band']['floor']}; `OUT` marks a value outside. FID has no band "
+             "(no measured seed spread; the autoencoder alone moves it by up to 0.049); "
+             "min-jerk's eight other metrics are held to ±0.002 at seed 42 only, as another "
+             "seed draws other min-jerk samples.", ""]
     for name, check in results["checks"].items():
         shown = ({k: [r["port"], r["jax"]] for k, r in check["rows"].items()}
                  if "rows" in check else {"port": check["port"], "jax": check["jax"]})
@@ -488,7 +538,9 @@ def markdown(results: dict) -> str:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--runs", nargs="+", choices=list(RUNS), default=list(RUNS))
+    parser.add_argument("--runs", nargs="+", choices=list(RUNS), default=list(DEFAULT_RUNS),
+                        help="default: the runs the JAX sweeps define beside the control; "
+                             "div03, dtc4 and flag_fp32 take the flagship apart")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--out", default="runs_torch")
     parser.add_argument("--device", default="cuda")

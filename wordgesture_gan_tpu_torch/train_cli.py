@@ -31,11 +31,12 @@ from typing import Optional, Sequence
 
 import torch
 
-from .cli_common import (add_data_args, add_parallel_args, load_split, maybe_wandb,
-                         resolve_dataset_zip, run_ranks)
+from .cli_common import (add_data_args, add_parallel_args, data_axis_size, load_split,
+                         maybe_wandb, resolve_dataset_zip, run_ranks)
 from .configs import ModelConfig, PathsConfig, RuntimeConfig, TrainingConfig, asdict
 from .data.variable_length import create_variable_split, load_variable_dataset_from_zip
 from .keyboard import QWERTYKeyboard
+from .parallel.distributed import distributed_env_requested
 from .parallel.mesh import is_main_process, main_rank_first
 from .train.checkpoint import (generator_from_state, latest_epoch, load_run_metadata,
                                save_run_metadata)
@@ -103,13 +104,20 @@ def main(argv: Optional[Sequence[str]] = None, *, scan_epoch: bool = False) -> T
     ``RuntimeConfig(scan_epoch=True)``: on the card each epoch replays one
     captured CUDA graph of the step, bit-equal to the eager epoch. It is a
     keyword of the library call, not a flag, as the JAX package's
-    ``train_gan.py`` has none; ranks that ``--data-axis-size`` starts as
-    copies of the command train eagerly."""
+    ``train_gan.py`` has none. The ranks that ``--data-axis-size`` starts
+    here are copies of the command line, which cannot carry the keyword, so
+    ``scan_epoch`` with local ranks raises ValueError; under torchrun each
+    rank's own call passes it."""
     parser = build_parser()
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda but no CUDA device is available; pass --device cpu")
+    if (scan_epoch and data_axis_size(args.data_axis_size, device) > 1
+            and not distributed_env_requested()):
+        raise ValueError("scan_epoch reaches this process only: the ranks --data-axis-size "
+                         "starts here would train eagerly; start the ranks with torchrun "
+                         "and pass scan_epoch in each")
     return run_ranks("wordgesture_gan_tpu_torch.train_cli", args, argv, device,
                      lambda dev: _main(args, dev, scan_epoch))
 
