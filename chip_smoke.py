@@ -66,16 +66,27 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    replayed once per batch; the same checkpoints, resume and launch counts
    (a replay adds the launches its capture counted), ms per step beside
    the eager phase's; one replay profiled (device busy, idle share, events);
-5e-5g. from two copies of one state and its random generator, two epochs of
+5e-5g. from two copies of one state and its random key, two epochs of
    3 batches of 512 through one captured graph against the same steps run
    eagerly: flagship bf16 (5e), float32 (5f) and the masked transformer
    step (5g, ``gan_train_epoch_masked``): traces, every state tensor, Adam's
-   counts and the generator bit-equal, the critics' u vectors moving across
+   counts and the key bit-equal, the critics' u vectors moving across
    replays, kernels 1-3 counted 5/3/3 a step (none in 5g); 5f runs with
    ``torch.backends.cudnn.deterministic``, since cuDNN's float32 convolution
    backward is not run-to-run deterministic even eagerly (measured each
    run: two eager float32 epochs, cuDNN as trained); before them,
    ``apply_update``'s two forms (Python numbers, device tensors) bit-equal;
+   phases 5-5d also count the threefry kernel's launches in the resumed
+   epoch: one a step (its noise) and one a round of the epoch's shuffle;
+5h. the JAX package's random draws (``csrc/threefry.cu``, ``utils/prng.py``):
+   the kernel against its plain version on the same keys (bits and uniforms
+   bit-equal, normals within 1 ulp) at a flagship step's draw (14 keys x
+   512 x 32), (5, 512, 32), the shuffle's 20,331 sort keys, an
+   initializer's uniforms and two odd shapes, timed beside the plain
+   version (host), ``torch.randn`` (another generator, a yardstick) and the
+   bound; ``init_gan_state(42)`` at full width and one step's draws on the
+   card against the CPU; the graphed flagship bf16 step from that state,
+   untraced, beside eager, with one threefry launch a replay;
 6. one step on the card against the CPU's plain path from the same state,
    batch and injected noise (B=32, full width, float32, n_critic 5), for
    the reference recipe and the flagship one: losses, the gradients (Adam
@@ -244,6 +255,9 @@ from wordgesture_gan_tpu_torch.train.masked_step import (gan_train_epoch_masked,
 from wordgesture_gan_tpu_torch.train.state import MODELS, apply_update, init_gan_state
 from wordgesture_gan_tpu_torch.train.step_graph import StepGraph
 from wordgesture_gan_tpu_torch.train.variable_loop import train_variable_gan
+from wordgesture_gan_tpu_torch.ops.threefry import threefry_draw
+from wordgesture_gan_tpu_torch.train.step_graph import step_keys, step_noise
+from wordgesture_gan_tpu_torch.utils import prng
 from wordgesture_gan_tpu_torch.utils.chunking import chunk_layout
 from wordgesture_gan_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -1014,10 +1028,11 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
         raise AssertionError("the first two epochs were not checkpointed")
     counters = {"bilstm_fused": fused_bilstm_fwd, "bilstm_train_fwd": bilstm_train_fwd,
                 "bilstm_train_bwd": bilstm_train_bwd}
-    reset_launches(*counters.values())
+    reset_launches(*counters.values(), threefry_draw)
     third = train_gan(ds, mcfg, tcfg, runtime, num_epochs=3, checkpoint_dir=str(workdir),
                       device=device)
     launches = {name: c.launches for name, c in counters.items()}
+    draws = threefry_draw.launches
     by_path = {name: dict(c.launches_by_path) for name, c in counters.items()}
     if len(third.history) != 1 or third.state["epoch"] != 3 or latest_epoch(str(workdir)) != 3:
         raise AssertionError("the run did not resume for exactly one epoch")
@@ -1028,6 +1043,12 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
     expected = {name: per * steps for name, per in PER_STEP.items()}
     if device.type == "cuda" and launches != expected:
         raise AssertionError(f"launches in the resumed epoch {launches}, expected {expected}")
+    # One threefry launch a step (its noise) and one a round of the epoch's
+    # shuffle (jax.random.permutation's sort keys).
+    rounds = int(np.ceil(3 * np.log(n) / np.log(2 ** 32 - 1)))
+    if device.type == "cuda" and draws != steps + rounds:
+        raise AssertionError(f"{draws} threefry launches in the resumed epoch, "
+                             f"expected {steps + rounds}")
     # Every launch of the recipe's width and dtype took the path its dispatch
     # rule names (at full width the tensor-core ones in bfloat16, the float32
     # cluster ones in float32).
@@ -1045,7 +1066,8 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
             "steps_per_epoch": steps, "dtype": mcfg.compute_dtype, "epoch_seconds": seconds,
             "gestures_per_s": [first.gestures_per_epoch / t for t in seconds],
             "ms_per_step": [t / steps * 1e3 for t in seconds],
-            "launches_resumed_epoch": launches, "kernel_path": paths,
+            "launches_resumed_epoch": launches, "threefry_launches_resumed_epoch": draws,
+            "kernel_path": paths,
             "launches_by_path": by_path, "losses_last_epoch": third.history[-1]}
     print(json.dumps(line), flush=True)
     if device.type == "cuda":   # where a steady step's time goes
@@ -1063,6 +1085,7 @@ def train(device, workdir: Path, n=TRAIN_N, model: dict = None, batch_size: int 
                 lambda: gan_train_step(third.state, batch, 1e-5, mcfg, tcfg_m), "gan_train_step",
                 batch=batch_size, dtype=mcfg.compute_dtype)
     line["launches"] = launches
+    line["threefry_launches"] = draws
     return line
 
 
@@ -1094,12 +1117,12 @@ GRAPH_CHECK_BATCHES, GRAPH_CHECK_EPOCHS, GRAPH_CHECK_LR = 3, 2, 2e-4
 def graphed_vs_eager(device, kind: str, batch: int = 512, model: dict = None,
                      mesh=None) -> dict:
     """Phases 5e-5g: from two copies of one state (and so of its random
-    generator), ``gan_train_epoch`` (``kind`` "bfloat16" or "float32", the
+    key), ``gan_train_epoch`` (``kind`` "bfloat16" or "float32", the
     flagship recipe) or ``gan_train_epoch_masked`` ("masked": the
     transformer, bf16, the default recipe, varied lengths) with one
     ``StepGraph`` for two epochs (the second all replays) against the same
     steps run eagerly, each drawing its own noise. The traces, every tensor
-    of the state, Adam's counts and the generator's state must be bit-equal;
+    of the state, Adam's counts and the key must be bit-equal;
     the critics' u vectors must move in every epoch; the BiLSTM kernels must
     count PER_STEP launches a step. ``model`` overrides widths for a
     rehearsal on the CPU (where both sides run the same eager steps);
@@ -1242,7 +1265,7 @@ def _graphed_vs_eager(device, kind: str, batch: int, model: dict, mesh) -> dict:
             "cudnn_deterministic": torch.backends.cudnn.deterministic,
             "process_group": mesh is not None, **worst,
             "bit_equal": worst["max_abs_loss_diff"] == 0.0 == worst["max_abs_state_diff"],
-            "rng_equal": torch.equal(graphed["rng"].get_state(), eager["rng"].get_state()),
+            "rng_equal": torch.equal(graphed["rng"], eager["rng"]),
             "captures": graph.captures, "replays": graph.replays, "launches": launches,
             "ms_per_step_graphed_with_capture": t_graphed / steps * 1e3,
             "ms_per_step_eager": t_eager / steps * 1e3}
@@ -1255,6 +1278,135 @@ def _graphed_vs_eager(device, kind: str, batch: int, model: dict, mesh) -> dict:
         if graph.captures != 1 or graph.replays != steps - 1 or launches != want:
             raise AssertionError(f"{graph.captures} captures, {graph.replays} replays, "
                                  f"launches {launches} (graphed and eager), expected {want}")
+    return line
+
+
+# Phase 5h: the threefry kernel (ops/threefry.py, the JAX package's random
+# draws) against its plain version, the card's draws against the CPU's, and
+# the graphed flagship step with its draws inside the graph.
+STEP_DRAWS = 2 * FLAGSHIP_TRAIN["n_critic"] + 4     # a flagship step's (B, Z) normals
+# Operations per drawn number, counted from csrc/threefry.cu: the hash's 20
+# rounds of add, two shifts, or and xor plus 5 key injections (118 integer
+# operations), the uniform's 8, and the normal's erfinv with XLA's log1p and
+# log (about 70 more); the card's 32-bit CUDA-core rate is taken as its
+# float32 peak (PEAK_FLOPS), which the integer pipes do not exceed.
+THREEFRY_OPS = {"bits": 118, "uniform": 126, "normal": 196}
+THREEFRY_CHECKS = (("normal", (STEP_DRAWS,), (TIME_BATCH, LATENT)),
+                   ("normal", (), (5, TIME_BATCH, LATENT)),
+                   ("bits", (), (20331,)), ("uniform", (), (384, 256)),
+                   ("normal", (3,), (7,)), ("bits", (2,), (3, 1)))
+
+
+def _draw(kind: str, keys: torch.Tensor, shape: tuple) -> torch.Tensor:
+    if kind == "bits":
+        return prng.random_bits(keys, shape)
+    if kind == "uniform":
+        return prng.uniform(keys, shape, -1 / np.sqrt(384), 1 / np.sqrt(384))
+    return prng.normal(keys, shape)
+
+
+def threefry_bound_ms(kind: str, numbers: int, n_keys: int) -> tuple:
+    nbytes = numbers * (8 if kind == "bits" else 4) + n_keys * 16
+    return _bound(nbytes, numbers * THREEFRY_OPS[kind], PEAK_FLOPS["float32"])
+
+
+def check_threefry(device) -> dict:
+    """The kernel against its plain version on the same keys: bits and
+    uniforms bit-equal, normals within 1 ulp; then its time at the train
+    step's draw (14 keys x 512 x 32) and at (5, 512, 32), beside the plain
+    version on the host, ``torch.randn`` of the shape (another generator, a
+    yardstick only) and the bound."""
+    results = []
+    for kind, stack, shape in THREEFRY_CHECKS:
+        keys = prng.split(prng.PRNGKey(42), stack[0]) if stack else prng.PRNGKey(42)
+        want = _draw(kind, keys, shape)
+        got = _draw(kind, keys.to(device), shape).cpu()
+        if kind == "normal":
+            ulp = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max().item()
+        else:
+            ulp = 0 if torch.equal(got, want) else None
+        results.append({"kind": kind, "keys": stack[0] if stack else 1, "shape": list(shape),
+                        "max_ulp": ulp, "max_abs_err": (got.double() - want.double()).abs()
+                        .max().item()})
+        if ulp is None or ulp > (1 if kind == "normal" else 0):
+            raise AssertionError(f"threefry kernel vs plain: {results[-1]}")
+    timings = {}
+    for label, stack, shape in (("step", STEP_DRAWS, (TIME_BATCH, LATENT)),
+                                ("5x512x32", None, (5, TIME_BATCH, LATENT))):
+        keys = prng.split(prng.PRNGKey(7), stack) if stack else prng.PRNGKey(7)
+        numbers = (stack or 1) * int(np.prod(shape))
+        dev_keys = keys.to(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            prng.normal(keys, shape)
+        plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+        bound, by = threefry_bound_ms("normal", numbers, stack or 1)
+        timings[label] = {
+            "numbers": numbers, "ms": time_ms(lambda: prng.normal(dev_keys, shape), 200),
+            "plain_host_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "torch_randn_ms": time_ms(lambda: torch.randn(((stack or 1), *shape),
+                                                          device=device), 200)}
+    line = {"check": "threefry kernel vs plain version", "checks": results, "timing": timings}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def draws_card_vs_cpu(device) -> dict:
+    """``init_gan_state(42)`` at full width on the card and on the CPU (the
+    initializers draw on the CPU either way), then one flagship step's keys
+    split off its key and drawn on both: weights bit-equal, noise within 1
+    ulp (the kernel against the plain version)."""
+    mcfg = ModelConfig(time_head="monotone")
+    cpu, card = init_gan_state(42, mcfg, "cpu"), init_gan_state(42, mcfg, device)
+    equal = all(torch.equal(a.detach(), b.detach().cpu()) for m in MODELS
+                for a, b in zip(tree_leaves(cpu[m]), tree_leaves(card[m])) if torch.is_tensor(a))
+    _, keys = step_keys(cpu["rng"], FLAGSHIP_TRAIN["n_critic"], True)
+    want = step_noise(keys, TIME_BATCH, mcfg.latent_dim, FLAGSHIP_TRAIN["n_critic"])
+    got = step_noise(keys.to(device), TIME_BATCH, mcfg.latent_dim, FLAGSHIP_TRAIN["n_critic"])
+    ulp = max((g.cpu().view(torch.int32).long() - w.view(torch.int32).long()).abs().max().item()
+              for g, w in ((got[k], want[k]) for k in want))
+    line = {"check": "init_gan_state(42) and one step's draws, card vs CPU",
+            "state_bit_equal": equal and torch.equal(cpu["rng"], card["rng"]),
+            "step_noise_max_ulp": ulp, "step_keys": keys.shape[0]}
+    print(json.dumps(line), flush=True)
+    if not line["state_bit_equal"] or ulp > 1:
+        raise AssertionError(f"the card's draws differ from the CPU's: {line}")
+    return line
+
+
+def time_graphed_step(device, epochs: int = 3, batches: int = 8) -> dict:
+    """The flagship bf16 step at B=512 from ``init_gan_state(42)``: ``epochs``
+    graphed epochs of ``batches`` replays after one warm-up epoch (untraced,
+    host clock around synchronised epochs, the epoch's key splitting
+    included), then one eager epoch from the same state; the threefry
+    launches per graphed step."""
+    mcfg = ModelConfig(time_head="monotone", compute_dtype="bfloat16")
+    tcfg = TrainingConfig(**dict(FLAGSHIP_TRAIN, batch_size=TIME_BATCH), div_margin=0.25)
+    ds = smoke_dataset(batches * TIME_BATCH, mcfg.seq_length, seed=13)
+    data = {"gesture": torch.from_numpy(ds.gestures), "prototype": torch.from_numpy(ds.prototypes)}
+    eb = {k: v.to(device).reshape(batches, TIME_BATCH, *v.shape[1:]) for k, v in data.items()}
+    state, graph = init_gan_state(42, mcfg, device), StepGraph()
+    gan_train_epoch(state, eb, GRAPH_CHECK_LR, mcfg, tcfg, graph=graph)     # warm-up, capture
+    _sync(device)
+    reset_launches(threefry_draw)
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        gan_train_epoch(state, eb, GRAPH_CHECK_LR, mcfg, tcfg, graph=graph)
+    _sync(device)
+    graphed_ms = (time.perf_counter() - t0) / (epochs * batches) * 1e3
+    per_step = threefry_draw.launches / (epochs * batches)
+    t0 = time.perf_counter()
+    for i in range(batches):
+        gan_train_step(state, {k: v[i] for k, v in eb.items()}, GRAPH_CHECK_LR, mcfg, tcfg)
+    _sync(device)
+    line = {"timing": "flagship bf16 step, B=512, graphed replays vs eager", "untraced": True,
+            "graphed_ms_per_step": graphed_ms,
+            "eager_ms_per_step": (time.perf_counter() - t0) / batches * 1e3,
+            "threefry_launches_per_graphed_step": per_step, "replays": graph.replays,
+            "captures": graph.captures}
+    print(json.dumps(line), flush=True)
+    if device.type == "cuda" and (per_step != 1 or graph.captures != 1):
+        raise AssertionError(f"the graphed step should draw in one threefry launch: {line}")
     return line
 
 
@@ -1713,7 +1865,7 @@ def contrastive_step_vs_cpu(device, batch_words=32, per_word=2, seq=SEQ,
     ds = smoke_dataset(batch_words * per_word, seq, seed=6)
     batch = torch.from_numpy(ds.gestures)
     labels = torch.arange(batch_words).repeat_interleave(per_word)
-    params, bn = contrastive_encoder_init(ContrastiveConfig(), torch.Generator().manual_seed(4))
+    params, bn = contrastive_encoder_init(ContrastiveConfig(), prng.PRNGKey(4))
     runs = []
     for dev in (device, torch.device("cpu")):
         state = make_contrastive_state(params, bn, dev)
@@ -1978,7 +2130,7 @@ def _dp_inputs(model: dict = None, seq: int = SEQ, batch: int = DP_BATCH,
     noise = _step_noise(batch, mcfg.latent_dim, tcfg.n_critic, seed=6)
     gestures = torch.from_numpy(smoke_dataset(2 * words, seq, seed=6).gestures)
     labels = torch.arange(words).repeat(2)
-    params, bn = contrastive_encoder_init(ContrastiveConfig(), torch.Generator().manual_seed(4))
+    params, bn = contrastive_encoder_init(ContrastiveConfig(), prng.PRNGKey(4))
     return mcfg, tcfg, data, noise, gestures, labels, (params, bn)
 
 
@@ -2311,7 +2463,7 @@ def serve_family(device, workdir: Path, family: str, n=SERVE_N, batch=SERVE_BATC
     a small request with injected noise against the CPU. These families run
     no hand-written kernel; the first run's kernel-1 launches must be 0."""
     config = ModelConfig(generator_type=family, time_head="monotone", compute_dtype="bfloat16")
-    tree = generator_init(config, torch.Generator().manual_seed(0))
+    tree = generator_init(config, prng.PRNGKey(0))
     weights = workdir / f"{family}.npz"
     write_generator_npz(tree_map(lambda t: t.detach().numpy(), tree), str(weights))
     out = workdir / f"{family}_gestures.npz"
@@ -2538,11 +2690,11 @@ def main() -> int:
                       "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}), flush=True)
 
     t0 = time.perf_counter()
-    logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw"])
+    logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw", "threefry"])
     for name, log in logs.items():
         kernel = ""
         for line in log.splitlines():
-            entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw)_\w+?kernel)"
+            entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw|threefry)_\w+?kernel)"
                               r"(?:ILi(\d)E(?:Li(\d)E)?|I(f|13__nv_bfloat16))?", line)
             if entry:   # the mangled name: kernel, then its H/16 (and tile) or type arguments
                 kernel = entry.group(1) + "".join(f"<{g.replace('13__nv_', '')}>"
@@ -2588,6 +2740,9 @@ def main() -> int:
     for kind in ("bfloat16", "float32", "masked"):
         graphed_vs_eager(device, kind)
     eager_determinism(device)
+    draw_check = check_threefry(device)
+    draws_card_vs_cpu(device)
+    graphed_step = time_graphed_step(device)
     # Per epoch: the graphed run's first epoch and its resumed third (a new
     # train_gan call) each pay one eager warm-up step and the capture; its
     # second epoch is all replays.
@@ -2741,6 +2896,25 @@ def main() -> int:
         # The realism report's one call: aligned pairs at L=64, D=2.
         "realism": {k: realism_line[k] for k in ("dtw_pairs", "seq", "dims", "ms", "plain_ms",
                                                  "bound_ms", "bound_by", "kernel_max_rel_err")},
+    }, {
+        # The JAX package's random draws (no pl.pallas_call: XLA's lowering of
+        # jax.random). Timed at a flagship step's draw, 14 keys x 512 x 32
+        # normals; the plain version runs on the host; no PyTorch call
+        # computes threefry2x32 (torch.randn, another generator, is printed
+        # beside it in phase 5h as a yardstick only).
+        "name": "threefry_draw", "route": "cuda",
+        "source": "wordgesture_gan_tpu_torch/csrc/threefry.cu",
+        "replaces": "wordgesture_gan_tpu/train/gan_step.py:135",
+        "launches": sum(run["threefry_launches"] for run in (trained, trained_fp32, graphed,
+                                                             graphed_fp32)),
+        "launches_per_graphed_step": graphed_step["threefry_launches_per_graphed_step"],
+        "max_abs_err": max(c["max_abs_err"] for c in draw_check["checks"]),
+        "max_ulp": max(c["max_ulp"] for c in draw_check["checks"]),
+        "ms": draw_check["timing"]["step"]["ms"],
+        "plain_ms": draw_check["timing"]["step"]["plain_host_ms"],
+        "bound_ms": draw_check["timing"]["step"]["bound_ms"],
+        "bound_by": draw_check["timing"]["step"]["bound_by"], "library_ms": None,
+        "ms_5x512x32": draw_check["timing"]["5x512x32"]["ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

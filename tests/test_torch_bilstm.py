@@ -29,6 +29,7 @@ from wordgesture_gan_tpu_torch.ops.bilstm_fused import (MMA_HIDDEN, fused_bilstm
                                                         fused_bilstm_fwd_plain, kernel_path,
                                                         kernel_weights)
 from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures
+from wordgesture_gan_tpu_torch.utils import prng
 
 
 def _stacks(seed, in_dim, hidden, num_layers):
@@ -204,7 +205,7 @@ def test_kernel_weight_layout(dtype):
 
 
 def test_initializers_are_torch_default_and_seeded():
-    g1, g2 = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    g1, g2 = prng.PRNGKey(3), prng.PRNGKey(3)
     cell = lstm_cell_init(10, 16, g1)
     assert cell["w_ih"].shape == (10, 64) and cell["w_hh"].shape == (16, 64)
     assert cell["b_ih"].shape == (64,) and cell["b_hh"].shape == (64,)

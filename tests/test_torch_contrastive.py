@@ -51,6 +51,7 @@ from wordgesture_gan_tpu_torch.train import checkpoint
 from wordgesture_gan_tpu_torch.train import contrastive_loop as loop
 from wordgesture_gan_tpu_torch.train.state import init_gan_state
 from wordgesture_gan_tpu_torch.utils.tree import tree_leaves
+from wordgesture_gan_tpu_torch.utils import prng
 
 WORDS = ["hello", "world", "water", "thing", "sound", "point", "house", "light", "mother",
          "earth", "round", "paper", "quick", "brown", "jumps", "lazy"]
@@ -128,7 +129,7 @@ def test_batchnorm_matches_jax(train):
 
 
 def test_encoder_init_has_the_jax_trees():
-    params, bn = model.contrastive_encoder_init(CONFIG, torch.Generator().manual_seed(0))
+    params, bn = model.contrastive_encoder_init(CONFIG, prng.PRNGKey(0))
     jp, jbn = jax_model.contrastive_encoder_init(jax.random.PRNGKey(0), JAX_CONFIG)
     for own, ref in ((params, jp), (bn, jbn)):
         assert ({k: tuple(v.shape) for k, v in flatten_tree(own).items()}

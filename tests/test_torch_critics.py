@@ -33,6 +33,7 @@ from wordgesture_gan_tpu_torch.models import layers as tlayers
 from wordgesture_gan_tpu_torch.train.schedules import cosine_annealing_lr
 from wordgesture_gan_tpu_torch.train.state import adam_init, apply_update
 from wordgesture_gan_tpu_torch.utils.tree import tree_leaves, tree_map
+from wordgesture_gan_tpu_torch.utils import prng
 
 FIELDS = dict(seq_length=16, latent_dim=4, enc_hidden_dims=(24, 16), disc_hidden_dims=(24, 12))
 
@@ -177,18 +178,18 @@ def test_spectral_normalize_single_and_batched_match_jax():
 
 def test_initializers_have_the_jax_trees_shapes():
     jcfg, tcfg = _configs()
-    gen = torch.Generator().manual_seed(0)
-    pairs = [(jg.encoder_init(jax.random.PRNGKey(0), jcfg), tg.encoder_init(tcfg, gen))]
+    key = prng.PRNGKey(0)
+    pairs = [(jg.encoder_init(jax.random.PRNGKey(0), jcfg), tg.encoder_init(tcfg, key))]
     for temporal in (True, False):
         j, t = _configs(use_temporal_disc=temporal)
-        pairs.append((jg.disc_init(jax.random.PRNGKey(0), j), tg.disc_init(t, gen)))
+        pairs.append((jg.disc_init(jax.random.PRNGKey(0), j), tg.disc_init(t, key)))
     for ref, got in pairs:
         assert _paths(ref) == _paths(got)
         ref_shapes = dict(zip(_paths(ref), [np.shape(a) for a in jax.tree.leaves(ref)]))
         for path, leaf in zip(_paths(got, sort=False), tree_leaves(got)):
             assert tuple(leaf.shape) == ref_shapes[path], path
             assert leaf.dtype == torch.float32
-    w = tlayers.conv1d_init(3, 64, 5, gen)["w"]
+    w = tlayers.conv1d_init(3, 64, 5, key)["w"]
     assert w.shape == (5, 3, 64) and w.abs().max() <= 1 / np.sqrt(15)
 
 

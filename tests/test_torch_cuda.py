@@ -39,6 +39,7 @@ from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_apply, bils
                                                         bilstm_train_fwd_plain, kernel_path)
 from wordgesture_gan_tpu_torch.ops.dtw import (dtw_distance_matrix, dtw_matrix, dtw_pairs,
                                                dtw_pairs_plain)
+from wordgesture_gan_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.cuda
 
@@ -57,7 +58,7 @@ def cuda_device():
 
 
 def _case(device, batch, seq, hidden, layers, latent, seed=0):
-    stack = BiLSTM(2 + latent, hidden, layers, torch.Generator().manual_seed(seed)).to(device)
+    stack = BiLSTM(2 + latent, hidden, layers, prng.PRNGKey(seed)).to(device)
     rng = np.random.default_rng(seed + 1)
     x = torch.from_numpy(rng.uniform(-1, 1, (batch, seq, 2)).astype(np.float32)).to(device)
     z = torch.from_numpy(rng.normal(size=(batch, latent)).astype(np.float32)).to(device)
@@ -153,7 +154,7 @@ def test_kernel_refuses_too_wide_a_stack(cuda_device):
 
 def test_generator_on_cuda_matches_cpu(cuda_device):
     config = ModelConfig(time_head="monotone", compute_dtype="bfloat16")
-    model = Generator(config, torch.Generator().manual_seed(3)).eval()
+    model = Generator(config, prng.PRNGKey(3)).eval()
     rng = np.random.default_rng(4)
     proto = torch.from_numpy(rng.uniform(-1, 1, (6, 128, 3)).astype(np.float32))
     z = torch.from_numpy(rng.normal(size=(6, 32)).astype(np.float32))
@@ -344,7 +345,7 @@ def test_train_pair_refuses_too_wide_a_stack(cuda_device):
 def test_autograd_function_on_cuda_matches_cpu(cuda_device):
     """Gradients through ``bilstm_train_apply`` on the card (kernels 2 and 3)
     equal those on the CPU (the plain pair), float32."""
-    stack = BiLSTM(2 + 8, 16, 2, torch.Generator().manual_seed(1))
+    stack = BiLSTM(2 + 8, 16, 2, prng.PRNGKey(1))
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.uniform(-1, 1, (6, 12, 2)).astype(np.float32))
     z = torch.from_numpy(rng.normal(size=(6, 8)).astype(np.float32))

@@ -175,12 +175,12 @@ def test_masked_epoch_matches_jax_scan():
 
 
 def _everything(state):
-    """Every tensor of a train state, the counts, the epoch and the random
-    generator's state, in a fixed order."""
+    """Every tensor of a train state, the counts, the epoch and the key, in
+    a fixed order."""
     return ([t.detach().clone() for m in MODELS for t in tree_leaves(state[m])
              if torch.is_tensor(t)],
             [state[m]["opt"]["count"] for m in MODELS], state["epoch"],
-            state["rng"].get_state())
+            state["rng"].clone())
 
 
 def _assert_bit_equal(a, b):
@@ -193,7 +193,7 @@ def _assert_bit_equal(a, b):
 def test_epoch_equals_a_loop_of_eager_steps(masked):
     """Drawing its own noise from ``state["rng"]``, the epoch on the CPU is
     the eager loop: traces, parameters, moments, u vectors, step counts and
-    the generator's state bit-equal."""
+    the key bit-equal."""
     mcfg = ModelConfig(**(MASKED_MODEL if masked else MODEL))
     tcfg = TrainingConfig(**(MASKED_RECIPE if masked else RECIPES["flagship"]))
     epoch, step = ((gan_train_epoch_masked, gan_train_step_masked) if masked
@@ -329,6 +329,27 @@ def test_scan_epoch_trains_like_the_eager_loop(tmp_path, masked):
         assert all(isinstance(a[m]["opt"]["count"], int) for m in MODELS)
     lines = [json.loads(x) for x in (c1 / "history.jsonl").read_text().splitlines()]
     assert lines == [json.loads(x) for x in (c0 / "history.jsonl").read_text().splitlines()]
+
+
+@pytest.mark.parametrize("scan", [False, True], ids=["eager", "scan_epoch"])
+def test_a_resumed_run_continues_the_key_chain(tmp_path, scan):
+    """Two epochs, then a third resumed from the checkpoint, equal three
+    epochs in one call: the checkpoint carries the key, and the resumed
+    run draws on from it (and reshuffles by its epoch), bit for bit. The
+    learning rate is held constant, so that the two calls' schedules (2 and
+    3 epochs long) agree."""
+    tcfg = TrainingConfig(**dict(RECIPES["flagship"], div_margin=None), save_every=1,
+                          lr_scheduler_eta_min=TrainingConfig().learning_rate)
+
+    def run(name, epochs):
+        return train_gan(_dataset(), ModelConfig(**MODEL), tcfg, RuntimeConfig(scan_epoch=scan),
+                         num_epochs=epochs, checkpoint_dir=str(tmp_path / name), device="cpu",
+                         verbose=False)
+
+    run("resumed", 2)
+    resumed, whole = run("resumed", 3), run("whole", 3)
+    assert len(resumed.history) == 1 and resumed.history == whole.history[2:]
+    _assert_bit_equal(_everything(resumed.state), _everything(whole.state))
 
 
 def test_scan_epoch_keeps_the_zero_batch_epoch():

@@ -20,6 +20,7 @@ from wordgesture_gan_tpu_torch.configs import ModelConfig
 from wordgesture_gan_tpu_torch.interop.from_jax import generator_from_jax
 from wordgesture_gan_tpu_torch.models.gan import Generator, apply_time_head
 from wordgesture_gan_tpu_torch.models.layers import Dense, leaky_relu
+from wordgesture_gan_tpu_torch.utils import prng
 
 SMALL = dict(seq_length=16, gen_hidden_dim=16, gen_num_layers=2, latent_dim=8)
 
@@ -103,7 +104,7 @@ def test_monotone_head_runs_from_zero_to_one():
 def test_dense_and_leaky_relu_match_jax():
     rng = np.random.default_rng(8)
     x = rng.normal(size=(5, 7)).astype(np.float32)
-    layer = Dense(7, 3, torch.Generator().manual_seed(1))
+    layer = Dense(7, 3, prng.PRNGKey(1))
     params = {"w": jnp.asarray(layer.w.detach().numpy()), "b": jnp.asarray(layer.b.detach().numpy())}
     with torch.no_grad():
         np.testing.assert_allclose(layer(torch.from_numpy(x)).numpy(),
@@ -128,7 +129,7 @@ def test_unported_generators_are_rejected(generator_type):
     samples finite gestures on the CPU (their parity with JAX is
     ``tests/test_torch_generators.py``)."""
     model = Generator(ModelConfig(generator_type=generator_type, time_head="monotone"),
-                      torch.Generator().manual_seed(0))
+                      prng.PRNGKey(0))
     proto, z = _inputs(10, 3, 128, 32)
     with torch.no_grad():
         out = model(torch.from_numpy(proto), torch.from_numpy(z), inference=True)

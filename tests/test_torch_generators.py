@@ -31,6 +31,7 @@ from wordgesture_gan_tpu_torch.models import generators
 from wordgesture_gan_tpu_torch.models.gan import Generator, generator_apply, generator_init
 from wordgesture_gan_tpu_torch.train.gan_step import gan_train_step
 from wordgesture_gan_tpu_torch.train.state import MODELS, init_gan_state
+from wordgesture_gan_tpu_torch.utils import prng
 
 B, L, Z = 8, 32, 8
 SMALL = dict(seq_length=L, latent_dim=Z, tfm_d_model=16, tfm_num_heads=2, tfm_num_layers=2,
@@ -134,7 +135,7 @@ def test_layouts_match_the_jax_tree(family):
     converter fills exactly the module's parameters."""
     jcfg, params, cfg, model = _pair(family, 8)
     ours = {k: v.shape for k, v in flatten_tree(
-        generator_init(cfg, torch.Generator().manual_seed(0))).items()}
+        generator_init(cfg, prng.PRNGKey(0))).items()}
     theirs = {k: tuple(np.shape(v)) for k, v in flatten_tree(params).items()}
     assert ours == theirs
     state = generator_from_jax(params)

@@ -24,6 +24,7 @@ from wordgesture_gan_tpu.models import gan as jax_gan
 from wordgesture_gan_tpu_torch.interop.from_jax import autoencoder_from_jax
 from wordgesture_gan_tpu_torch.metrics import large_scale as ls
 from wordgesture_gan_tpu_torch.ops.stats import knn_precision_recall
+from wordgesture_gan_tpu_torch.utils import prng
 
 SEQ = 32
 
@@ -122,8 +123,7 @@ def test_energy_distance_matches_jax(sets):
 def test_energy_pairs_share_rows_and_never_repeat_one():
     """The port's own draws have JAX's structure: the within-set terms reuse
     the cross term's first draws and never pair a row with itself."""
-    g = torch.Generator().manual_seed(0)
-    (i, j), (i_a, i2), (j_b, j2) = ls.energy_pairs(7, 5, 4096, g, "cpu")
+    (i, j), (i_a, i2), (j_b, j2) = ls.energy_pairs(7, 5, 4096, prng.PRNGKey(0), "cpu")
     assert torch.equal(i, i_a) and torch.equal(j, j_b)
     assert not (i == i2).any() and not (j == j2).any()
     assert int(i.max()) == 6 and int(j.max()) == 4 and int(i2.min()) == 0
@@ -131,7 +131,7 @@ def test_energy_pairs_share_rows_and_never_repeat_one():
 
 def test_default_draws_are_seeded_and_distinct(sets):
     real, fake = (torch.from_numpy(x) for x in sets)
-    runs = [ls.sliced_wasserstein2(real[:280], fake, 16, torch.Generator().manual_seed(s))
+    runs = [ls.sliced_wasserstein2(real[:280], fake, 16, prng.PRNGKey(s))
             for s in (0, 0, 1)]
     assert runs[0] == runs[1] and runs[0] != runs[2]
     assert (ls.energy_distance(real, fake, 1 << 10) == ls.energy_distance(real, fake, 1 << 10))
@@ -261,6 +261,21 @@ def test_evaluate_large_scale_matches_jax():
     for k in ("sinkhorn_matched_cost_std", "sinkhorn_matched_cost_extrapolated_stderr"):
         assert abs(got[k] - want[k]) <= 1e-4 * want["sinkhorn_matched_cost"], k
     assert set(stages) == {"sinkhorn", "sliced_w2_energy", "knn", "fid"}
+
+
+def test_evaluate_large_scale_at_a_seed_draws_jaxs_numbers():
+    """With no injected draws, ``seed=3`` draws the JAX package's
+    directions, energy pairs and Sinkhorn subsamples: the metrics match
+    JAX's within the injected-draw test's tolerances above."""
+    n, seed = 128, 3
+    real, fake = gestures(10, n), gestures(11, n + 20, drift=0.01)
+    want = jax_ls.evaluate_large_scale(real, fake, seed=seed)
+    got = ls.evaluate_large_scale(real, fake, seed=seed, device="cpu")
+    assert (got["precision"], got["recall"]) == (want["precision"], want["recall"])
+    for k in ("sliced_w2", "energy_distance"):
+        assert rel(got[k], want[k]) <= 1e-5, k
+    for k in ("sinkhorn_matched_cost", "sinkhorn_matched_cost_extrapolated"):
+        assert rel(got[k], want[k]) <= 1e-4, k
 
 
 def test_evaluate_large_scale_own_draws_extrapolate():

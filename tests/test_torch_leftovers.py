@@ -43,6 +43,7 @@ from wordgesture_gan_tpu_torch.ops import fastdtw_approx
 from wordgesture_gan_tpu_torch.train.state import init_gan_state, param_count
 from wordgesture_gan_tpu_torch.utils import profiling
 from wordgesture_gan_tpu_torch.utils.tree import tree_leaves
+from wordgesture_gan_tpu_torch.utils import prng
 
 SMALL = dict(seq_length=16, gen_hidden_dim=8, gen_num_layers=2, latent_dim=4,
              enc_hidden_dims=(24, 16), disc_hidden_dims=(12, 6))
@@ -332,7 +333,7 @@ def test_trainer_state_from_torch_matches_jax():
     for m in ("d1", "d2"):
         _assert_trees_equal(state[m]["sn"], want[m]["sn"])
     assert state["epoch"] == 0
-    assert torch.equal(state["rng"].get_state(), torch.Generator().manual_seed(5).get_state())
+    assert torch.equal(state["rng"], prng.PRNGKey(5))
 
 
 def test_generator_on_converted_weights_matches_jax():

@@ -38,6 +38,7 @@ from wordgesture_gan_tpu_torch.metrics.suite import evaluate_all_metrics
 from wordgesture_gan_tpu_torch.models import gan
 from wordgesture_gan_tpu_torch.ops import assignment, savgol, sqrtm, stats
 from wordgesture_gan_tpu_torch.utils.tree import tree_leaves
+from wordgesture_gan_tpu_torch.utils import prng
 
 SCALARS = ("l2_wasserstein", "dtw_wasserstein", "jerk_real", "jerk_fake", "velocity_corr",
            "acceleration_corr", "speed_profile_corr", "time_delta_corr", "ae_reconstruction_loss",
@@ -204,7 +205,7 @@ def test_autoencoder_encode_decode_apply(positional):
     jp = jax_gan.autoencoder_init(jax.random.PRNGKey(0), JaxModelConfig(), 32,
                                   positional=positional)
     tp = autoencoder_from_jax(jax.device_get(jp))
-    own = gan.autoencoder_init(ModelConfig(), 32, positional, torch.Generator().manual_seed(0))
+    own = gan.autoencoder_init(ModelConfig(), 32, positional, prng.PRNGKey(0))
     assert ({k: v.shape for k, v in flatten_tree(own).items()}
             == {k: v.shape for k, v in flatten_tree(tp).items()})
     g = gestures(9, 6)
@@ -244,6 +245,21 @@ def test_fid_autoencoder_training_matches_jax_with_injected_permutations(mode, c
     with pytest.raises(ValueError, match="perms"):
         fid.train_fid_autoencoder(data, eval_config=EvaluationConfig(fid_autoencoder_epochs=2),
                                   device="cpu", perms=perms[:1])
+
+
+def test_fid_autoencoder_at_a_seed_draws_jaxs_init_and_permutations():
+    """With no injected draws, ``seed=0`` gives the JAX package's initial
+    weights and epoch permutations: the trained weights and the loss match
+    JAX's within the injected-draw test's tolerances."""
+    data = gestures(10, 40)
+    ecfg = dict(fid_autoencoder_epochs=2, fid_feature_mode="positional")
+    _, _, want, want_loss = _jax_fid_run(data, JaxEvaluationConfig(**ecfg))
+    got, loss = fid.train_fid_autoencoder(data, ModelConfig(), EvaluationConfig(**ecfg), seed=0,
+                                          batch_size=16, verbose=False, device="cpu")
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    got = jax.tree.map(lambda t: t.numpy(), got)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):     # both in key order
+        close(a, b, 2e-4)
 
 
 def test_fid_autoencoder_own_seed_is_reproducible_and_cached(tmp_path):

@@ -1,7 +1,8 @@
 """The PyTorch port's serving slice against the JAX package, on the CPU:
 words → keyboard prototypes (bit-identical) → chunked generation with
 injected noise (== JAX ``generator_apply`` on the same z, float32, 1e-5 abs)
-→ the CLI's ``.npz``; plus weight interchange, run metadata, and a check that
+→ the CLI's ``.npz``; sampling at a seed draws JAX's noise; plus weight
+interchange, run metadata, and a check that
 no module of the port imports JAX or the JAX package.
 """
 
@@ -31,6 +32,7 @@ from wordgesture_gan_tpu_torch.train.checkpoint import (load_generator, load_gen
                                                         load_run_metadata)
 from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures
 from wordgesture_gan_tpu_torch.utils import chunking
+from wordgesture_gan_tpu_torch.utils import prng
 
 REPO = Path(__file__).resolve().parent.parent
 WORDS = ["hello", "world", "the", "a", "aa", "", "Don't", "qwerty", "zzz", "typing",
@@ -101,7 +103,7 @@ def test_generate_gestures_matches_jax(time_head):
 
 
 def test_generate_gestures_seeded_noise():
-    model = Generator(ModelConfig(**SMALL), torch.Generator().manual_seed(0))
+    model = Generator(ModelConfig(**SMALL), prng.PRNGKey(0))
     protos = np.random.default_rng(3).uniform(-1, 1, (9, SMALL["seq_length"], 3))
     a = generate_gestures(model, protos, model.config, seed=5, batch=4, device="cpu")
     b = generate_gestures(model, protos, model.config, seed=5, batch=4, device="cpu")
@@ -111,6 +113,27 @@ def test_generate_gestures_seeded_noise():
     assert np.isfinite(a).all() and a.shape == (9, SMALL["seq_length"], 3)
     empty = generate_gestures(model, protos[:0], model.config, device="cpu")
     assert empty.shape == (0, SMALL["seq_length"], 3)
+
+
+@pytest.mark.parametrize("seed", [0, 42])
+def test_generate_gestures_at_a_seed_draws_jaxs_noise(seed):
+    """Without injected z both packages draw chunk c's noise as
+    ``normal(fold_in(PRNGKey(seed), c), (chunk, Z))``: n=7 at batch 4 (two
+    chunks, one padded), truncation 0.7, equal within the forward
+    tolerance."""
+    from wordgesture_gan_tpu.train.gan_loop import generate_gestures as jax_generate_gestures
+
+    fields = dict(SMALL, time_head="monotone")
+    params = _jax_params(4, **fields)
+    model = Generator(ModelConfig(**fields))
+    model.load_state_dict(generator_from_jax(params))
+    kb = keyboard.QWERTYKeyboard()
+    protos = np.stack([kb.get_word_prototype(w, SMALL["seq_length"]) for w in WORDS[:7]])
+    got = generate_gestures(model, protos, model.config, truncation=0.7, seed=seed, batch=4,
+                            device="cpu")
+    want = jax_generate_gestures({"g": {"params": params}}, protos, JaxModelConfig(**fields),
+                                 truncation=0.7, seed=seed, batch=4)
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_generate_gestures_rejects_bad_arguments():

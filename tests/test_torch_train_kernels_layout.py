@@ -27,13 +27,14 @@ from wordgesture_gan_tpu_torch.ops.bilstm_train import (MMA_HIDDEN, bilstm_train
                                                         fp32_wgrad_splits,
                                                         kernel_path, packed_sizes, packed_weights,
                                                         sample_tile, split_hi_lo, unpack_weights)
+from wordgesture_gan_tpu_torch.utils import prng
 
 CELL = ("w_ih", "w_hh", "b_ih", "b_hh")
 DIRS = ("fwd", "bwd")
 
 
 def _stack(hidden, layers, latent, seed=0):
-    return BiLSTM(2 + latent, hidden, layers, torch.Generator().manual_seed(seed)).params()
+    return BiLSTM(2 + latent, hidden, layers, prng.PRNGKey(seed)).params()
 
 
 # -- (a) the packed weights ----------------------------------------------------------------

@@ -10,7 +10,8 @@ repeating its splits. Tolerances, float32, each stated at its test: losses
 lr=0) 1e-5 relative, 1e-3 with the flagship auxiliaries on; parameters
 within 2·lr (Adam's first step maps a near-zero gradient's sign to ±lr, so a
 last-ulp difference in such a gradient moves a weight by up to 2·lr);
-spectral-norm u's 1e-5.
+spectral-norm u's 1e-5. The same step with each package drawing its own
+noise from ``init_gan_state(42)`` is held to these tolerances too.
 """
 
 import json
@@ -38,6 +39,7 @@ from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures, train_ga
 from wordgesture_gan_tpu_torch.train.gan_step import gan_train_step, make_epoch_batches
 from wordgesture_gan_tpu_torch.train.state import MODELS, init_gan_state
 from wordgesture_gan_tpu_torch.utils.tree import tree_leaves
+from wordgesture_gan_tpu_torch.utils import prng
 
 REPO = Path(__file__).resolve().parent.parent
 MODEL = dict(seq_length=16, gen_hidden_dim=8, gen_num_layers=4, latent_dim=4,
@@ -164,6 +166,45 @@ def test_step_params_match_jax(stepped, jax_start, model):
                 == np.array_equal(np.asarray(ref[path]), np.asarray(start[path]))), path
 
 
+OWN_DRAWS_MODEL = dict(MODEL, gen_num_layers=2)
+
+
+@pytest.mark.parametrize("lr", [0.0, LR])
+def test_flagship_step_with_each_packages_own_draws_matches_jax(lr):
+    """Each package from its own ``init_gan_state(42)``, one flagship step
+    with no injected noise: the port splits its keys and draws its noise as
+    the JAX step does, so the step matches JAX's within the injected-noise
+    tolerances above (losses 1e-4, gradients 1e-3 of a leaf's largest,
+    parameters 2·lr), and both states end on the same key."""
+    jcfg, jtcfg = JaxModelConfig(**OWN_DRAWS_MODEL), JaxTrainingConfig(**FLAGSHIP)
+    batch, _ = _batch_and_noise(3)
+    jax_step = jax.jit(lambda s, b: jax_gan_train_step(s, b, jnp.float32(lr), jcfg, jtcfg))
+    ref_state, ref_metrics = jax.device_get(jax_step(jax_init_gan_state(42, jcfg, jtcfg),
+                                                     jax.tree.map(jnp.asarray, batch)))
+    state, metrics = gan_train_step(init_gan_state(42, ModelConfig(**OWN_DRAWS_MODEL), "cpu"),
+                                    {k: torch.from_numpy(v) for k, v in batch.items()}, lr,
+                                    ModelConfig(**OWN_DRAWS_MODEL), TrainingConfig(**FLAGSHIP))
+    for k, v in metrics.items():
+        want = float(ref_metrics[k])
+        assert abs(v.item() - want) <= 1e-4 * max(1.0, abs(want)), (k, v.item(), want)
+    np.testing.assert_array_equal(state["rng"].numpy(), np.asarray(ref_state["rng"]))
+    for model in MODELS:
+        if lr == 0.0:
+            ref = adam_moments(ref_state[model]["opt"])
+            for part in ("mu", "nu"):
+                want, got = _paths(ref[part]), _paths(state[model]["opt"][part])
+                for path, leaf in got.items():
+                    w = np.asarray(want[path])
+                    np.testing.assert_allclose(_np(leaf), w,
+                                               atol=1e-3 * max(np.abs(w).max(), 1e-30),
+                                               err_msg=f"{model}{part}{path}")
+        else:
+            ref, got = _paths(ref_state[model]["params"]), _paths(state[model]["params"])
+            for path, leaf in got.items():
+                np.testing.assert_allclose(_np(leaf), np.asarray(ref[path]), atol=2 * LR,
+                                           err_msg=f"{model}{path}")
+
+
 def test_step_spectral_state_matches_jax(stepped, jax_start):
     ref_state, _, state, _ = stepped[0][LR]
     for model in ("d1", "d2"):
@@ -187,7 +228,9 @@ def test_train_state_from_jax(jax_start):
     for model in ("d1", "d2"):
         for path, u in _paths(state[model]["sn"]).items():
             np.testing.assert_array_equal(_np(u), np.asarray(_paths(jax_start[model]["sn"])[path]))
-    assert state["epoch"] == 0 and isinstance(state["rng"], torch.Generator)
+    # The JAX state's key carries over: the port draws on from it as JAX does.
+    assert state["epoch"] == 0
+    np.testing.assert_array_equal(state["rng"].numpy(), np.asarray(jax_start["rng"]))
 
 
 def test_joint_step_leaves_no_critic_gradient():
@@ -210,12 +253,12 @@ def test_joint_step_leaves_no_critic_gradient():
 
 def test_make_epoch_batches_drops_the_last_partial_batch():
     g = torch.arange(10, dtype=torch.float32)[:, None, None].expand(10, 4, 3).contiguous()
-    batches = make_epoch_batches(torch.Generator().manual_seed(0), g, g + 100, 3)
+    batches = make_epoch_batches(prng.PRNGKey(0), g, g + 100, 3)
     assert batches["gesture"].shape == (3, 3, 4, 3)
     ids = batches["gesture"][:, :, 0, 0].flatten()
     assert len(set(ids.tolist())) == 9
     assert torch.equal(batches["prototype"][:, :, 0, 0].flatten(), ids + 100)
-    again = make_epoch_batches(torch.Generator().manual_seed(0), g, g + 100, 3)
+    again = make_epoch_batches(prng.PRNGKey(0), g, g + 100, 3)
     assert torch.equal(again["gesture"], batches["gesture"])
 
 

@@ -54,6 +54,8 @@ from wordgesture_gan_tpu_torch.train.checkpoint import find_checkpoint, load_run
 from wordgesture_gan_tpu_torch.train.gan_loop import train_gan
 from wordgesture_gan_tpu_torch.train.variable_loop import (generate_variable_gestures,
                                                            train_variable_gan)
+from wordgesture_gan_tpu_torch.train.state import init_gan_state
+from wordgesture_gan_tpu_torch.utils import prng
 
 B, L, Z = 8, 32, 4
 MODEL = dict(seq_length=L, latent_dim=Z, tfm_d_model=16, tfm_num_heads=2, tfm_num_layers=2,
@@ -318,6 +320,35 @@ def test_masked_step_matches_jax():
                                            err_msg=f"{model} {part}{path}")
 
 
+def test_masked_step_with_each_packages_own_draws_matches_jax():
+    """Each package from its own ``init_gan_state(42)``, one masked step at
+    lr=0 with no injected noise: the port draws from its key as the JAX
+    step does, and holds ``test_masked_step_matches_jax``'s tolerances; both
+    states end on the same key."""
+    jcfg, jtcfg = JaxModelConfig(**MODEL), JaxTrainingConfig(**TRAINING)
+    batch, _ = _masked_batch(9)
+    jax_step = jax.jit(lambda s, b: jax_masked_step.gan_train_step_masked(
+        s, b, jnp.float32(0.0), jcfg, jtcfg))
+    ref_state, ref_metrics = jax.device_get(jax_step(jax_init_gan_state(42, jcfg, jtcfg),
+                                                     jax.tree.map(jnp.asarray, batch)))
+    state, metrics = masked_step.gan_train_step_masked(
+        init_gan_state(42, ModelConfig(**MODEL), "cpu"),
+        {k: torch.from_numpy(v) for k, v in batch.items()}, 0.0, ModelConfig(**MODEL),
+        TrainingConfig(**TRAINING))
+    for k, v in metrics.items():
+        want = float(ref_metrics[k])
+        assert abs(v.item() - want) <= 1e-4 * max(1.0, abs(want)), (k, v.item(), want)
+    np.testing.assert_array_equal(state["rng"].numpy(), np.asarray(ref_state["rng"]))
+    for model in ("g", "e", "d1", "d2"):
+        ref = adam_moments(ref_state[model]["opt"])
+        for part in ("mu", "nu"):
+            want, got = _paths(ref[part]), _paths(state[model]["opt"][part])
+            for path, leaf in got.items():
+                w = np.asarray(want[path])
+                np.testing.assert_allclose(leaf.numpy(), w, atol=1e-3 * max(np.abs(w).max(), 1e-30),
+                                           err_msg=f"{model} {part}{path}")
+
+
 def test_masked_step_refuses_other_families():
     with pytest.raises(ValueError, match="transformer"):
         masked_step.gan_train_step_masked({"rng": None, "g": None, "e": None, "d1": None,
@@ -326,8 +357,7 @@ def test_masked_step_refuses_other_families():
 
 def test_make_epoch_batches_masked_keeps_rows_together():
     batch, lengths = _masked_batch(8, batch=11)
-    gen = torch.Generator().manual_seed(0)
-    out = masked_step.make_epoch_batches_masked(gen, *(torch.from_numpy(batch[k]) for k in
+    out = masked_step.make_epoch_batches_masked(prng.PRNGKey(0), *(torch.from_numpy(batch[k]) for k in
                                                        ("gesture", "prototype", "mask")), 4)
     assert out["gesture"].shape == (2, 4, L, 3) and out["mask"].shape == (2, 4, L)
     for g, m in zip(out["gesture"].reshape(8, L, 3), out["mask"].reshape(8, L)):

@@ -36,6 +36,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from wordgesture_gan_tpu_torch.models.layers import BiLSTM  # noqa: E402
+from wordgesture_gan_tpu_torch.utils import prng  # noqa: E402
 from wordgesture_gan_tpu_torch.ops import bilstm_train  # noqa: E402
 from wordgesture_gan_tpu_torch.ops import build as kernel_build  # noqa: E402
 
@@ -92,7 +93,7 @@ def main() -> int:
     libraries = build_variants()
     device = torch.device("cuda")
     f32 = torch.float32
-    stack = BiLSTM(2 + 32, 48, 4, torch.Generator().manual_seed(0)).to(device).params()
+    stack = BiLSTM(2 + 32, 48, 4, prng.PRNGKey(0)).to(device).params()
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.uniform(-1, 1, (512, 128, 2)).astype(np.float32)).to(device)
     z = torch.from_numpy(rng.normal(size=(512, 32)).astype(np.float32)).to(device)

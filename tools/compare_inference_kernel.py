@@ -30,6 +30,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from wordgesture_gan_tpu_torch.models.layers import BiLSTM  # noqa: E402
+from wordgesture_gan_tpu_torch.utils import prng  # noqa: E402
 from wordgesture_gan_tpu_torch.ops import bilstm_fused  # noqa: E402
 from wordgesture_gan_tpu_torch.ops import build as kernel_build  # noqa: E402
 
@@ -74,7 +75,7 @@ def main() -> int:
     libs = {"other": build(args.other / "wordgesture_gan_tpu_torch" / "csrc", "other"),
             "this": build(kernel_build.CSRC_DIR, "this")}
     device, dtype = torch.device("cuda"), getattr(torch, args.dtype)
-    stack = BiLSTM(2 + 32, 48, 4, torch.Generator().manual_seed(0)).to(device).params()
+    stack = BiLSTM(2 + 32, 48, 4, prng.PRNGKey(0)).to(device).params()
     inputs = {}
     for batch in (1, 131, 512, 1024):
         rng = np.random.default_rng(batch)

@@ -28,15 +28,26 @@ card. A run resumes from its checkpoint, so one run can span several
 processes; a finished run is not trained again, and a scored one is not
 scored again.
 
+The port draws the JAX package's random streams (``utils/prng.py``), so
+``--seed 42`` trains the JAX package's seed-42 run up to float rounding;
+every JAX run in ``runs/`` is seed 42 (the sweeps pass no ``--seed``, and
+42 is the default).
+
 Then the report, ``<out>/results.json`` and ``<out>/results.md``: every
-metric of every run beside the JAX run's value and its band, the JAX value
-± 3·d, where d is |r4_sp2 − r5_base| for that metric (the only same-recipe
-pair the JAX package trained twice), at least 0.01, and no band for FID
-(``NO_BAND``); the deterministic checks (corpus counts, the diversity
-margin, the seed-42 minimum-jerk column within 0.002); each GAN run's wins
-against its own minimum-jerk column; and the mean of every loss over three
-windows of epochs beside the JAX run's and the pair's spread. The JAX logs
-and histories are read as text.
+metric of every run beside the JAX run's value; a seed-42 run's metric is
+flagged outside the band, the JAX value ± 3·d, where d is |r4_sp2 − r5_base|
+for that metric (the one recipe the JAX package trained twice, both at seed
+42: d is the rerun drift of one seed, not a seed spread), at least 0.01, and
+no band for FID (``NO_BAND``); another seed's metric is shown beside the
+range of the port's own seeds of that recipe, unflagged. Then the
+deterministic checks (corpus counts, the diversity margin, the seed-42
+minimum-jerk column within 0.002); each GAN run's wins against its own
+minimum-jerk column; every loss of epochs 1-10, epoch by epoch, beside the
+JAX run's and the envelope of the JAX package's seed-42 runs of that kind,
+with the first epoch outside it; and the mean of every loss over three
+windows of epochs beside the JAX run's and the pair's drift. Runs recorded
+before the port drew JAX's streams are marked as drawn from
+``torch.Generator``. The JAX logs and histories are read as text.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ from wordgesture_gan_tpu_torch.ops.bilstm_fused import fused_bilstm_fwd  # noqa:
 from wordgesture_gan_tpu_torch.ops.bilstm_train import (bilstm_train_bwd,  # noqa: E402
                                                         bilstm_train_fwd)
 from wordgesture_gan_tpu_torch.ops.dtw import dtw_matrix, dtw_pairs  # noqa: E402
+from wordgesture_gan_tpu_torch.ops.threefry import threefry_draw  # noqa: E402
 from wordgesture_gan_tpu_torch.train.checkpoint import (find_checkpoint,  # noqa: E402
                                                         load_run_metadata, save_run_metadata)
 
@@ -128,9 +140,24 @@ RUNS = {
 }
 DEFAULT_RUNS = ("flag", "base", "varlen2", "contrastive")
 # The λ_speed=2 recipe trained twice by the JAX package (runs/r5_sweep.sh:5
-# retrains r4_sp2 as r5_base): its spread is the only measured seed spread.
+# retrains r4_sp2 as r5_base). Neither sweep passes --seed, so both are seed
+# 42 (wordgesture_gan_tpu/cli_common.py:35): their spread is the rerun drift
+# of one seed (code changes and float rounding between the two rounds), the
+# yardstick of a seed-42 port run against a seed-42 JAX run.
 PAIR = {"eval_log": ("runs/r4_eval_sp2.log", "runs/r5_eval_base.log"),
         "history": ("runs/r4_sp2/history.jsonl", "runs/r5_base/history.jsonl")}
+JAX_SEED = 42
+# The JAX package's seed-42 histories whose per-epoch envelope a run's first
+# epochs are held to: every fixed-length GAN run (and the pair), the
+# variable-length run, the contrastive run.
+ENVELOPE = {
+    "gan": ("runs/r5_flag/history.jsonl", "runs/r5_base/history.jsonl",
+            "runs/r4_sp2/history.jsonl", "runs/r5_div03/history.jsonl",
+            "runs/r5_dtc4/history.jsonl"),
+    "varlen": ("runs/r5_varlen2/history.jsonl",),
+    "contrastive": ("runs/r4_contrastive/history.jsonl",),
+}
+FIRST_EPOCHS = 10
 BAND_K, BAND_FLOOR = 3.0, 0.01
 # FID gets no band. The pair measures no seed spread of it: r4_sp2's FID was
 # taken in another feature space (runs/r4_eval_sp2.log:38, "≠paper-space").
@@ -153,7 +180,11 @@ WINDOWS = {"gan": ((1, 10), (91, 100), (191, 200)),
            "contrastive": ((1, 10), (46, 55), (91, 100))}
 COUNTERS = {"bilstm_fused": fused_bilstm_fwd, "bilstm_train_fwd": bilstm_train_fwd,
             "bilstm_train_bwd": bilstm_train_bwd, "dtw": dtw_matrix,
-            "dtw_aligned_pairs": dtw_pairs}
+            "dtw_aligned_pairs": dtw_pairs, "threefry": threefry_draw}
+# The random stream a run drew from, recorded in its run_meta.json: the JAX
+# package's key tree (threefry2x32). Runs recorded without it drew from
+# torch.Generator (Philox on the card), before the port drew JAX's streams.
+STREAM = "jax-threefry2x32"
 
 # -- one parser for both packages' output -------------------------------------
 
@@ -226,6 +257,37 @@ def read_history(path: Path) -> List[dict]:
     if not path.exists():
         return []
     return [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+
+
+def first_epochs(history: List[dict], jax: List[dict], envelope: List[List[dict]],
+                 n: int = FIRST_EPOCHS) -> dict:
+    """Per loss of the JAX run, its value in epochs 1..n for the port and
+    for JAX, the envelope (min, max) of the JAX ``envelope`` histories that
+    record it, and the first epoch whose port value lies outside that
+    envelope (None if none does)."""
+    def by_epoch(h):
+        return {rec["epoch"]: rec for rec in h if rec["epoch"] <= n}
+    port, want, env = by_epoch(history), by_epoch(jax), [by_epoch(h) for h in envelope]
+    out = {}
+    for key in sorted({k for rec in want.values() for k in rec} - {"epoch", "lr"}):
+        row = {"port": [], "jax": [], "lo": [], "hi": [], "first_outside": None}
+        for e in range(1, n + 1):
+            got = port.get(e, {}).get(key)
+            vals = [h[e][key] for h in env if key in h.get(e, {})]
+            lo, hi = (min(vals), max(vals)) if vals else (None, None)
+            row["port"].append(got)
+            row["jax"].append(want.get(e, {}).get(key))
+            row["lo"].append(lo)
+            row["hi"].append(hi)
+            if row["first_outside"] is None and None not in (got, lo) and not lo <= got <= hi:
+                row["first_outside"] = e
+        out[key] = row
+    return out
+
+
+def run_seed(run_dir: Path) -> int:
+    found = re.search(r"_seed(\d+)$", run_dir.name)
+    return int(found.group(1)) if found else JAX_SEED
 
 
 def window_means(history: List[dict], windows) -> Dict[str, List[Optional[float]]]:
@@ -332,7 +394,7 @@ def do_run(name: str, args: argparse.Namespace, card: str) -> dict:
     train_module = train_cli if gan else train_contrastive_cli
     target = train_module.build_parser().parse_args(train_argv).epochs
     record = load_run_metadata(str(run_dir)).get("runner", {"train_calls": [], "eval_calls": []})
-    record.update(source=spec["source"], seed=args.seed, card=card)
+    record.update(source=spec["source"], seed=args.seed, card=card, stream=STREAM)
     start = _trained_epoch(run_dir, spec["kind"])
     trained = start < target
     if trained:
@@ -409,23 +471,30 @@ def report(out: Path, repo: Path = REPO) -> dict:
     results = {"band": {"k": BAND_K, "floor": BAND_FLOOR, "d": d,
                         "pair": list(PAIR["eval_log"])},
                "runs": {}, "checks": {}}
+    envelopes = {kind: [read_history(repo / p) for p in paths]
+                 for kind, paths in ENVELOPE.items()}
     for run_dir in sorted(p for p in out.iterdir() if p.is_dir()):
         name = re.sub(r"_seed\d+$", "", run_dir.name)
         if name not in RUNS:
             continue
         spec, jax = RUNS[name], jax_logs[name]
+        seed = run_seed(run_dir)
         logs = {k: parse_log((run_dir / f"{k}.log").read_text())
                 if (run_dir / f"{k}.log").exists() else parse_log("")
                 for k in ("train", "eval")}
         history = read_history(run_dir / "history.jsonl")
-        entry = {"source": spec["source"], "jax": spec["jax"],
-                 "runner": load_run_metadata(str(run_dir)).get("runner", {}),
+        runner = load_run_metadata(str(run_dir)).get("runner", {})
+        entry = {"source": spec["source"], "jax": spec["jax"], "recipe": name, "seed": seed,
+                 "stream": runner.get("stream", "torch.Generator"), "runner": runner,
                  "epochs": history[-1]["epoch"] if history else 0,
                  "counts": {**logs["train"]["counts"], **logs["eval"]["counts"]},
                  "margin": logs["train"]["margin"]}
         windows = WINDOWS[spec["kind"]]
+        jax_history = read_history(repo / spec["jax"]["history"])
+        envelope = ("varlen" if "--variable-length" in spec["train"] else spec["kind"])
+        entry["first_epochs"] = first_epochs(history, jax_history, envelopes[envelope])
         port_means = window_means(history, windows)
-        jax_means = window_means(read_history(repo / spec["jax"]["history"]), windows)
+        jax_means = window_means(jax_history, windows)
         pair_means = [window_means(h, windows) for h in pair]
         entry["history"] = {
             "windows": windows,
@@ -438,7 +507,9 @@ def report(out: Path, repo: Path = REPO) -> dict:
             port_tables, jax_tables = logs["eval"]["tables"], jax["eval_log"]["tables"]
             # The JAX package scored min-jerk once, beside r5_base.
             jax_minjerk = jax_logs["base"]["eval_log"]["tables"]["minjerk"]
-            entry["metrics"] = _compare(port_tables.get("gan", {}), jax_tables["gan"], d)
+            # The band is a same-seed yardstick: only seed 42 is flagged.
+            entry["metrics"] = _compare(port_tables.get("gan", {}), jax_tables["gan"],
+                                        d if seed == JAX_SEED else None)
             if "minjerk" in port_tables:
                 # The JAX column's draws are seed 42's; another seed draws
                 # other min-jerk samples, shown beside it without a flag.
@@ -452,14 +523,31 @@ def report(out: Path, repo: Path = REPO) -> dict:
                 "jax": wins(jax_tables["gan"], jax_minjerk)}
         else:
             port_eval, jax_eval = logs["eval"], jax["eval_log"]
-            entry["metrics"] = _compare(port_eval["retrieval"], jax_eval["retrieval"], {})
-            entry["centroids"] = _compare(port_eval["centroids"], jax_eval["centroids"], {})
+            entry["metrics"] = _compare(port_eval["retrieval"], jax_eval["retrieval"],
+                                        {} if seed == JAX_SEED else None)
+            entry["centroids"] = _compare(port_eval["centroids"], jax_eval["centroids"],
+                                          {} if seed == JAX_SEED else None)
         results["runs"][run_dir.name] = entry
+    _seed_ranges(results["runs"])
     results["checks"] = _checks(results["runs"], jax_logs)
     out.mkdir(parents=True, exist_ok=True)
     (out / "results.json").write_text(json.dumps(results, indent=1) + "\n")
     (out / "results.md").write_text(markdown(results))
     return results
+
+
+def _seed_ranges(runs: dict) -> None:
+    """Give each run the range of every metric over the port's runs of its
+    recipe drawn from the same stream, and the seeds they span."""
+    for entry in runs.values():
+        peers = [e for e in runs.values()
+                 if e["recipe"] == entry["recipe"] and e["stream"] == entry["stream"]]
+        ranges = {}
+        for key in entry.get("metrics", {}):
+            vals = [e["metrics"][key]["port"] for e in peers
+                    if e["metrics"].get(key, {}).get("port") is not None]
+            ranges[key] = [min(vals), max(vals)] if vals else None
+        entry["seed_range"] = {"seeds": sorted(e["seed"] for e in peers), "metrics": ranges}
 
 
 def _checks(runs: dict, jax_logs: dict) -> dict:
@@ -493,11 +581,17 @@ def _fmt(x, digits: int = 4) -> str:
 def markdown(results: dict) -> str:
     """The report as Markdown tables."""
     lines = ["# The port's runs against the JAX package's", "",
-             f"Band: JAX value ± {results['band']['k']:g}·d, d = |r4_sp2 − r5_base| per metric, "
-             f"at least {results['band']['floor']}; `OUT` marks a value outside. FID has no band "
-             "(no measured seed spread; the autoencoder alone moves it by up to 0.049); "
-             "min-jerk's eight other metrics are held to ±0.002 at seed 42 only, as another "
-             "seed draws other min-jerk samples.", ""]
+             "The port draws the JAX package's random streams, so `--seed 42` trains the JAX "
+             "package's seed-42 run up to float rounding; every JAX run in `runs/` is seed 42. "
+             f"Band: JAX value ± {results['band']['k']:g}·d, d = |r4_sp2 − r5_base| per metric "
+             "(one recipe trained twice at seed 42: the rerun drift of one seed, not a seed "
+             f"spread), at least {results['band']['floor']}; `OUT` marks a seed-42 value "
+             "outside. Another seed is shown beside the range of the port's own seeds of the "
+             "recipe (same stream), unflagged. FID has no band (the autoencoder alone moves it "
+             "by up to 0.049); min-jerk's eight other metrics are held to ±0.002 at seed 42 "
+             "only, as another seed draws other min-jerk samples. A run marked "
+             "`torch.Generator` drew from torch's streams, before the port drew JAX's: "
+             "its seed names no JAX run.", ""]
     for name, check in results["checks"].items():
         shown = ({k: [r["port"], r["jax"]] for k, r in check["rows"].items()}
                  if "rows" in check else {"port": check["port"], "jax": check["jax"]})
@@ -507,20 +601,26 @@ def markdown(results: dict) -> str:
         runner = entry["runner"]
         train_s = sum(c["seconds"] for c in runner.get("train_calls", []))
         eval_s = sum(c["seconds"] for c in runner.get("eval_calls", [])[-1:])
-        lines += ["", f"## {name} ({entry['source']}; seed {runner.get('seed')}, "
-                      f"{entry['epochs']} epochs; train {train_s:.1f} s, eval {eval_s:.1f} s, "
-                      f"{runner.get('card')})", "",
-                  "| metric | port | JAX | band | |", "|---|---|---|---|---|"]
+        span = entry["seed_range"]
+        lines += ["", f"## {name} ({entry['source']}; seed {entry['seed']}, stream "
+                      f"{entry['stream']}, {entry['epochs']} epochs; train {train_s:.1f} s, "
+                      f"eval {eval_s:.1f} s, {runner.get('card')})", "",
+                  "| metric | port | JAX | band (seed 42) or port seeds "
+                  f"{', '.join(map(str, span['seeds']))} | |", "|---|---|---|---|---|"]
         for table in ("metrics", "minjerk", "centroids"):
             for key, row in entry.get(table, {}).items():
                 label = key if table == "metrics" else f"{table}: {key}"
                 band = "—" if row["lo"] is None else f"{_fmt(row['lo'])} – {_fmt(row['hi'])}"
+                seeds = span["metrics"].get(key) if table == "metrics" else None
+                if row["lo"] is None and seeds and entry["seed"] != JAX_SEED:
+                    band = f"seeds {_fmt(seeds[0])} – {_fmt(seeds[1])}"
                 lines.append(f"| {label} | {_fmt(row['port'])} | {_fmt(row['jax'])} | {band} | "
                              f"{'OUT' if row['outside'] else ''} |")
         if "wins_vs_own_minjerk" in entry:
             w = entry["wins_vs_own_minjerk"]
             lines += ["", f"Wins against its own min-jerk column (of 9): port {w['port']}, "
                           f"JAX {w['jax']}."]
+        lines += _first_epochs_table(entry["first_epochs"])
         spans = ", ".join(f"{a}–{b}" for a, b in entry["history"]["windows"])
         lines += ["", f"Loss means over epochs {spans} (port / JAX / pair spread):", "",
                   "| loss | " + " | ".join(f"{a}–{b}" for a, b in entry["history"]["windows"])
@@ -532,6 +632,24 @@ def markdown(results: dict) -> str:
                 cells.append(" / ".join(_fmt(v, 3) for v in vals))
             lines.append(f"| {key} | " + " | ".join(cells) + " |")
     return "\n".join(lines) + "\n"
+
+def _first_epochs_table(rows: dict) -> List[str]:
+    """Epochs 1-10, epoch by epoch: port / JAX, `*` where the port lies
+    outside the envelope of the JAX package's seed-42 runs."""
+    if not rows:
+        return []
+    n = len(next(iter(rows.values()))["port"])
+    lines = ["", f"Epochs 1–{n}, port / JAX (`*`: outside the envelope of the JAX package's "
+                 "seed-42 runs of this kind):", "",
+             "| loss | " + " | ".join(str(e) for e in range(1, n + 1)) + " | first outside |",
+             "|---|" + "---|" * (n + 1)]
+    for key, row in rows.items():
+        cells = []
+        for got, want, lo, hi in zip(row["port"], row["jax"], row["lo"], row["hi"]):
+            mark = "*" if None not in (got, lo) and not lo <= got <= hi else ""
+            cells.append(f"{_fmt(got, 3)}{mark} / {_fmt(want, 3)}")
+        lines.append(f"| {key} | " + " | ".join(cells) + f" | {row['first_outside'] or '—'} |")
+    return lines
 
 # -- command line --------------------------------------------------------------
 

@@ -174,15 +174,15 @@ def train_state_from_jax(tree, device="cuda", seed: int = 0) -> Dict:
     with numpy leaves: ``tree[m]["params"]`` for m in g, e, d1, d2, the
     critics' ``tree[m]["sn"]``, and optionally ``tree[m]["opt"]`` (optax's
     chain state) and ``tree["epoch"]``. Without an optimizer state a model
-    gets fresh Adam moments. The port's random generator is seeded with
-    ``seed``: JAX's key has no PyTorch counterpart."""
+    gets fresh Adam moments. The state's key is ``tree["rng"]`` (JAX's key
+    data), or ``PRNGKey(seed)`` without one."""
     from ..train.state import MODELS, make_train_state
 
     params = {m: tree[m]["params"] for m in MODELS}
     sn = {m: tree[m]["sn"] for m in ("d1", "d2")}
     opt = {m: adam_moments(tree[m]["opt"]) for m in MODELS if tree[m].get("opt") is not None}
     return make_train_state(params, sn, device, seed=seed, opt=opt,
-                            epoch=int(np.asarray(tree.get("epoch", 0))))
+                            epoch=int(np.asarray(tree.get("epoch", 0))), rng=tree.get("rng"))
 
 
 def contrastive_state_from_jax(tree, device="cuda") -> Dict:

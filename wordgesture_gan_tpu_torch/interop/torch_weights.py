@@ -174,8 +174,7 @@ def trainer_state_from_torch(
     """A reference trainer checkpoint (keys ``generator``, ``encoder``,
     ``discriminator_1``, ``discriminator_2``) → the port's train state on
     ``device`` (``train/state.py``) with those weights, the critics' u
-    vectors, fresh Adam moments and epoch 0, its random generator seeded
-    with ``seed``. The reference's Adam state is not carried over (its step
+    vectors, fresh Adam moments and epoch 0, its key ``PRNGKey(seed)``. The reference's Adam state is not carried over (its step
     count and moments follow another schedule); ``training_config`` is
     accepted for the JAX function's signature and not needed: the step
     passes the learning rate and the clip norm."""

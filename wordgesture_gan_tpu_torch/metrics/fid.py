@@ -17,6 +17,7 @@ from ..configs import (DEFAULT_EVALUATION_CONFIG, DEFAULT_MODEL_CONFIG, Evaluati
                        ModelConfig)
 from ..models.gan import autoencoder_apply, autoencoder_encode, autoencoder_init
 from ..train.state import adam_init, apply_update
+from ..utils import prng
 from ..utils.chunking import chunk_layout, pad_to_chunks
 from ..utils.tree import tree_leaves, tree_map
 
@@ -58,16 +59,16 @@ def train_fid_autoencoder(
     data and takes one step per batch; the partial tail batch is padded and
     masked out of the loss. Returns (params, final epoch loss).
 
-    The initial weights and each epoch's permutation come from one CPU
-    ``torch.Generator`` seeded with ``seed``, so every device trains the same
-    run. ``perms`` (epochs, n) and ``params`` (an initial tree) replace them:
-    JAX's random streams cannot be reproduced, so a test hands both packages
-    the same permutations and weights this way."""
+    The initial weights and each epoch's permutation are the JAX package's:
+    ``key, init_key = split(PRNGKey(seed))``, the weights from ``init_key``
+    (drawn on the CPU), epoch e's permutation ``permutation(split(key,
+    epochs)[e], n)``. ``perms`` (epochs, n) and ``params`` (an initial tree)
+    replace them."""
     device = torch.device(device)
-    gen = torch.Generator().manual_seed(seed)
+    key, init_key = prng.split(prng.PRNGKey(seed))
     positional = eval_config.fid_feature_mode == "positional"
     if params is None:
-        params = autoencoder_init(model_config, eval_config.fid_hidden_dim, positional, gen)
+        params = autoencoder_init(model_config, eval_config.fid_hidden_dim, positional, init_key)
     params = tree_map(lambda t: t.detach().to(device=device, dtype=torch.float32).clone()
                       .requires_grad_(True), params)
     leaves = tree_leaves(params)
@@ -84,9 +85,10 @@ def train_fid_autoencoder(
     masks = mask.reshape(n_batches, batch_size)
 
     final_loss = float("nan")
+    epoch_keys = prng.split(key, epochs)
     for epoch in range(epochs):
         if perms is None:
-            perm = torch.randperm(n, generator=gen)
+            perm = prng.permutation(epoch_keys[epoch], n, device=device)
         else:
             perm = torch.as_tensor(np.asarray(perms[epoch]), dtype=torch.long)
         index = torch.cat([perm, perm.new_zeros(padded_n - n)]).to(device)

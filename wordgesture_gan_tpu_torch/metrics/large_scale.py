@@ -16,10 +16,10 @@ estimators replace it, each in tensors on the device:
   the subsample size to the full population;
 * FID, whose feature moments are O(n · d).
 
-Every random draw comes from an explicit ``torch.Generator``, and each
-function takes the draws themselves as an injection argument (``dirs=``,
-``pairs=``, ``indices=``, ``draws=``): JAX's random streams cannot be
-reproduced in PyTorch, so a parity test hands both packages the same draws.
+Every random draw is the JAX package's, from the same key tree
+(``utils/prng.py``: the keys on the host, the draws on the data's device),
+and each function also takes the draws themselves as an injection argument
+(``dirs=``, ``pairs=``, ``indices=``, ``draws=``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 
 from ..ops.assignment import sinkhorn_matching_cost
 from ..ops.stats import pairwise_l2
+from ..utils import prng
 from ..utils.chunking import pad_to_chunks
 
 _BIG = 1e30
@@ -40,13 +41,10 @@ _BIG = 1e30
 IndexPair = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _generator(generator: Optional[torch.Generator], device, seed: int) -> torch.Generator:
-    """``generator``, else a new one on ``device`` seeded with ``seed``."""
-    if generator is not None:
-        return generator
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    return g
+def _key(key: Optional[torch.Tensor], seed: int) -> torch.Tensor:
+    """``key``, else ``PRNGKey(seed)`` (the JAX package's default per
+    estimator)."""
+    return prng.PRNGKey(seed) if key is None else key
 
 
 def _index(idx, device) -> torch.Tensor:
@@ -54,15 +52,13 @@ def _index(idx, device) -> torch.Tensor:
 
 
 def sliced_wasserstein2(a: torch.Tensor, b: torch.Tensor, n_projections: int = 128,
-                        generator: Optional[torch.Generator] = None,
-                        dirs=None) -> torch.Tensor:
+                        key: Optional[torch.Tensor] = None, dirs=None) -> torch.Tensor:
     """Sliced W2 between row sets a (n, D) and b (n, D): the exact 1-D
     squared W2 averaged over ``n_projections`` random unit directions, square
-    rooted (units of L2). ``dirs`` (D, K) replaces the standard-normal draws
-    before normalization."""
+    rooted (units of L2). The directions are ``normal(key, (D, K))``
+    normalized; ``dirs`` (D, K) replaces the normal draws."""
     if dirs is None:
-        g = _generator(generator, a.device, 0)
-        dirs = torch.randn((a.shape[1], n_projections), generator=g, device=a.device)
+        dirs = prng.normal(_key(key, 0).to(a.device), (a.shape[1], n_projections))
     else:
         dirs = torch.as_tensor(dirs, dtype=torch.float32, device=a.device)
     dirs = dirs / torch.linalg.vector_norm(dirs, dim=0, keepdim=True)
@@ -71,28 +67,29 @@ def sliced_wasserstein2(a: torch.Tensor, b: torch.Tensor, n_projections: int = 1
     return torch.sqrt(torch.mean((pa - pb) ** 2))
 
 
-def energy_pairs(n: int, m: int, n_pairs: int, generator: torch.Generator,
+def energy_pairs(n: int, m: int, n_pairs: int, key: torch.Tensor,
                  device) -> Tuple[IndexPair, IndexPair, IndexPair]:
     """The index pairs of the three terms, drawn as the JAX package draws
-    them: i over a and j over b for E|X-Y|; the within-set terms reuse i (a)
-    and j (b) as their first index and offset the second by 1..size-1, so a
-    pair never repeats a row."""
-    i = torch.randint(0, n, (n_pairs,), generator=generator, device=device)
-    j = torch.randint(0, m, (n_pairs,), generator=generator, device=device)
-    i2 = (i + torch.randint(1, n, (n_pairs,), generator=generator, device=device)) % n
-    j2 = (j + torch.randint(1, m, (n_pairs,), generator=generator, device=device)) % m
+    them (``k1, k2, k3, k4 = split(key, 4)``): i over a (k1) and j over b
+    (k2) for E|X-Y|; the within-set terms reuse i and j as their first index
+    and offset the second by 1..size-1 (k3, k4), so a pair never repeats a
+    row."""
+    k1, k2, k3, k4 = prng.split(key, 4)
+    i = prng.randint(k1, (n_pairs,), 0, n, device)
+    j = prng.randint(k2, (n_pairs,), 0, m, device)
+    i2 = (i + prng.randint(k3, (n_pairs,), 1, n, device)) % n
+    j2 = (j + prng.randint(k4, (n_pairs,), 1, m, device)) % m
     return (i, j), (i, i2), (j, j2)
 
 
 def energy_distance(a: torch.Tensor, b: torch.Tensor, n_pairs: int = 1 << 20,
-                    generator: Optional[torch.Generator] = None,
+                    key: Optional[torch.Tensor] = None,
                     pairs: Optional[Sequence[IndexPair]] = None) -> torch.Tensor:
     """Monte-Carlo energy distance 2 E|X-Y| - E|X-X'| - E|Y-Y'| over
     ``n_pairs`` sampled pairs per term. ``pairs`` = ((i, j) of a-b, of a-a,
     of b-b) replaces the draws of ``energy_pairs``."""
     if pairs is None:
-        pairs = energy_pairs(a.shape[0], b.shape[0], n_pairs, _generator(generator, a.device, 1),
-                             a.device)
+        pairs = energy_pairs(a.shape[0], b.shape[0], n_pairs, _key(key, 1), a.device)
 
     def mean_dist(x, y, ij):
         d = x[_index(ij[0], x.device)] - y[_index(ij[1], x.device)]
@@ -156,49 +153,56 @@ def chunked_knn_precision_recall(real_flat: np.ndarray, fake_flat: np.ndarray, k
     return precision, recall
 
 
-def _subsample(n_rows: int, n: int, generator: torch.Generator, device) -> torch.Tensor:
-    """n distinct row indices of n_rows, in random order."""
-    return torch.randperm(n_rows, generator=generator, device=device)[:n]
+def _subsample(n_rows: int, n: int, key: torch.Tensor, device) -> torch.Tensor:
+    """n distinct row indices of n_rows, in random order: the JAX package's
+    ``choice(key, n_rows, (n,), replace=False)``."""
+    return prng.permutation(key, n_rows, device)[:n]
+
+
+def _subsamples(real_rows: int, fake_rows: int, n: int, key: torch.Tensor,
+                device) -> IndexPair:
+    k1, k2 = prng.split(key)
+    return _subsample(real_rows, n, k1, device), _subsample(fake_rows, n, k2, device)
 
 
 def sinkhorn_matched_cost_subsampled(real_flat: torch.Tensor, fake_flat: torch.Tensor,
                                      n_sub: int = 4096, epsilon: float = 0.01,
-                                     generator: Optional[torch.Generator] = None,
+                                     key: Optional[torch.Tensor] = None,
                                      indices: Optional[IndexPair] = None) -> float:
     """Estimator of the suite's Hungarian matched mean distance: entropy-
     regularized OT between uniform marginals on an ``n_sub`` subsample of
-    each set, drawn without replacement. ``indices`` = (real rows, fake rows)
-    replaces the draw."""
+    each set, drawn without replacement (``k1, k2 = split(key)``, one per
+    set). ``indices`` = (real rows, fake rows) replaces the draw."""
     n = min(n_sub, real_flat.shape[0], fake_flat.shape[0])
     dev = real_flat.device
     if indices is None:
-        g = _generator(generator, dev, 2)
-        indices = (_subsample(real_flat.shape[0], n, g, dev),
-                   _subsample(fake_flat.shape[0], n, g, dev))
+        indices = _subsamples(real_flat.shape[0], fake_flat.shape[0], n, _key(key, 2), dev)
     cost = pairwise_l2(real_flat[_index(indices[0], dev)], fake_flat[_index(indices[1], dev)])
     return float(sinkhorn_matching_cost(cost, epsilon=epsilon))
 
 
 def sinkhorn_matched_cost_repeated(real_flat: torch.Tensor, fake_flat: torch.Tensor,
                                    n_sub: int = 4096, epsilon: float = 0.01,
-                                   generator: Optional[torch.Generator] = None,
+                                   key: Optional[torch.Tensor] = None,
                                    n_repeats: int = 5,
                                    draws: Optional[List[IndexPair]] = None,
                                    ) -> Tuple[float, float, np.ndarray]:
-    """The subsampled estimator over ``n_repeats`` independent subsamples,
-    one cost matrix on the device at a time → (mean, std, values).
-    ``draws`` gives each repeat's (real rows, fake rows)."""
+    """The subsampled estimator over ``n_repeats`` independent subsamples
+    (repeat r's key is ``split(key, n_repeats)[r]``), one cost matrix on the
+    device at a time → (mean, std, values). ``draws`` gives each repeat's
+    (real rows, fake rows)."""
     if draws is not None and len(draws) != n_repeats:
         raise ValueError(f"{len(draws)} draws for {n_repeats} repeats")
-    g = _generator(generator, real_flat.device, 2) if draws is None else None
-    values = np.array([sinkhorn_matched_cost_subsampled(real_flat, fake_flat, n_sub, epsilon, g, d)
-                       for d in (draws or [None] * n_repeats)])
+    keys = prng.split(_key(key, 2), n_repeats)
+    values = np.array([sinkhorn_matched_cost_subsampled(real_flat, fake_flat, n_sub, epsilon,
+                                                        k, None if draws is None else draws[r])
+                       for r, k in enumerate(keys)])
     return (float(values.mean()), float(values.std(ddof=1) if n_repeats > 1 else 0.0), values)
 
 
 def sinkhorn_matched_cost_extrapolated(real_flat: torch.Tensor, fake_flat: torch.Tensor,
                                        n_sub: int = 4096, epsilon: float = 0.01,
-                                       generator: Optional[torch.Generator] = None,
+                                       key: Optional[torch.Tensor] = None,
                                        n_repeats: int = 6,
                                        draws: Optional[List[IndexPair]] = None,
                                        ) -> Dict[str, float]:
@@ -210,23 +214,23 @@ def sinkhorn_matched_cost_extrapolated(real_flat: torch.Tensor, fake_flat: torch
     (the first half of one permutation per set, so the per-repeat slope
     cancels part of the draw noise), and the mean trend is extrapolated to
     the population. When n_sub covers the population there is nothing to
-    correct and this is ``sinkhorn_matched_cost_repeated``. ``draws`` gives
-    each repeat's (real rows, fake rows), n_sub of each.
+    correct and this is ``sinkhorn_matched_cost_repeated``. Repeat r draws
+    with ``split(key, n_repeats)[r]``; ``draws`` gives each repeat's (real
+    rows, fake rows), n_sub of each.
 
     Returns {"estimate", "stderr", "raw_mean", "raw_std", "slope"}."""
     pop = min(real_flat.shape[0], fake_flat.shape[0])
     n_sub = min(n_sub, pop)
     if n_sub >= pop:
         mean_n, std_n, _ = sinkhorn_matched_cost_repeated(real_flat, fake_flat, n_sub, epsilon,
-                                                          generator, n_repeats, draws)
+                                                          key, n_repeats, draws)
         return {"estimate": mean_n, "stderr": std_n / np.sqrt(max(n_repeats, 1)),
                 "raw_mean": mean_n, "raw_std": std_n, "slope": 0.0}
 
     dev = real_flat.device
     if draws is None:
-        g = _generator(generator, dev, 2)
-        draws = [(_subsample(real_flat.shape[0], n_sub, g, dev),
-                  _subsample(fake_flat.shape[0], n_sub, g, dev)) for _ in range(n_repeats)]
+        draws = [_subsamples(real_flat.shape[0], fake_flat.shape[0], n_sub, k, dev)
+                 for k in prng.split(_key(key, 2), n_repeats)]
     elif len(draws) != n_repeats:
         raise ValueError(f"{len(draws)} draws for {n_repeats} repeats")
     fulls, slopes = [], []
@@ -264,8 +268,8 @@ def evaluate_large_scale(real_gestures: np.ndarray, fake_gestures: np.ndarray, a
     extrapolated), chunked k-NN precision and recall, and FID when the
     feature autoencoder's parameters are given (features on their device).
 
-    Draws come from one ``torch.Generator`` on ``device`` seeded with
-    ``seed`` (Sinkhorn subsamples, then directions, then pairs); ``draws``
+    Draws are the JAX package's: ``k1, k2, k3 = split(PRNGKey(seed), 3)``
+    for the directions, the pairs and the Sinkhorn subsamples; ``draws``
     may replace any of them: {"sinkhorn": [(real rows, fake rows)] per
     repeat, "dirs": (D, n_projections), "pairs": energy_distance's
     ``pairs``}. ``sinkhorn_n_sub`` and ``sinkhorn_repeats`` are the
@@ -280,18 +284,18 @@ def evaluate_large_scale(real_gestures: np.ndarray, fake_gestures: np.ndarray, a
     fake_np = np.ascontiguousarray(np.asarray(fake_gestures[:n, :, :2], np.float32).reshape(n, -1))
     real_xy = torch.from_numpy(real_np).to(device)
     fake_xy = torch.from_numpy(fake_np).to(device)
-    gen = _generator(None, real_xy.device, seed)
+    k1, k2, k3 = prng.split(prng.PRNGKey(seed), 3)
 
     t0 = time.perf_counter()
-    sk = sinkhorn_matched_cost_extrapolated(real_xy, fake_xy, sinkhorn_n_sub, generator=gen,
+    sk = sinkhorn_matched_cost_extrapolated(real_xy, fake_xy, sinkhorn_n_sub, key=k3,
                                             n_repeats=sinkhorn_repeats,
                                             draws=draws.get("sinkhorn"))
     stages["sinkhorn"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     results = {
-        "sliced_w2": float(sliced_wasserstein2(real_xy, fake_xy, n_projections, gen,
+        "sliced_w2": float(sliced_wasserstein2(real_xy, fake_xy, n_projections, k1,
                                                draws.get("dirs"))),
-        "energy_distance": float(energy_distance(real_xy, fake_xy, generator=gen,
+        "energy_distance": float(energy_distance(real_xy, fake_xy, key=k2,
                                                  pairs=draws.get("pairs"))),
         # "sinkhorn_matched_cost" is the RAW subsample mean; the
         # bias-extrapolated estimate has its own key.

@@ -10,31 +10,33 @@ transposes.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from ..configs import DEFAULT_CONTRASTIVE_CONFIG, ContrastiveConfig
-from .layers import batchnorm, batchnorm_init, conv1d, conv1d_init, dense_init
+from ..utils import prng
+from .layers import Key, _key, batchnorm, batchnorm_init, conv1d, conv1d_init, dense_init
 
 # (in_ch, out_ch, kernel, stride, padding) of each conv block.
 _CONV_SPEC = ((3, 32, 7, 2, 3), (32, 64, 5, 2, 2), (64, 128, 3, 2, 1))
 
 
 def contrastive_encoder_init(
-    config: ContrastiveConfig = DEFAULT_CONTRASTIVE_CONFIG,
-    generator: Optional[torch.Generator] = None,
+    config: ContrastiveConfig = DEFAULT_CONTRASTIVE_CONFIG, key: Key = None,
 ) -> Tuple[Dict, Dict]:
     """(params, batchnorm state) with PyTorch's default initializers, drawn
-    in order from ``generator``: the three convs, then the two dense layers."""
+    from ``key`` split as the JAX package splits it: the three convs, then
+    the two dense layers."""
+    keys = prng.split(_key(key), len(_CONV_SPEC) + 2)
     convs, bns, bn_states = [], [], []
-    for cin, cout, k, _s, _p in _CONV_SPEC:
-        convs.append(conv1d_init(cin, cout, k, generator))
+    for i, (cin, cout, k, _s, _p) in enumerate(_CONV_SPEC):
+        convs.append(conv1d_init(cin, cout, k, keys[i]))
         bn_p, bn_s = batchnorm_init(cout)
         bns.append(bn_p)
         bn_states.append(bn_s)
-    proj1 = dense_init(_CONV_SPEC[-1][1], config.embedding_dim, generator)
-    proj2 = dense_init(config.embedding_dim, config.embedding_dim, generator)
+    proj1 = dense_init(_CONV_SPEC[-1][1], config.embedding_dim, keys[-2])
+    proj2 = dense_init(config.embedding_dim, config.embedding_dim, keys[-1])
     return {"convs": convs, "bns": bns, "proj": [proj1, proj2]}, {"bns": bn_states}
 
 

@@ -29,8 +29,9 @@ from ..ops.bilstm_fused import fused_bilstm_fwd
 from ..ops.bilstm_train import bilstm_train_apply
 from .generators import (mlp_generator_apply, mlp_generator_init, transformer_generator_apply,
                          transformer_generator_init)
-from .layers import (BiLSTM, Dense, batched_spectral_normalize, bilstm_apply, cast_floats,
-                     conv1d, dense_init, leaky_relu, sn_conv1d_init, sn_dense_init)
+from ..utils import prng
+from .layers import (BiLSTM, Dense, Key, _key, batched_spectral_normalize, bilstm_apply,
+                     cast_floats, conv1d, dense_init, leaky_relu, sn_conv1d_init, sn_dense_init)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -71,15 +72,15 @@ def apply_time_head(raw: torch.Tensor, mode: str,
 _FAMILY_INIT = {"mlp": mlp_generator_init, "transformer": transformer_generator_init}
 
 
-def generator_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
-                   generator: Optional[torch.Generator] = None) -> Dict:
+def generator_init(config: ModelConfig = DEFAULT_MODEL_CONFIG, key: Key = None) -> Dict:
     """The generator's parameter tree for ``config.generator_type``, JAX
-    layout, PyTorch-default init. The BiLSTM's is ``{"lstm": [{"fwd": cell,
+    layout, PyTorch-default init drawn from ``key`` as the JAX package's
+    ``generator_init`` draws it. The BiLSTM's is ``{"lstm": [{"fwd": cell,
     "bwd": cell}, ...], "out": {"w", "b"}}``; "mlp" and "transformer" are
     ``models/generators.py``'s."""
     if config.generator_type in _FAMILY_INIT:
-        return _FAMILY_INIT[config.generator_type](config, generator)
-    return Generator(config, generator).tree()
+        return _FAMILY_INIT[config.generator_type](config, key)
+    return Generator(config, key).tree()
 
 
 def generator_apply(params: Dict, prototype: torch.Tensor, z: torch.Tensor,
@@ -163,23 +164,25 @@ class Generator(nn.Module):
     and ``out.{w, b}`` for the BiLSTM; ``mlp.{i}.{w, b}`` and ``out.{w, b}``
     for the MLP; ``embed``, ``pos``, ``blocks.{i}.{ln1, qkv, attn_out, ln2,
     mlp1, mlp2}``, ``ln_f`` and ``out`` for the transformer. Weights are
-    float32; ``generator`` seeds their PyTorch-default initialization."""
+    float32, drawn from ``key`` (``generator_init``; ``PRNGKey(0)`` when
+    None, for a module whose weights are loaded next)."""
 
-    def __init__(self, config: ModelConfig = DEFAULT_MODEL_CONFIG,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, config: ModelConfig = DEFAULT_MODEL_CONFIG, key: Key = None):
         super().__init__()
         compute_dtype(config)
         self.config = config
+        key = prng.PRNGKey(0) if key is None else key
         if config.generator_type in _FAMILY_INIT:
-            tree = _FAMILY_INIT[config.generator_type](config, generator)
+            tree = _FAMILY_INIT[config.generator_type](config, key)
             self._keys = tuple(tree)
             _register_tree(self, tree)
             return
         self._keys = None
         proto_dim = config.input_dim if config.prototype_has_time else 2
+        k_lstm, k_out = prng.split(key)
         self.lstm = BiLSTM(proto_dim + config.latent_dim, config.gen_hidden_dim,
-                           config.gen_num_layers, generator)
-        self.out = Dense(2 * config.gen_hidden_dim, config.input_dim, generator)
+                           config.gen_num_layers, k_lstm)
+        self.out = Dense(2 * config.gen_hidden_dim, config.input_dim, k_out)
 
     def tree(self) -> Dict:
         """The parameters as the JAX-layout tree ``generator_apply`` takes."""
@@ -202,24 +205,23 @@ def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
-def encoder_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
-                 generator: Optional[torch.Generator] = None) -> Dict:
+def encoder_init(config: ModelConfig = DEFAULT_MODEL_CONFIG, key: Key = None) -> Dict:
     """``{"mlp": [dense, ...], "mu": dense, "log_var": dense}``."""
     dims = (config.seq_length * config.input_dim,) + tuple(config.enc_hidden_dims)
+    keys = prng.split(_key(key), len(dims) + 1)
     return {
-        "mlp": [dense_init(dims[i], dims[i + 1], generator) for i in range(len(dims) - 1)],
-        "mu": dense_init(dims[-1], config.latent_dim, generator),
-        "log_var": dense_init(dims[-1], config.latent_dim, generator),
+        "mlp": [dense_init(dims[i], dims[i + 1], keys[i]) for i in range(len(dims) - 1)],
+        "mu": dense_init(dims[-1], config.latent_dim, keys[-2]),
+        "log_var": dense_init(dims[-1], config.latent_dim, keys[-1]),
     }
 
 
 def encoder_apply(params: Dict, x: torch.Tensor, config: ModelConfig = DEFAULT_MODEL_CONFIG, *,
-                  eps: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None
+                  eps: Optional[torch.Tensor] = None, key: Key = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gesture (B, L, 3) → (z, mu, log_var) by the reparameterization trick,
-    z = mu + eps·exp(log_var / 2). ``eps`` (B, Z) is injected, or drawn from
-    ``generator``. The hidden MLP runs in the compute dtype; the (mu,
+    z = mu + eps·exp(log_var / 2). ``eps`` (B, Z) is injected, or is
+    ``normal(key, mu.shape)`` on mu's device. The hidden MLP runs in the compute dtype; the (mu,
     log_var) heads and the reparameterization run in float32."""
     dtype = compute_dtype(config)
     h = x.reshape(x.shape[0], -1).to(dtype)
@@ -229,7 +231,7 @@ def encoder_apply(params: Dict, x: torch.Tensor, config: ModelConfig = DEFAULT_M
     mu = _dense(params["mu"], h)
     log_var = _dense(params["log_var"], h)
     if eps is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        eps = prng.normal(_key(key).to(mu.device), mu.shape)
     return mu + eps * torch.exp(0.5 * log_var), mu, log_var
 
 
@@ -237,15 +239,16 @@ def encoder_apply(params: Dict, x: torch.Tensor, config: ModelConfig = DEFAULT_M
 
 
 def mlp_disc_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
-                  generator: Optional[torch.Generator] = None) -> Tuple[Dict, Dict]:
+                  key: Key = None) -> Tuple[Dict, Dict]:
     """MLP critic: (params, spectral state)."""
     dims = (config.seq_length * config.input_dim,) + tuple(config.disc_hidden_dims)
+    keys = prng.split(_key(key), len(dims))
     layers, us = [], []
     for i in range(len(dims) - 1):
-        p, u = sn_dense_init(dims[i], dims[i + 1], generator)
+        p, u = sn_dense_init(dims[i], dims[i + 1], keys[i])
         layers.append(p)
         us.append(u)
-    out_p, out_u = sn_dense_init(dims[-1], 1, generator)
+    out_p, out_u = sn_dense_init(dims[-1], 1, keys[-1])
     return {"layers": layers, "out": out_p}, {"layers": us, "out": out_u}
 
 
@@ -270,17 +273,18 @@ _POOL_BINS = 8
 
 
 def temporal_disc_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
-                       generator: Optional[torch.Generator] = None) -> Tuple[Dict, Dict]:
+                       key: Key = None) -> Tuple[Dict, Dict]:
     """Temporal critic: three spectral-norm Conv1D layers, an 8-bin average
     pool, two spectral-norm dense layers and the score head."""
+    keys = prng.split(_key(key), 6)
     convs, conv_us = [], []
-    for cin, cout, k, _pad in _TCONV_SPEC:
-        p, u = sn_conv1d_init(cin, cout, k, generator)
+    for i, (cin, cout, k, _pad) in enumerate(_TCONV_SPEC):
+        p, u = sn_conv1d_init(cin, cout, k, keys[i])
         convs.append(p)
         conv_us.append(u)
-    m1, u1 = sn_dense_init(_TCONV_SPEC[-1][1] * _POOL_BINS, 128, generator)
-    m2, u2 = sn_dense_init(128, 64, generator)
-    out, uo = sn_dense_init(64, 1, generator)
+    m1, u1 = sn_dense_init(_TCONV_SPEC[-1][1] * _POOL_BINS, 128, keys[3])
+    m2, u2 = sn_dense_init(128, 64, keys[4])
+    out, uo = sn_dense_init(64, 1, keys[5])
     return ({"convs": convs, "mlp": [m1, m2], "out": out},
             {"convs": conv_us, "mlp": [u1, u2], "out": uo})
 
@@ -321,11 +325,11 @@ def temporal_disc_apply(params: Dict, state: Dict, x: torch.Tensor, update_stats
 
 
 def disc_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
-              generator: Optional[torch.Generator] = None) -> Tuple[Dict, Dict]:
+              key: Key = None) -> Tuple[Dict, Dict]:
     """The critic ``config.use_temporal_disc`` selects: (params, spectral state)."""
     if config.use_temporal_disc:
-        return temporal_disc_init(config, generator)
-    return mlp_disc_init(config, generator)
+        return temporal_disc_init(config, key)
+    return mlp_disc_init(config, key)
 
 
 def disc_apply(params: Dict, state: Dict, x: torch.Tensor, update_stats: bool,
@@ -343,8 +347,7 @@ _AE_DIMS = (192, 96, 48)
 
 
 def autoencoder_init(config: ModelConfig = DEFAULT_MODEL_CONFIG, hidden_dim: int = 32,
-                     positional: bool = False,
-                     generator: Optional[torch.Generator] = None) -> Dict:
+                     positional: bool = False, key: Key = None) -> Dict:
     """FID feature autoencoder: ``{"enc": [dense, ...], "post_pool": dense,
     "pre_expand": dense, "dec": [dense, ...]}``.
 
@@ -358,12 +361,13 @@ def autoencoder_init(config: ModelConfig = DEFAULT_MODEL_CONFIG, hidden_dim: int
     enc_dims = (config.input_dim,) + _AE_DIMS + (hidden_dim,)
     dec_in = hidden_dim + (1 if positional else 0)
     dec_dims = (dec_in,) + _AE_DIMS[::-1] + (config.input_dim,)
+    ki = iter(prng.split(_key(key), len(enc_dims) + len(dec_dims)))
     return {
-        "enc": [dense_init(enc_dims[i], enc_dims[i + 1], generator)
+        "enc": [dense_init(enc_dims[i], enc_dims[i + 1], next(ki))
                 for i in range(len(enc_dims) - 1)],
-        "post_pool": dense_init(hidden_dim, hidden_dim, generator),
-        "pre_expand": dense_init(hidden_dim, hidden_dim, generator),
-        "dec": [dense_init(dec_dims[i], dec_dims[i + 1], generator)
+        "post_pool": dense_init(hidden_dim, hidden_dim, next(ki)),
+        "pre_expand": dense_init(hidden_dim, hidden_dim, next(ki)),
+        "dec": [dense_init(dec_dims[i], dec_dims[i + 1], next(ki))
                 for i in range(len(dec_dims) - 1)],
     }
 

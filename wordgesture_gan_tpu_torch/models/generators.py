@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
-from .layers import cast_floats, dense_init, leaky_relu
+from ..utils import prng
+from .layers import Key, _key, cast_floats, dense_init, leaky_relu
 
 
 def _proto_dim(config: ModelConfig) -> int:
@@ -44,14 +45,14 @@ def _compute_dtype(config: ModelConfig) -> torch.dtype:
 # -- MLP generator --------------------------------------------------------------------------
 
 
-def mlp_generator_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
-                       generator: Optional[torch.Generator] = None) -> Dict:
+def mlp_generator_init(config: ModelConfig = DEFAULT_MODEL_CONFIG, key: Key = None) -> Dict:
     """``{"mlp": [dense, ...], "out": dense}``, PyTorch-default init."""
     in_dim = config.seq_length * _proto_dim(config) + config.latent_dim
     dims = (in_dim,) + tuple(config.mlp_gen_hidden_dims)
+    keys = prng.split(_key(key), len(dims))
     return {
-        "mlp": [dense_init(dims[i], dims[i + 1], generator) for i in range(len(dims) - 1)],
-        "out": dense_init(dims[-1], config.seq_length * config.input_dim, generator),
+        "mlp": [dense_init(dims[i], dims[i + 1], keys[i]) for i in range(len(dims) - 1)],
+        "out": dense_init(dims[-1], config.seq_length * config.input_dim, keys[-1]),
     }
 
 
@@ -89,30 +90,31 @@ def _layernorm(params: Dict[str, torch.Tensor], x: torch.Tensor, eps: float = 1e
     return out.to(x.dtype) * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
 
 
-def _block_init(d_model: int, mlp_dim: int,
-                generator: Optional[torch.Generator] = None) -> Dict:
+def _block_init(d_model: int, mlp_dim: int, key: torch.Tensor) -> Dict:
+    k = prng.split(key, 6)
     return {
         "ln1": _layernorm_init(d_model),
-        "qkv": dense_init(d_model, 3 * d_model, generator),
-        "attn_out": dense_init(d_model, d_model, generator),
+        "qkv": dense_init(d_model, 3 * d_model, k[0]),
+        "attn_out": dense_init(d_model, d_model, k[1]),
         "ln2": _layernorm_init(d_model),
-        "mlp1": dense_init(d_model, mlp_dim, generator),
-        "mlp2": dense_init(mlp_dim, d_model, generator),
+        "mlp1": dense_init(d_model, mlp_dim, k[2]),
+        "mlp2": dense_init(mlp_dim, d_model, k[3]),
     }
 
 
 def transformer_generator_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
-                               generator: Optional[torch.Generator] = None) -> Dict:
+                               key: Key = None) -> Dict:
     """``{"embed", "pos" (L, d), "blocks": [...], "ln_f", "out"}``; positions
     N(0, 0.02²), layer norms at identity, dense layers PyTorch-default."""
     d = config.tfm_d_model
+    keys = prng.split(_key(key), config.tfm_num_layers + 3)
     return {
-        "embed": dense_init(_proto_dim(config) + config.latent_dim, d, generator),
-        "pos": torch.randn((config.seq_length, d), generator=generator) * 0.02,
-        "blocks": [_block_init(d, config.tfm_mlp_ratio * d, generator)
-                   for _ in range(config.tfm_num_layers)],
+        "embed": dense_init(_proto_dim(config) + config.latent_dim, d, keys[0]),
+        "pos": prng.normal(keys[1], (config.seq_length, d)) * 0.02,
+        "blocks": [_block_init(d, config.tfm_mlp_ratio * d, keys[2 + i])
+                   for i in range(config.tfm_num_layers)],
         "ln_f": _layernorm_init(d),
-        "out": dense_init(d, config.input_dim, generator),
+        "out": dense_init(d, config.input_dim, keys[-1]),
     }
 
 

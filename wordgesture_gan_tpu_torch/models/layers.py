@@ -8,17 +8,28 @@ Weights keep the JAX package's layout — ``dense`` weights are (in, out) and
 applied as ``x @ w + b``; LSTM ``w_ih`` is (in, 4H), ``w_hh`` is (H, 4H),
 gate order i, f, g, o — so a JAX parameter tree maps onto the modules
 without transposes (``interop/from_jax.py``). Initializers are PyTorch's
-defaults (U(±1/sqrt(fan)) for linear and LSTM weights), drawn from an
-explicit ``torch.Generator``.
+defaults (U(±1/sqrt(fan)) for linear and LSTM weights), drawn on the CPU
+from a JAX-style key (``utils/prng.py``) that each splits as its JAX twin
+does, so a key gives the JAX package's initial weights.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils import prng
+
+Key = Optional[torch.Tensor]
+
+
+def _key(key: Key) -> torch.Tensor:
+    """``key``, or ``PRNGKey(0)`` for a module whose weights are loaded later."""
+    return prng.PRNGKey(0) if key is None else key
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -36,8 +47,10 @@ def cast_floats(tree, dtype: torch.dtype):
     return tree.to(dtype) if torch.is_floating_point(tree) else tree
 
 
-def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    return (torch.rand(shape, generator=generator, dtype=torch.float32) * 2.0 - 1.0) * bound
+def _uniform(key: torch.Tensor, shape, bound: float) -> torch.Tensor:
+    """U(-bound, bound) with the bound rounded to float32, as the JAX
+    package's ``_uniform`` draws it."""
+    return prng.uniform(key, shape, -bound, bound)
 
 
 # -- spectral normalization ----------------------------------------------------------
@@ -52,9 +65,9 @@ def _l2n(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + eps)
 
 
-def spectral_init(fan_out: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def spectral_init(fan_out: int, key: Key = None) -> torch.Tensor:
     """Initial left-singular estimate u (fan_out,) of a (fan_in, fan_out) matrix."""
-    return _l2n(torch.randn((fan_out,), generator=generator, dtype=torch.float32))
+    return _l2n(prng.normal(_key(key), (fan_out,)))
 
 
 def spectral_normalize(w2d: torch.Tensor, u: torch.Tensor,
@@ -90,18 +103,19 @@ def batched_spectral_normalize(ws2d: List[torch.Tensor], us: List[torch.Tensor],
             [U[i, :u.shape[0]] for i, u in enumerate(us)])
 
 
-def sn_dense_init(in_dim: int, out_dim: int, generator: Optional[torch.Generator] = None):
+def sn_dense_init(in_dim: int, out_dim: int, key: Key = None):
     """Spectrally normalized dense layer: (params, u)."""
-    return dense_init(in_dim, out_dim, generator), spectral_init(out_dim, generator)
+    kp, ku = prng.split(_key(key))
+    return dense_init(in_dim, out_dim, kp), spectral_init(out_dim, ku)
 
 
-def conv1d_init(in_ch: int, out_ch: int, kernel: int,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+def conv1d_init(in_ch: int, out_ch: int, kernel: int, key: Key = None) -> Dict[str, torch.Tensor]:
     """``nn.Conv1d`` default init, U(±1/sqrt(in_ch·kernel)), weight in the JAX
     ``(kernel, in, out)`` (WIO) layout."""
-    bound = 1.0 / (in_ch * kernel) ** 0.5
-    return {"w": _uniform((kernel, in_ch, out_ch), bound, generator),
-            "b": _uniform((out_ch,), bound, generator)}
+    kw, kb = prng.split(_key(key))
+    bound = 1.0 / math.sqrt(in_ch * kernel)
+    return {"w": _uniform(kw, (kernel, in_ch, out_ch), bound),
+            "b": _uniform(kb, (out_ch,), bound)}
 
 
 def conv1d(params: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
@@ -113,11 +127,11 @@ def conv1d(params: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
                     padding=padding).transpose(1, 2)
 
 
-def sn_conv1d_init(in_ch: int, out_ch: int, kernel: int,
-                   generator: Optional[torch.Generator] = None):
+def sn_conv1d_init(in_ch: int, out_ch: int, kernel: int, key: Key = None):
     """Spectrally normalized conv1d: (params, u); power iteration views the
     kernel as a (kernel·in_ch, out_ch) matrix."""
-    return conv1d_init(in_ch, out_ch, kernel, generator), spectral_init(out_ch, generator)
+    kp, ku = prng.split(_key(key))
+    return conv1d_init(in_ch, out_ch, kernel, kp), spectral_init(out_ch, ku)
 
 
 # -- batch normalization ----------------------------------------------------------------
@@ -177,34 +191,32 @@ def batchnorm(params: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor], x
     return out, new_state
 
 
-def dense_init(in_dim: int, out_dim: int,
-               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+def dense_init(in_dim: int, out_dim: int, key: Key = None) -> Dict[str, torch.Tensor]:
     """``nn.Linear`` default init, U(±1/sqrt(in_dim)) for weight and bias,
     in the (in, out) layout."""
-    bound = 1.0 / in_dim ** 0.5
-    return {"w": _uniform((in_dim, out_dim), bound, generator),
-            "b": _uniform((out_dim,), bound, generator)}
+    kw, kb = prng.split(_key(key))
+    bound = 1.0 / math.sqrt(in_dim)
+    return {"w": _uniform(kw, (in_dim, out_dim), bound), "b": _uniform(kb, (out_dim,), bound)}
 
 
-def lstm_cell_init(in_dim: int, hidden: int,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+def lstm_cell_init(in_dim: int, hidden: int, key: Key = None) -> Dict[str, torch.Tensor]:
     """``nn.LSTM`` default init: every tensor U(±1/sqrt(hidden))."""
-    bound = 1.0 / hidden ** 0.5
+    k1, k2, k3, k4 = prng.split(_key(key), 4)
+    bound = 1.0 / math.sqrt(hidden)
     return {
-        "w_ih": _uniform((in_dim, 4 * hidden), bound, generator),
-        "w_hh": _uniform((hidden, 4 * hidden), bound, generator),
-        "b_ih": _uniform((4 * hidden,), bound, generator),
-        "b_hh": _uniform((4 * hidden,), bound, generator),
+        "w_ih": _uniform(k1, (in_dim, 4 * hidden), bound),
+        "w_hh": _uniform(k2, (hidden, 4 * hidden), bound),
+        "b_ih": _uniform(k3, (4 * hidden,), bound),
+        "b_hh": _uniform(k4, (4 * hidden,), bound),
     }
 
 
 class Dense(nn.Module):
     """Linear layer with the JAX layout: ``w`` is (in, out), ``x @ w + b``."""
 
-    def __init__(self, in_dim: int, out_dim: int,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, in_dim: int, out_dim: int, key: Key = None):
         super().__init__()
-        p = dense_init(in_dim, out_dim, generator)
+        p = dense_init(in_dim, out_dim, key)
         self.w = nn.Parameter(p["w"])
         self.b = nn.Parameter(p["b"])
 
@@ -215,10 +227,9 @@ class Dense(nn.Module):
 class LSTMCell(nn.Module):
     """One direction of one LSTM layer: w_ih (in, 4H), w_hh (H, 4H), b_ih, b_hh."""
 
-    def __init__(self, in_dim: int, hidden: int,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, in_dim: int, hidden: int, key: Key = None):
         super().__init__()
-        for name, value in lstm_cell_init(in_dim, hidden, generator).items():
+        for name, value in lstm_cell_init(in_dim, hidden, key).items():
             setattr(self, name, nn.Parameter(value))
 
     def params(self) -> Dict[str, torch.Tensor]:
@@ -227,15 +238,17 @@ class LSTMCell(nn.Module):
 
 class BiLSTM(nn.ModuleList):
     """Stacked bidirectional LSTM weights: ``[k]["fwd" | "bwd"]`` cells; the
-    first layer takes ``in_dim`` inputs, later ones the 2H of the layer below."""
+    first layer takes ``in_dim`` inputs, later ones the 2H of the layer below.
+    Each layer splits (fwd, bwd, rest) off ``key``, as ``bilstm_init`` does."""
 
-    def __init__(self, in_dim: int, hidden: int, num_layers: int,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, in_dim: int, hidden: int, num_layers: int, key: Key = None):
         layers = []
         d = in_dim
+        key = _key(key)
         for _ in range(num_layers):
-            layers.append(nn.ModuleDict({"fwd": LSTMCell(d, hidden, generator),
-                                         "bwd": LSTMCell(d, hidden, generator)}))
+            kf, kb, key = prng.split(key, 3)
+            layers.append(nn.ModuleDict({"fwd": LSTMCell(d, hidden, kf),
+                                         "bwd": LSTMCell(d, hidden, kb)}))
             d = 2 * hidden
         super().__init__(layers)
         self.hidden = hidden

@@ -50,10 +50,8 @@ def _atomic_write(path: Path, write) -> None:
 
 
 def _snapshot(state: Dict) -> Dict:
-    """The state as CPU tensors, numbers and random-generator states (what
-    ``torch.save`` writes)."""
-    return {k: v.get_state() if isinstance(v, torch.Generator)
-            else tree_map(lambda t: t.detach().cpu() if torch.is_tensor(t) else t, v)
+    """The state as CPU tensors and numbers (what ``torch.save`` writes)."""
+    return {k: tree_map(lambda t: t.detach().cpu() if torch.is_tensor(t) else t, v)
             for k, v in state.items()}
 
 
@@ -86,7 +84,7 @@ def save_named(state: Dict, checkpoint_dir: str, name: str) -> None:
 
 def _copy_into(dst, src, where: str, path: Path) -> None:
     """Copy the saved tree ``src`` into the live tree ``dst`` in place:
-    tensors by ``copy_`` (shapes must match), generators by their state,
+    tensors by ``copy_`` (shapes must match; the key too),
     numbers by value."""
     for key in (dst if isinstance(dst, dict) else range(len(dst))):
         d, s = dst[key], src[key]
@@ -99,8 +97,6 @@ def _copy_into(dst, src, where: str, path: Path) -> None:
                                  f"model has {tuple(d.shape)}; the run's configuration does "
                                  f"not match the one that wrote it")
             d.copy_(s)
-        elif isinstance(d, torch.Generator):
-            d.set_state(s)
         else:
             dst[key] = type(d)(s)
 

@@ -42,6 +42,7 @@ from ..models.contrastive import contrastive_encoder_apply, contrastive_encoder_
 from ..parallel.mesh import (Mesh, all_gather_rows, all_reduce_gradients, barrier, create_mesh,
                              replicate)
 from ..utils.chunking import chunk_layout, pad_to_chunks
+from ..utils import prng
 from ..utils.logging import log
 from ..utils.preemption import PreemptionGuard
 from ..utils.tree import tree_leaves, tree_map
@@ -72,9 +73,9 @@ def make_contrastive_state(params: Dict, bn: Dict, device="cuda", opt: Optional[
 
 def init_contrastive_state(seed: int = 0, config: ContrastiveConfig = DEFAULT_CONTRASTIVE_CONFIG,
                            device="cuda") -> Dict:
-    """Fresh state: weights drawn on the CPU from one ``torch.Generator``
-    seeded with ``seed``, then moved to ``device``."""
-    params, bn = contrastive_encoder_init(config, torch.Generator().manual_seed(seed))
+    """Fresh state: weights drawn on the CPU from ``PRNGKey(seed)`` as the
+    JAX package draws them, then moved to ``device``."""
+    params, bn = contrastive_encoder_init(config, prng.PRNGKey(seed))
     return make_contrastive_state(params, bn, device)
 
 

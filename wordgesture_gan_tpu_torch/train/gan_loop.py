@@ -29,6 +29,7 @@ from ..configs import (DEFAULT_MODEL_CONFIG, DEFAULT_RUNTIME_CONFIG, DEFAULT_TRA
                        ModelConfig, RuntimeConfig, TrainingConfig)
 from ..data.pipeline import GestureArrays, within_word_diversity
 from ..models.gan import Generator
+from ..utils import prng
 from ..utils.chunking import chunk_layout, pad_to_chunks
 from ..parallel.mesh import barrier, create_mesh, is_main_process, replicate
 from ..utils.preemption import PreemptionGuard
@@ -37,7 +38,7 @@ from .checkpoint import restore_checkpoint, save_checkpoint, save_run_metadata
 from .gan_step import METRIC_KEYS, gan_train_epoch, gan_train_step, shuffle_batches
 from .history import append_history, truncate_history
 from .schedules import cosine_annealing_lr
-from .state import init_gan_state
+from .state import MODELS, init_gan_state
 from .step_graph import StepGraph
 
 
@@ -141,7 +142,7 @@ def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, scanned_epoch: Cal
             if writes:
                 truncate_history(checkpoint_dir, start_epoch)
             say(f"Resumed from checkpoint at epoch {start_epoch}")
-    replicate(mesh, state)
+    replicate(mesh, {m: state[m] for m in MODELS})   # the key is the same on every rank
     if start_epoch >= num_epochs:
         say(f"Already trained to epoch {start_epoch}, nothing to do.")
         return TrainResult(state=state, throughput=Throughput(mesh.world_size))
@@ -155,9 +156,7 @@ def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, scanned_epoch: Cal
         for epoch in range(start_epoch, num_epochs):
             lr = float(cosine_annealing_lr(training_config.learning_rate, epoch, num_epochs,
                                            training_config.lr_scheduler_eta_min))
-            shuffle = torch.Generator(device=device)
-            shuffle.manual_seed((seed ^ 0x5EED) * 1_000_003 + epoch)
-            batches = shuffle_batches(shuffle, data, B)
+            batches = shuffle_batches(prng.fold_in(prng.PRNGKey(seed ^ 0x5EED), epoch), data, B)
 
             t0 = time.perf_counter()
             if graph is not None:
@@ -230,10 +229,10 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
     The prototypes are zero-padded to whole power-of-two chunks of at most
     ``batch`` rows (``utils/chunking.py``, the JAX package's layout) and the
     generator runs once per chunk on ``device``, through the inference
-    kernel. Each chunk draws its noise from one ``torch.Generator`` on
-    ``device`` seeded with ``seed``. ``z`` (n, Z), if given, replaces those
-    draws (it is still scaled by ``truncation``): JAX's random stream cannot
-    be reproduced, so a test hands both packages the same noise this way.
+    kernel. Chunk c draws its noise as the JAX package does,
+    ``normal(fold_in(PRNGKey(seed), c), (chunk, Z))``, on ``device``. ``z``
+    (n, Z), if given, replaces those draws (it is still scaled by
+    ``truncation``).
 
     ``masks`` (n, L), 1 = valid, if given, reach the generator as its
     padding mask (the transformer's), and the output is zeroed where a mask
@@ -257,15 +256,14 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
     pad = None
     if masks is not None:
         pad = torch.from_numpy(pad_to_chunks(masks, chunk, n_chunks)).to(device)
-    rng = torch.Generator(device=device)
-    rng.manual_seed(seed)
+    key = prng.PRNGKey(seed)
     generator = generator.to(device)
     outs = []
     with torch.inference_mode():
         for c in range(n_chunks):
             rows = slice(c * chunk, (c + 1) * chunk)
             if noise is None:
-                eps = torch.randn((chunk, config.latent_dim), generator=rng, device=device)
+                eps = prng.normal(prng.fold_in(key, c).to(device), (chunk, config.latent_dim))
             else:
                 eps = noise[rows]
             mask = None if pad is None else pad[rows]

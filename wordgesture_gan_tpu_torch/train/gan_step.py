@@ -25,10 +25,15 @@ counterpart of the JAX package's ``lax.scan`` epoch: on a CUDA device as one
 captured CUDA graph replayed once per batch (``step_graph.py``), on the CPU
 as a loop.
 
+Random draws follow the JAX step's key chain (``step_graph.step_keys``):
+the keys are split off ``state["rng"]`` on the host, and each step's noise
+is one threefry draw on the batch's device (``utils/prng.py``), so a state
+drawn from a seed trains on the JAX package's numbers.
+
 Data parallelism (``mesh`` with a process group, ``parallel/mesh.py``): every
 rank gets the global batch, draws the global batch's noise from its copy of
-the random generator (the same on every rank), and keeps its own contiguous
-rows of both. Each loss is a mean over rows, so a rank's share of the global
+the key (the same on every rank), and keeps its own contiguous rows of
+both. Each loss is a mean over rows, so a rank's share of the global
 loss is its local loss times its share of the rows; each gradient
 computation (one per critic update, one for G and E together) ends in one
 all-reduce of one flat buffer that sums those shares, the metrics riding
@@ -51,9 +56,10 @@ from ..losses import (diversity_hinge_loss, feature_matching_loss, kl_divergence
                       wgan_critic_loss, wgan_generator_loss)
 from ..models.gan import disc_apply, encoder_apply, generator_apply
 from ..parallel.mesh import Mesh, all_reduce_gradients
+from ..utils import prng
 from ..utils.tree import tree_leaves
 from .state import apply_update
-from .step_graph import StepGraph, draw_noise, run_epoch
+from .step_graph import StepGraph, run_epoch, step_draws, step_keys
 
 
 # The step's metrics, in order; a zero-batch epoch records each at 0.0.
@@ -63,22 +69,6 @@ METRIC_KEYS = ("d1_loss", "d2_loss", "cycle1_total", "cycle1_wgan", "cycle1_feat
 
 def _active(mesh: Optional[Mesh]) -> Optional[Mesh]:
     return mesh if mesh is not None and mesh.active else None
-
-
-def noise_shapes(batch: int, latent: int, n_critic: int,
-                 diversity: bool = False) -> Dict[str, Tuple[int, ...]]:
-    """The step's random draws in the order it takes them: ``z_rand`` and
-    ``eps_enc`` (n_critic, B, Z) when there is a critic loop, then ``z1``,
-    ``eps_rec``, ``eps2`` (B, Z), and ``z_ms`` (B, Z) with the diversity
-    terms (``lambda_ms`` or ``lambda_div``)."""
-    shapes = {}
-    if n_critic > 0:
-        shapes["z_rand"] = (n_critic, batch, latent)
-        shapes["eps_enc"] = (n_critic, batch, latent)
-    shapes.update(z1=(batch, latent), eps_rec=(batch, latent), eps2=(batch, latent))
-    if diversity:
-        shapes["z_ms"] = (batch, latent)
-    return shapes
 
 
 def keep_in_place(tree, new) -> None:
@@ -124,13 +114,15 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
                    mesh: Optional[Mesh] = None) -> Tuple[Dict, Dict[str, torch.Tensor]]:
     """One two-cycle step on one batch (``gesture``, ``prototype``: (B, L, 3)).
 
-    ``noise`` injects every random draw instead of taking it from
-    ``state["rng"]``: ``z_rand``/``eps_enc`` (n_critic, B, Z) for the critic
-    loop, ``z1``/``eps_rec``/``eps2`` (B, Z) for the joint step, and
-    ``z_ms`` (B, Z), the second prior draw, when ``lambda_ms`` or
-    ``lambda_div`` is on (``noise_shapes``). The random streams of JAX and
-    PyTorch differ, so the tests hand both packages the same noise this way.
-    ``lr`` is a Python number, or a 0-d device tensor in a captured step.
+    Without ``noise`` the step splits its keys off ``state["rng"]`` as the
+    JAX step does and draws its noise from them (the JAX step's numbers).
+    ``noise`` injects every draw instead: ``z_rand``/``eps_enc`` (n_critic,
+    B, Z) for the critic loop, ``z1``/``eps_rec``/``eps2`` (B, Z) for the
+    joint step, and ``z_ms`` (B, Z), the second prior draw, when
+    ``lambda_ms`` or ``lambda_div`` is on; or it gives the step's keys as
+    ``{"keys": (n, 2)}`` (``step_graph.step_keys``), which is how a captured
+    step draws. ``lr`` is a Python number, or a 0-d device tensor in a
+    captured step.
 
     With a process group in ``mesh`` the batch and ``noise`` are the global
     ones; the step trains on this rank's rows (module docstring) and returns
@@ -144,8 +136,7 @@ def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
     g_params, e_params = state["g"]["params"], state["e"]["params"]
     d1, d2 = state["d1"], state["d2"]
     diversity = bool(tc.lambda_ms or tc.lambda_div)
-    if noise is None:
-        noise = draw_noise(state["rng"], noise_shapes(B, Z, tc.n_critic, diversity), device)
+    noise = step_draws(noise, state, B, Z, tc.n_critic, diversity, device)
 
     def draw(name, axis=0):
         x = noise[name]
@@ -249,36 +240,38 @@ def gan_train_epoch(state: Dict, epoch_batches: Dict[str, torch.Tensor], lr: flo
     once per batch (``step_graph.py``); ``graph`` is the ``StepGraph`` to
     reuse across epochs (``train_gan`` keeps one per run; None captures
     afresh). On the CPU the steps run in a loop. Each step draws from
-    ``state["rng"]`` what the eager step draws, unless ``noise`` gives every
-    step's draws stacked (n_batches, ...) under ``gan_train_step``'s names.
+    ``state["rng"]``'s key chain what the eager step draws, unless ``noise``
+    gives every step's draws stacked (n_batches, ...) under
+    ``gan_train_step``'s names.
     Returns the state, its epoch advanced by one, and {metric: (n_batches,)
     float32 trace on the device}."""
     tc = training_config
-    shapes = noise_shapes(epoch_batches["gesture"].shape[1], model_config.latent_dim,
-                          tc.n_critic, bool(tc.lambda_ms or tc.lambda_div))
+    diversity = bool(tc.lambda_ms or tc.lambda_div)
 
     def step(s, batch, lr_, noise_):
         return gan_train_step(s, batch, lr_, model_config, tc, noise=noise_, mesh=mesh)
 
-    return run_epoch(step, state, epoch_batches, lr, shapes, METRIC_KEYS, noise, graph,
-                     key=("gan_train_step", model_config, tc, mesh), mesh=mesh)
+    return run_epoch(step, state, epoch_batches, lr,
+                     lambda rng: step_keys(rng, tc.n_critic, diversity), METRIC_KEYS, noise,
+                     graph, key=("gan_train_step", model_config, tc, mesh), mesh=mesh)
 
 
-def shuffle_batches(generator: torch.Generator, arrays: Dict[str, torch.Tensor],
+def shuffle_batches(key: torch.Tensor, arrays: Dict[str, torch.Tensor],
                     batch_size: int) -> Dict[str, torch.Tensor]:
-    """Shuffle every array of ``arrays`` by one permutation drawn from
-    ``generator`` and cut each into (n_batches, B, ...) stacks, dropping the
-    last partial batch. The permutation is drawn on the generator's device
-    and applied on the data's."""
-    n = next(iter(arrays.values())).shape[0]
+    """Shuffle every array of ``arrays`` by ``permutation(key, n)`` (the JAX
+    package's, ``utils/prng.py``) and cut each into (n_batches, B, ...)
+    stacks, dropping the last partial batch. The permutation's sort keys are
+    drawn on the data's device."""
+    first = next(iter(arrays.values()))
+    n = first.shape[0]
     n_batches = n // batch_size
-    perm = torch.randperm(n, generator=generator, device=generator.device)
-    perm = perm[:n_batches * batch_size]
+    perm = prng.permutation(key, n, device=first.device)[:n_batches * batch_size]
     return {name: x[perm.to(x.device)].reshape(n_batches, batch_size, *x.shape[1:])
             for name, x in arrays.items()}
 
 
-def make_epoch_batches(generator: torch.Generator, gestures: torch.Tensor,
+def make_epoch_batches(key: torch.Tensor, gestures: torch.Tensor,
                        prototypes: torch.Tensor, batch_size: int) -> Dict[str, torch.Tensor]:
-    """``shuffle_batches`` of (``gesture``, ``prototype``) (n, L, 3) arrays."""
-    return shuffle_batches(generator, {"gesture": gestures, "prototype": prototypes}, batch_size)
+    """``shuffle_batches`` of (``gesture``, ``prototype``) (n, L, 3) arrays:
+    the JAX package's ``make_epoch_batches(key, ...)``."""
+    return shuffle_batches(key, {"gesture": gestures, "prototype": prototypes}, batch_size)

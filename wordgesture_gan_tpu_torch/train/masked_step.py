@@ -31,9 +31,9 @@ from ..models.gan import disc_apply, encoder_apply
 from ..models.generators import transformer_generator_apply
 from ..utils.tree import tree_leaves
 from ..parallel.mesh import Mesh, all_reduce_gradients
-from .gan_step import _active, critic_update, keep_in_place, noise_shapes, shuffle_batches
+from .gan_step import _active, critic_update, keep_in_place, shuffle_batches
 from .state import apply_update
-from .step_graph import StepGraph, draw_noise, run_epoch
+from .step_graph import StepGraph, run_epoch, step_draws, step_keys
 
 # The step's metrics, in order; a zero-batch epoch records each at 0.0.
 METRIC_KEYS = ("d1_loss", "d2_loss", "cycle1_total", "cycle2_total", "cycle2_rec")
@@ -53,9 +53,11 @@ def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float
     """One two-cycle step on one masked batch (``gesture``, ``prototype``:
     (B, L, 3); ``mask``: (B, L)), transformer generator only.
 
-    ``noise`` injects every random draw, with the names ``gan_train_step``
-    uses: ``z_rand``/``eps_enc`` (n_critic, B, Z) for the critic loop,
-    ``z1``/``eps_rec``/``eps2`` (B, Z) for the joint step. With a process
+    Without ``noise`` the step draws from ``state["rng"]``'s key chain as
+    the JAX step does. ``noise`` injects every random draw, with the names
+    ``gan_train_step`` uses: ``z_rand``/``eps_enc`` (n_critic, B, Z) for the
+    critic loop, ``z1``/``eps_rec``/``eps2`` (B, Z) for the joint step; or
+    the step's keys as ``{"keys": (n, 2)}``. With a process
     group in ``mesh``: the global batch and noise, this rank's rows trained
     on, the global metrics returned."""
     if model_config.generator_type != "transformer":
@@ -70,8 +72,7 @@ def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float
     g_params, e_params = state["g"]["params"], state["e"]["params"]
     d1, d2 = state["d1"], state["d2"]
     real_m = real * mask[:, :, None]
-    if noise is None:
-        noise = draw_noise(state["rng"], noise_shapes(B, Z, tc.n_critic), device)
+    noise = step_draws(noise, state, B, Z, tc.n_critic, False, device)
 
     def draw(name, axis=0):
         x = noise[name]
@@ -167,21 +168,20 @@ def gan_train_epoch_masked(state: Dict, epoch_batches: Dict[str, torch.Tensor], 
     stacked batches (``gesture``, ``prototype`` (n_batches, B, L, 3),
     ``mask`` (n_batches, B, L)): the masked twin of
     ``gan_step.gan_train_epoch``, with the same arguments and results."""
-    shapes = noise_shapes(epoch_batches["gesture"].shape[1], model_config.latent_dim,
-                          training_config.n_critic)
-
     def step(s, batch, lr_, noise_):
         return gan_train_step_masked(s, batch, lr_, model_config, training_config,
                                      noise=noise_, mesh=mesh)
 
-    return run_epoch(step, state, epoch_batches, lr, shapes, METRIC_KEYS, noise, graph,
-                     key=("gan_train_step_masked", model_config, training_config, mesh),
+    return run_epoch(step, state, epoch_batches, lr,
+                     lambda rng: step_keys(rng, training_config.n_critic), METRIC_KEYS, noise,
+                     graph, key=("gan_train_step_masked", model_config, training_config, mesh),
                      mesh=mesh)
 
 
-def make_epoch_batches_masked(generator: torch.Generator, gestures: torch.Tensor,
+def make_epoch_batches_masked(key: torch.Tensor, gestures: torch.Tensor,
                               prototypes: torch.Tensor, masks: torch.Tensor,
                               batch_size: int) -> Dict[str, torch.Tensor]:
-    """``shuffle_batches`` of (``gesture``, ``prototype``, ``mask``) arrays."""
-    return shuffle_batches(generator, {"gesture": gestures, "prototype": prototypes,
-                                       "mask": masks}, batch_size)
+    """``shuffle_batches`` of (``gesture``, ``prototype``, ``mask``) arrays:
+    the JAX package's ``make_epoch_batches_masked(key, ...)``."""
+    return shuffle_batches(key, {"gesture": gestures, "prototype": prototypes,
+                                 "mask": masks}, batch_size)

@@ -1,6 +1,6 @@
 """GAN train state: the four models' parameters, their optimizer states, the
-critics' spectral-norm u state, the random generator and the epoch (the port
-of the JAX package's ``train/state.py``).
+critics' spectral-norm u state, the random key and the epoch (the port of
+the JAX package's ``train/state.py``).
 
 The state is a plain dict of trees of float32 tensors in the JAX layout::
 
@@ -8,12 +8,15 @@ The state is a plain dict of trees of float32 tensors in the JAX layout::
      "e":  {"params": tree, "opt": adam},
      "d1": {"params": tree, "opt": adam, "sn": u tree},
      "d2": {"params": tree, "opt": adam, "sn": u tree},
-     "rng": torch.Generator on the device, "epoch": int}
+     "rng": key, "epoch": int}
 
 with ``adam = {"mu": tree, "nu": tree, "count": int}``. Parameters are leaf
 tensors that require grad; the train step takes gradients with
 ``torch.autograd.grad`` (so no ``.grad`` is ever left on a leaf) and updates
 parameters and moments in place, where the JAX step returns new arrays.
+The key is the JAX package's ``state["rng"]``, an int64 (2,) CPU tensor of
+two uint32 words (``utils/prng.py``): each step splits its draws off it on
+the host, as the JAX step does, so a seed gives the JAX package's numbers.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
 from ..models.gan import disc_init, encoder_init, generator_init
+from ..utils import prng
 from ..utils.tree import tree_leaves, tree_map
 
 MODELS = ("g", "e", "d1", "d2")
@@ -139,11 +143,12 @@ def _leaf(t, device) -> torch.Tensor:
 
 
 def make_train_state(params: Dict, sn: Dict, device="cuda", seed: int = 0,
-                     opt: Optional[Dict] = None, epoch: int = 0) -> Dict:
+                     opt: Optional[Dict] = None, epoch: int = 0, rng=None) -> Dict:
     """A train state on ``device`` from parameter trees ``params[m]`` and
     spectral states ``sn["d1" | "d2"]`` (tensors or arrays), with fresh Adam
-    states unless ``opt[m]`` gives ``{"mu", "nu", "count"}``. ``rng`` is a
-    ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    states unless ``opt[m]`` gives ``{"mu", "nu", "count"}``. The state's
+    key is ``rng`` (two uint32 words, e.g. a JAX state's key) or else
+    ``PRNGKey(seed)``."""
     device = torch.device(device)
     state: Dict = {}
     for m in MODELS:
@@ -157,21 +162,22 @@ def make_train_state(params: Dict, sn: Dict, device="cuda", seed: int = 0,
         state[m] = {"params": p, "opt": o}
         if m in ("d1", "d2"):
             state[m]["sn"] = tree_map(lambda t: _state(t, device), sn[m])
-    state["rng"] = torch.Generator(device=device)
-    state["rng"].manual_seed(seed)
+    state["rng"] = prng.PRNGKey(seed) if rng is None else prng.as_key(rng)
     state["epoch"] = epoch
     return state
 
 
 def init_gan_state(seed: int = 0, model_config: ModelConfig = DEFAULT_MODEL_CONFIG,
                    device="cuda") -> Dict:
-    """Fresh train state for (G, E, D1, D2) on ``device``. Weights are drawn
-    on the CPU from one ``torch.Generator`` seeded with ``seed`` (PyTorch's
-    default initializers), then moved in one go. The optimizer needs no
-    configuration here: the step passes the learning rate and the clip norm."""
-    gen = torch.Generator().manual_seed(seed)
-    d1, d1_sn = disc_init(model_config, gen)
-    d2, d2_sn = disc_init(model_config, gen)
-    params = {"g": generator_init(model_config, gen), "e": encoder_init(model_config, gen),
+    """Fresh train state for (G, E, D1, D2) on ``device``: the JAX package's
+    ``init_gan_state(seed)``. ``PRNGKey(seed)`` splits into the keys of G, E,
+    D1, D2 and the state's own; the weights are drawn on the CPU (PyTorch's
+    default initializers, as the JAX package draws them), then moved in one
+    go. The optimizer needs no configuration here: the step passes the
+    learning rate and the clip norm."""
+    kg, ke, kd1, kd2, krng = prng.split(prng.PRNGKey(seed), 5)
+    d1, d1_sn = disc_init(model_config, kd1)
+    d2, d2_sn = disc_init(model_config, kd2)
+    params = {"g": generator_init(model_config, kg), "e": encoder_init(model_config, ke),
               "d1": d1, "d2": d2}
-    return make_train_state(params, {"d1": d1_sn, "d2": d2_sn}, device, seed=seed)
+    return make_train_state(params, {"d1": d1_sn, "d2": d2_sn}, device, rng=krng)

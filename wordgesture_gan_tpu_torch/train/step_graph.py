@@ -11,18 +11,22 @@ it recorded, so:
   * the state keeps every tensor at a fixed address: the steps update the
     parameters, the Adam moments and the critics' u vectors in place;
   * before each replay its inputs are copied into static buffers: the batch,
-    and the step's noise, drawn eagerly from ``state["rng"]`` in the order and
-    shapes of the step's own draws (``draw_noise``), so that a graphed epoch
-    draws the numbers an eager one does; the learning rate once an epoch;
+    and the step's keys, split off ``state["rng"]`` on the host for every
+    step of the epoch up front (``step_keys``, the JAX step's own key chain)
+    and copied to the device once an epoch; the step draws its noise from
+    the key buffer inside the graph (``utils/prng.py``: one threefry launch
+    a step), so a graphed epoch draws the numbers an eager one does; the
+    learning rate once an epoch;
   * inside the graph the learning rate and each optimizer's step count are
     0-d device tensors (``state.apply_update``); the state's int counts are
     advanced on the host, by the updates a step makes times the replays;
   * the first batch of the first epoch runs eagerly on the capture stream as
     the warm-up: a real step, after which cuBLAS and cuDNN workspaces, NCCL's
     communicator and the kernels' attributes exist before the capture;
-  * the launch counters of kernels 1-3 and of the gradient all-reduces are
-    bumped in Python where a wrapper launches, which a replay does not do:
-    each replay adds the launches its capture counted.
+  * the launch counters of kernels 1-3, of the threefry draws and of the
+    gradient all-reduces are bumped in Python where a wrapper launches,
+    which a replay does not do: each replay adds the launches its capture
+    counted.
 
 A ``StepGraph`` captures again only when the state's tensors, the batch's
 shapes or the step's configuration change. There is no eager fallback: a
@@ -39,26 +43,70 @@ import torch
 
 from ..ops.bilstm_fused import fused_bilstm_fwd
 from ..ops.bilstm_train import bilstm_train_bwd, bilstm_train_fwd
+from ..ops.threefry import threefry_draw
 from ..parallel.mesh import Mesh, all_reduce_gradients, require_capturable
+from ..utils import prng
 from ..utils.tree import tree_leaves
 from .state import ADAM_B1, ADAM_B2, MODELS, inverse_bias_corrections
 
-# The launch counters a replay must advance: kernels 1-3 and the collectives.
-COUNTED = (fused_bilstm_fwd, bilstm_train_fwd, bilstm_train_bwd, all_reduce_gradients)
+# The launch counters a replay must advance: kernels 1-3, the draws and the
+# collectives.
+COUNTED = (fused_bilstm_fwd, bilstm_train_fwd, bilstm_train_bwd, threefry_draw,
+           all_reduce_gradients)
+
+NOISE_NAMES = ("z_rand", "eps_enc", "z1", "eps_rec", "eps2", "z_ms")
 
 
-def draw_noise(rng: torch.Generator, shapes: Dict[str, Tuple[int, ...]], device,
-               out: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-    """One standard normal draw per name of ``shapes``, in its order, from
-    ``rng``: new tensors on ``device``, or written into ``out``'s tensors (a
-    captured step's static buffers; ``normal_`` into a tensor draws what
-    ``torch.randn`` of its shape draws)."""
-    if out is None:
-        return {k: torch.randn(s, generator=rng, device=device, dtype=torch.float32)
-                for k, s in shapes.items()}
-    for k in shapes:
-        out[k].normal_(generator=rng)
+def step_keys(rng: torch.Tensor, n_critic: int,
+              diversity: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One train step's key chain, as the JAX step splits it: each critic
+    iteration ``rng, kz, ke = split(rng, 3)``; the joint step ``rng, kz1,
+    ke1, ke2 = split(rng, 4)``, then ``rng, kz_ms = split(rng)`` with the
+    diversity terms. Returns (the advanced rng, the draws' keys (n, 2) in
+    ``step_noise``'s order: the kz's, the ke's, kz1, ke1, ke2[, kz_ms])."""
+    kz, ke = [], []
+    for _ in range(n_critic):
+        rng, z, e = prng.split(rng, 3)
+        kz.append(z)
+        ke.append(e)
+    rng, kz1, ke1, ke2 = prng.split(rng, 4)
+    keys = kz + ke + [kz1, ke1, ke2]
+    if diversity:
+        rng, kz_ms = prng.split(rng)
+        keys.append(kz_ms)
+    return rng, torch.stack(keys)
+
+
+def step_noise(keys: torch.Tensor, batch: int, latent: int,
+               n_critic: int) -> Dict[str, torch.Tensor]:
+    """A step's noise from its keys (``step_keys``), all in one draw of
+    (n, batch, latent) normals on the keys' device: ``z_rand`` and
+    ``eps_enc`` (n_critic, B, Z), ``z1``, ``eps_rec``, ``eps2`` and, with a
+    seventh key, ``z_ms`` (B, Z). Each (B, Z) normal is JAX's
+    ``normal(key, (B, Z))`` (the encoder draws with ``mu.shape``)."""
+    draws = prng.normal(keys, (batch, latent))
+    out = {"z_rand": draws[:n_critic], "eps_enc": draws[n_critic:2 * n_critic]}
+    for i, name in enumerate(NOISE_NAMES[2:2 + keys.shape[0] - 2 * n_critic]):
+        out[name] = draws[2 * n_critic + i]
     return out
+
+
+def step_draws(noise: Optional[Dict[str, torch.Tensor]], state: Dict, batch: int, latent: int,
+               n_critic: int, diversity: bool, device) -> Dict[str, torch.Tensor]:
+    """The noise a step uses: ``noise`` as injected, or drawn from
+    ``noise["keys"]`` (a captured step's key buffer), or, without ``noise``,
+    from keys split off ``state["rng"]`` (advancing it) and sent to
+    ``device`` without a wait."""
+    if noise is None:
+        state["rng"], keys = step_keys(state["rng"], n_critic, diversity)
+        noise = {"keys": keys}
+    if "keys" not in noise:
+        return noise
+    keys = noise["keys"]
+    if keys.device != torch.device(device):
+        keys = keys.pin_memory().to(device, non_blocking=True) if device.type == "cuda" \
+            else keys.to(device)
+    return step_noise(keys, batch, latent, n_critic)
 
 
 def _launch_counts() -> list:
@@ -102,9 +150,10 @@ class StepGraph:
 
     def _capture(self, step: Callable, state: Dict, batch: Dict[str, torch.Tensor],
                  noise: Dict[str, torch.Tensor], metric_keys: Sequence[str]) -> None:
-        """Record ``step`` on static copies of ``batch`` and ``noise``, a
-        device learning rate and device step counts, with the state's own
-        parameters, moments and u vectors."""
+        """Record ``step`` on static copies of ``batch`` and ``noise`` (the
+        injected draws, or the step's keys), a device learning rate and
+        device step counts, with the state's own parameters, moments and u
+        vectors."""
         device = next(iter(batch.values())).device
         self._batch = {k: torch.empty_like(v) for k, v in batch.items()}
         self._noise = {k: torch.empty_like(v) for k, v in noise.items()}
@@ -133,8 +182,8 @@ class StepGraph:
             key=None, mesh: Optional[Mesh] = None) -> None:
         """Every batch of ``epoch_batches`` (n_batches, B, ...) through ``step``
         (``step(state, batch, lr, noise)``), each step's metrics into row i of
-        ``traces``; ``noise_at(i, out)`` gives step i's noise (into ``out``'s
-        buffers when given). The first batch warms up and the step is
+        ``traces``; ``noise_at(i, out)`` gives step i's noise or keys (into
+        ``out``'s buffers when given). The first batch warms up and the step is
         captured when there is no graph for this state, batch and ``key``;
         every other batch is a replay."""
         require_capturable(mesh)
@@ -177,24 +226,30 @@ class StepGraph:
 
 
 def run_epoch(step: Callable, state: Dict, epoch_batches: Dict[str, torch.Tensor], lr: float,
-              noise_shapes: Dict[str, Tuple[int, ...]], metric_keys: Sequence[str],
-              noise: Optional[Dict[str, torch.Tensor]] = None,
+              keys_of: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+              metric_keys: Sequence[str], noise: Optional[Dict[str, torch.Tensor]] = None,
               graph: Optional[StepGraph] = None, key=None,
               mesh: Optional[Mesh] = None) -> Tuple[Dict, Dict[str, torch.Tensor]]:
     """One epoch: ``step(state, batch, lr, noise)`` on each batch of
     ``epoch_batches`` (n_batches, B, ...), as a graph replay on a CUDA device
     (``graph``, a fresh ``StepGraph`` when None) and as a loop on the CPU.
     Step i's noise is ``noise[k][i]`` for each name, or, without ``noise``,
-    drawn from ``state["rng"]`` by ``draw_noise(noise_shapes)``. Returns the
-    state, its epoch advanced by one, and {metric: (n_batches,) float32
-    trace on the device}."""
+    drawn inside the step from its keys: ``keys_of(rng) -> (rng, keys)``
+    (``step_keys``) splits every step's keys off ``state["rng"]`` on the host
+    up front, and they reach the device in one copy. Returns the state, its
+    epoch advanced by one, and {metric: (n_batches,) float32 trace on the
+    device}."""
     n = next(iter(epoch_batches.values())).shape[0]
     device = next(iter(epoch_batches.values())).device
     traces = torch.zeros((n, len(metric_keys)), dtype=torch.float32, device=device)
+    if noise is None and n:
+        keys = []
+        for _ in range(n):
+            state["rng"], k = keys_of(state["rng"])
+            keys.append(k)
+        noise = {"keys": torch.stack(keys).to(device)}
 
     def noise_at(i: int, out: Optional[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
-        if noise is None:
-            return draw_noise(state["rng"], noise_shapes, device, out)
         if out is None:
             return {k: v[i] for k, v in noise.items()}
         for k, v in out.items():

@@ -16,7 +16,7 @@ def log(msg: str) -> None:
 
 def seed_everything(seed: int) -> None:
     """Seed the host generators (stdlib, numpy) and torch's global one. The
-    port's own randomness goes through explicit ``torch.Generator``s."""
+    port's own draws go through explicit JAX-style keys (``utils/prng.py``)."""
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
