@@ -87,6 +87,21 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    bound; ``init_gan_state(42)`` at full width and one step's draws on the
    card against the CPU; the graphed flagship bf16 step from that state,
    untraced, beside eager, with one threefry launch a replay;
+5i. ``models/layers.py``'s ``gelu`` and ``leaky_relu`` (JAX's arithmetic:
+   each op rounded in the array's dtype, the constants rounded to it) on
+   the card against the CPU, forward and gradient, bit for bit, on all
+   65,536 bfloat16 inputs and 2^20 float32 ones;
+5j. one bfloat16 step of the flagship recipe and one masked bfloat16 step
+   (the transformer, lambda_speed 2) on the card against the CPU (B=32, full
+   width), each model's gradient distance and each loss within
+   BF16_CONTROL_FACTOR times the CPU's own distance from a step taken from
+   the state nudged by one float32 rounding step, plus BF16_FLOOR;
+5k. measured, not checked: cuDNN's float32 convolutions at the temporal
+   critic's shapes with TF32 allowed and not (against float64), the float32
+   step against the CPU with the global TF32 flag on (the step runs under
+   ``layers.jax_products()``, which turns it off), the bf16 products of the
+   steps with ``allow_bf16_reduced_precision_reduction`` on and off, and one
+   bf16 step of each kind with that flag on and off;
 6. one step on the card against the CPU's plain path from the same state,
    batch and injected noise (B=32, full width, float32, n_critic 5), for
    the reference recipe and the flagship one: losses, the gradients (Adam
@@ -230,6 +245,7 @@ from wordgesture_gan_tpu_torch.metrics.suite import evaluate_all_metrics
 from wordgesture_gan_tpu_torch.models.contrastive import (contrastive_encoder_apply,
                                                           contrastive_encoder_init)
 from wordgesture_gan_tpu_torch.models.gan import generator_init
+from wordgesture_gan_tpu_torch.models.layers import gelu, leaky_relu
 from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance, sinkhorn_matching_cost
 from wordgesture_gan_tpu_torch.ops import build as kernel_build
 from wordgesture_gan_tpu_torch.ops import bilstm_fused, bilstm_train
@@ -1374,6 +1390,218 @@ def draws_card_vs_cpu(device) -> dict:
     return line
 
 
+# -- bfloat16 arithmetic as JAX's: the activations and the bf16 steps ----------------------
+#
+# The port computes gelu and leaky_relu op by op in the array's dtype, with
+# the constants rounded to it, as JAX does (models/layers.py). Phase 5i holds
+# the card's results bit-equal to the CPU's for every bfloat16 input and for
+# 2^20 float32 inputs, gradients included (NaN equals NaN). Phase 5j runs one
+# bfloat16 step of the flagship recipe and one of the variable-length recipe
+# (masked, lambda_speed 2) on the card and on the CPU from one state. A bf16
+# rounding that flips on one side moves everything after it, so each model's
+# gradient distance (relative L2 of Adam's first moments after a step at
+# lr=0) and each loss are held to the CPU's own step from the state nudged
+# by one float32 rounding step: the card may be BF16_CONTROL_FACTOR times as
+# far from the CPU as that control is, plus BF16_FLOOR.
+ACT_F32_N = 1 << 20
+BF16_CONTROL_FACTOR, BF16_FLOOR = 4.0, 0.02
+
+
+def _mismatches(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements whose bits differ (NaN counts as equal to NaN)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    return int((~same).sum())
+
+
+def check_activations(device) -> dict:
+    """Phase 5i: ``layers.gelu`` and ``layers.leaky_relu`` on the card and on
+    the CPU, forward and gradient, bit for bit: all 65,536 bfloat16 inputs,
+    and 2^20 float32 inputs from N(0, 3^2) with zeros, infinities, NaN and
+    the extremes, each against a cotangent drawn in numpy."""
+    every = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    rng = np.random.default_rng(13)
+    special = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-38, -1e-38, 1e-45, 3.4e38, -3.4e38]
+    f32 = torch.from_numpy(np.concatenate([rng.normal(0, 3, ACT_F32_N), special]).astype(np.float32))
+    out = {}
+    for x in (every, f32):
+        g = torch.from_numpy(rng.normal(size=x.shape[0]).astype(np.float32)).to(x.dtype)
+        for name, fn in (("gelu", gelu), ("leaky_relu", leaky_relu)):
+            res = []
+            for dev in (torch.device("cpu"), device):
+                xx = x.to(dev).detach().clone().requires_grad_()
+                y = fn(xx)
+                y.backward(g.to(dev))
+                res.append((y, xx.grad))
+            out[f"{name}_{str(x.dtype).split('.')[-1]}"] = {
+                "inputs": x.shape[0], "forward_mismatches": _mismatches(res[0][0], res[1][0]),
+                "gradient_mismatches": _mismatches(res[0][1], res[1][1])}
+    line = {"check": "gelu and leaky_relu on the card vs CPU, bit for bit", **out}
+    print(json.dumps(line), flush=True)
+    bad = [k for k, v in out.items() if v["forward_mismatches"] or v["gradient_mismatches"]]
+    if bad:
+        raise AssertionError(f"activations differ on the card: {bad}")
+    return line
+
+
+def _nudge(state: dict, seed: int) -> dict:
+    """``state`` with every parameter moved by one float32 rounding step
+    (relative 2^-24, random sign; ``tests/jax_trajectory.py``'s control)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in MODELS:
+            for p in tree_leaves(state[m]["params"]):
+                sign = torch.from_numpy(rng.choice([-1.0, 1.0], tuple(p.shape)))
+                p.copy_((p.double() * (1 + 2.0 ** -24 * sign)).float())
+    return state
+
+
+def _step_inputs(kind: str, batch: int, mcfg: ModelConfig) -> tuple:
+    """The batch and noise of phases 6 and 10: smoke gestures, and for the
+    masked step a mask of true lengths in VL_STEP_LENGTHS."""
+    if kind == "masked":
+        ds = smoke_dataset(batch, mcfg.seq_length, seed=4)
+        rng = np.random.default_rng(8)
+        lengths = rng.integers(min(VL_STEP_LENGTHS[0], mcfg.seq_length), mcfg.seq_length + 1,
+                               batch)
+        lengths[0] = mcfg.seq_length
+        mask = (np.arange(mcfg.seq_length)[None, :] < lengths[:, None]).astype(np.float32)
+        data = {"gesture": torch.from_numpy(ds.gestures),
+                "prototype": torch.from_numpy(ds.prototypes), "mask": torch.from_numpy(mask)}
+        noise = _step_noise(batch, mcfg.latent_dim, 5, seed=9)
+        noise.pop("z_ms")
+        return data, noise
+    ds = smoke_dataset(batch, mcfg.seq_length, seed=3)
+    data = {"gesture": torch.from_numpy(ds.gestures), "prototype": torch.from_numpy(ds.prototypes)}
+    return data, _step_noise(batch, mcfg.latent_dim, 5, seed=6)
+
+
+def _bf16_step(kind: str, batch: int, model: dict = None) -> tuple:
+    """(step, ModelConfig, TrainingConfig) of phase 5j's ``kind``: the
+    flagship recipe on the BiLSTM, or the masked step on the transformer with
+    lambda_speed 2; bfloat16, full width unless ``model`` overrides it."""
+    fields = {"time_head": "monotone", "compute_dtype": "bfloat16", **(model or {})}
+    if kind == "masked":
+        return (gan_train_step_masked, ModelConfig(generator_type="transformer", **fields),
+                TrainingConfig(batch_size=batch, n_critic=5, lambda_speed=2.0))
+    return (gan_train_step, ModelConfig(**fields),
+            TrainingConfig(**dict(FLAGSHIP_TRAIN, batch_size=batch), div_margin=0.25))
+
+
+def _moments(dev, step, mcfg, tcfg, data: dict, noise: dict, nudge: bool = False) -> tuple:
+    """One step at lr=0 from ``init_gan_state(0)``: (Adam's first moments by
+    model, the losses)."""
+    state = init_gan_state(0, mcfg, device=dev)
+    if nudge:
+        _nudge(state, 1)
+    _, metrics = step(state, {k: v.to(dev) for k, v in data.items()}, 0.0, mcfg, tcfg,
+                      noise={k: v.to(dev) for k, v in noise.items()})
+    return ({m: [t.detach().cpu().double() for t in tree_leaves(state[m]["opt"]["mu"])]
+             for m in MODELS}, {k: v.item() for k, v in metrics.items()})
+
+
+def _rel_l2(a: list, b: list) -> float:
+    num = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+    return (num / max(sum(float((y ** 2).sum()) for y in b), 1e-300)) ** 0.5
+
+
+def bf16_step_vs_cpu(device, kind: str, batch=STEP_BATCH, model: dict = None) -> dict:
+    """Phase 5j, one step: ``kind`` "flagship" (``gan_train_step``, the
+    flagship recipe, full width) or "masked" (``gan_train_step_masked``, the
+    transformer, lambda_speed 2), bfloat16, on the card and on the CPU, and
+    the control on the CPU. ``model`` overrides configuration fields (a
+    rehearsal on the CPU at a tiny size)."""
+    step, mcfg, tcfg = _bf16_step(kind, batch, model)
+    data, noise = _step_inputs(kind, batch, mcfg)
+    cpu, cpu_m = _moments(torch.device("cpu"), step, mcfg, tcfg, data, noise)
+    card, card_m = _moments(device, step, mcfg, tcfg, data, noise)
+    ctl, ctl_m = _moments(torch.device("cpu"), step, mcfg, tcfg, data, noise, nudge=True)
+    grads = {m: {"card": _rel_l2(card[m], cpu[m]), "control": _rel_l2(ctl[m], cpu[m])}
+             for m in MODELS}
+    losses = {k: {"card": abs(card_m[k] - w) / max(1.0, abs(w)),
+                  "control": abs(ctl_m[k] - w) / max(1.0, abs(w))} for k, w in cpu_m.items()}
+    line = {"check": f"bf16 {kind} step on the card vs CPU, against a nudged CPU control",
+            "batch": batch, "grad_rel_l2": grads, "loss_rel": losses,
+            "tolerance": {"factor_of_control": BF16_CONTROL_FACTOR, "floor": BF16_FLOOR}}
+    print(json.dumps(line), flush=True)
+    bad = [k for k, v in {**grads, **losses}.items()
+           if not v["card"] <= BF16_CONTROL_FACTOR * v["control"] + BF16_FLOOR]
+    if bad:
+        raise AssertionError(f"the card's bf16 {kind} step parts from the CPU's: {bad}")
+    return line
+
+
+def precision_flags(device, batch: int = 512, seq: int = SEQ) -> dict:
+    """Phase 5k, measurements for the record (no check): (a) the temporal
+    critic's float32 convolutions under cuDNN with TF32 allowed (PyTorch's
+    default) and not, each against float64 on the host; (b) phase 6's
+    float32 steps on the card vs CPU with the global TF32 flag on, which
+    the step's ``jax_products()`` overrides; (c) the bf16 products of the
+    steps with ``allow_bf16_reduced_precision_reduction`` on (PyTorch's
+    default) and off: elements whose bits differ, and each against float64;
+    (d) one bf16 masked and one bf16 flagship step on the card with that
+    flag on and off: Adam's moments bit-equal or not."""
+    rng = np.random.default_rng(21)
+    out = {"cudnn_allow_tf32_default": True}
+    h = torch.from_numpy(rng.uniform(-1, 1, (batch, seq, 3)).astype(np.float32))
+    convs = {}
+    for cin, cout, k, pad in ((3, 64, 5, 2), (64, 64, 5, 2), (64, 32, 3, 1)):
+        w = torch.from_numpy(rng.uniform(-1, 1, (cout, cin, k)).astype(np.float32)) / (cin * k) ** 0.5
+        ref = torch.nn.functional.conv1d(h.transpose(1, 2).double(), w.double(), padding=pad)
+        errs = {}
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            got = torch.nn.functional.conv1d(h.transpose(1, 2).to(device), w.to(device),
+                                             padding=pad).cpu().double()
+            errs[f"tf32_{tf32}"] = float((got - ref).abs().max() / ref.abs().max())
+        convs[f"{cin}->{cout}"] = errs
+        h = torch.tanh(ref.float()).transpose(1, 2).contiguous()
+    torch.backends.cudnn.allow_tf32 = False
+    out["conv1d_max_rel_err"] = convs
+    torch.backends.cudnn.allow_tf32 = True
+    steps = {}
+    for recipe in STEP_RECIPES:
+        lambdas, _ = STEP_RECIPES[recipe]
+        mcfg = ModelConfig(time_head="monotone", compute_dtype="float32")
+        tcfg = TrainingConfig(**dict(lambdas, batch_size=STEP_BATCH, n_critic=5), div_margin=0.25)
+        data, noise = _step_inputs("flagship", STEP_BATCH, mcfg)
+        card, _ = _moments(device, gan_train_step, mcfg, tcfg, data, noise)
+        cpu, _ = _moments(torch.device("cpu"), gan_train_step, mcfg, tcfg, data, noise)
+        steps[recipe] = max(_rel_err(a, b)[0] for m in MODELS for a, b in zip(card[m], cpu[m]))
+    torch.backends.cudnn.allow_tf32 = False
+    out["float32_step_max_grad_err_rel_tf32_on"] = steps
+    gemms = {}
+    for name, (m, k, n) in {"encoder_in": (batch, seq * 3, 192), "qkv": (batch * seq, 64, 192),
+                            "mlp2": (batch * seq, 256, 64),
+                            "qkv_weight_grad": (64, batch * seq, 192),
+                            "encoder_weight_grad": (seq * 3, batch, 192)}.items():
+        a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+        b = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(torch.bfloat16)
+        ref = (a.double() @ b.double())
+        res = {}
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+            res[flag] = (a.to(device) @ b.to(device)).cpu()
+        gemms[name] = {"shape": [m, k, n], "mismatches": _mismatches(res[True], res[False]),
+                       "max_rel_err_on": float((res[True].double() - ref).abs().max() / ref.abs().max()),
+                       "max_rel_err_off": float((res[False].double() - ref).abs().max() / ref.abs().max())}
+    out["bf16_gemms"] = gemms
+    same = {}
+    for kind in ("flagship", "masked"):
+        step, mcfg, tcfg = _bf16_step(kind, batch)
+        data, noise = _step_inputs(kind, batch, mcfg)
+        runs = []
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+            runs.append(_moments(device, step, mcfg, tcfg, data, noise)[0])
+        same[kind] = all(torch.equal(a, b) for m in MODELS for a, b in zip(runs[0][m], runs[1][m]))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    out["bf16_step_moments_equal_flag_on_off"] = same
+    line = {"measure": "precision flags on the card", **out}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def time_graphed_step(device, epochs: int = 3, batches: int = 8) -> dict:
     """The flagship bf16 step at B=512 from ``init_gan_state(42)``: ``epochs``
     graphed epochs of ``batches`` replays after one warm-up epoch (untraced,
@@ -1432,9 +1660,7 @@ def step_vs_cpu_recipe(device, recipe: str, batch=STEP_BATCH, model: dict = None
     lambdas, grad_tol = STEP_RECIPES[recipe]
     mcfg = ModelConfig(**{"time_head": "monotone", **(model or {})})
     tcfg = TrainingConfig(**dict(lambdas, batch_size=batch, n_critic=5), div_margin=0.25)
-    ds = smoke_dataset(batch, mcfg.seq_length, seed=3)
-    data = {"gesture": torch.from_numpy(ds.gestures), "prototype": torch.from_numpy(ds.prototypes)}
-    noise = _step_noise(batch, mcfg.latent_dim, tcfg.n_critic, seed=6)
+    data, noise = _step_inputs("flagship", batch, mcfg)
     counters = (bilstm_train_fwd, bilstm_train_bwd)
     before = [dict(c.launches_by_path) for c in counters]
     worst = compare_step(device, gan_train_step, mcfg, tcfg, data, noise, grad_tol)
@@ -2609,15 +2835,8 @@ def masked_step_vs_cpu(device, batch=STEP_BATCH, model: dict = None) -> dict:
     mcfg = ModelConfig(**{"generator_type": "transformer", "time_head": "monotone",
                           **(model or {})})
     tcfg = TrainingConfig(batch_size=batch, n_critic=5)
-    ds = smoke_dataset(batch, mcfg.seq_length, seed=4)
-    rng = np.random.default_rng(8)
-    lengths = rng.integers(min(VL_STEP_LENGTHS[0], mcfg.seq_length), mcfg.seq_length + 1, batch)
-    lengths[0] = mcfg.seq_length
-    mask = (np.arange(mcfg.seq_length)[None, :] < lengths[:, None]).astype(np.float32)
-    data = {"gesture": torch.from_numpy(ds.gestures), "prototype": torch.from_numpy(ds.prototypes),
-            "mask": torch.from_numpy(mask)}
-    noise = _step_noise(batch, mcfg.latent_dim, tcfg.n_critic, seed=9)
-    noise.pop("z_ms")
+    data, noise = _step_inputs("masked", batch, mcfg)
+    lengths = data["mask"].sum(dim=1)
     worst = compare_step(device, gan_train_step_masked, mcfg, tcfg, data, noise, VL_STEP_GRAD_TOL)
     line = {"check": "gan_train_step_masked on the card vs CPU", "batch": batch,
             "dtype": "float32", "lengths": [int(lengths.min()), int(lengths.max())], **worst,
@@ -2742,6 +2961,10 @@ def main() -> int:
     eager_determinism(device)
     draw_check = check_threefry(device)
     draws_card_vs_cpu(device)
+    check_activations(device)
+    for kind in ("flagship", "masked"):
+        bf16_step_vs_cpu(device, kind)
+    precision_flags(device)
     graphed_step = time_graphed_step(device)
     # Per epoch: the graphed run's first epoch and its resumed third (a new
     # train_gan call) each pay one eager warm-up step and the capture; its

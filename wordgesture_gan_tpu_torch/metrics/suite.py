@@ -29,6 +29,7 @@ import torch
 from ..configs import (DEFAULT_EVALUATION_CONFIG, DEFAULT_MODEL_CONFIG, EvaluationConfig,
                        ModelConfig)
 from ..models.gan import autoencoder_apply
+from ..models.layers import jax_products
 from ..ops.assignment import matched_mean_distance
 from ..ops.dtw import dtw_distance_matrix
 from ..ops.savgol import batched_savgol_jerk
@@ -36,17 +37,6 @@ from ..ops.stats import (acceleration_correlation, knn_precision_recall, pairwis
                          speed_profile_correlation, time_delta_correlation,
                          velocity_correlation)
 from .fid import encode_features, fid_from_features, load_or_train_fid_autoencoder
-
-
-@contextlib.contextmanager
-def _full_float32():
-    """Matrix products in full float32 (TF32 off) for the block."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 class _Stages:
@@ -89,7 +79,7 @@ def evaluate_all_metrics(
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA device is available; pass device='cpu' "
                            "to evaluate on the CPU")
-    with _full_float32():
+    with jax_products():
         return _evaluate(real_gestures, fake_gestures, train_gestures, model_config,
                          eval_config, skip_dtw, cached_real, cache_dir, verbose, device)
 

@@ -21,11 +21,10 @@ import math
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
 from ..utils import prng
-from .layers import Key, _key, cast_floats, dense_init, leaky_relu
+from .layers import Key, _key, cast_floats, dense_init, gelu, leaky_relu
 
 
 def _proto_dim(config: ModelConfig) -> int:
@@ -158,6 +157,6 @@ def transformer_generator_apply(params: Dict, prototype: torch.Tensor, z: torch.
     for block in p["blocks"]:
         h = h + _attention(block, _layernorm(block["ln1"], h), config.tfm_num_heads, pad_mask)
         m = _dense(block["mlp1"], _layernorm(block["ln2"], h))
-        h = h + _dense(block["mlp2"], F.gelu(m, approximate="tanh"))
+        h = h + _dense(block["mlp2"], gelu(m))
     h = _layernorm(params["ln_f"], h.to(torch.float32))
     return apply_time_head(_dense(params["out"], h), config.time_head, pad_mask=pad_mask)

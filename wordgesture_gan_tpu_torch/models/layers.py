@@ -15,6 +15,7 @@ does, so a key gives the JAX package's initial weights.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -32,8 +33,127 @@ def _key(key: Key) -> torch.Tensor:
     return prng.PRNGKey(0) if key is None else key
 
 
+@contextlib.contextmanager
+def jax_products():
+    """Products as the JAX package computes them, for the code run inside:
+    float32 matrix products and convolutions in float32 (PyTorch lets cuDNN
+    run a float32 convolution in TF32 by default, 3e-4 relative), bfloat16
+    products summed in float32 (cuBLAS may otherwise keep a reduction in
+    bfloat16). Sets the three PyTorch flags and restores them on exit; a
+    flag is read when an op is launched, so a step that runs inside it,
+    backward and CUDA-graph capture included, takes these products."""
+    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = cuda.allow_tf32, cuda.allow_bf16_reduced_precision_reduction, cudnn.allow_tf32
+    cuda.allow_tf32 = cuda.allow_bf16_reduced_precision_reduction = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cuda.allow_tf32, cuda.allow_bf16_reduced_precision_reduction, cudnn.allow_tf32 = saved
+
+
+# -- elementwise activations in JAX's arithmetic ------------------------------------------
+#
+# JAX computes an elementwise op in the array's dtype: a Python constant is
+# first rounded to that dtype (0.2 is 0.2001953125 in bfloat16), and XLA's
+# CPU backend rounds after every op of a bfloat16 expression. PyTorch
+# multiplies a bfloat16 tensor by a Python float in float32 and rounds once,
+# and its fused activations round once at the end. The activations below
+# are written op by op with the constants in x's dtype, so each op rounds
+# where JAX's does.
+
+
+def _in_dtype(c: float, dtype: torch.dtype) -> float:
+    """The Python float ``c`` rounded to ``dtype``, as JAX casts a weakly
+    typed constant to the array's dtype."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
-    return torch.nn.functional.leaky_relu(x, slope)
+    """``jax.nn.leaky_relu``: x where x >= 0, else x times the slope in x's
+    dtype; its gradient at 0 is 1, as JAX's is."""
+    return torch.where(x >= 0, x, x * _in_dtype(slope, x.dtype))
+
+
+# XLA's CPU tanh for float32 (the rational approximation its LLVM backend
+# emits, with the multiply-adds of both polynomials fused): torch's float32
+# tanh differs from it in the last 1-5 ulp of over half of all inputs. In
+# bfloat16 torch's tanh rounds to JAX's value for every one of the 65,536
+# inputs, so only float32 takes this path.
+_TANH_CLAMP = 7.99881172180175781
+_TANH_SMALL = 0.0004
+_TANH_NUM = (-2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+             5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+             4.89352455891786e-03)
+_TANH_DEN = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+             4.89352518554385e-03)
+
+
+def _poly(x2: torch.Tensor, coeffs) -> torch.Tensor:
+    p = prng.fma(x2, coeffs[0], coeffs[1])
+    for c in coeffs[2:]:
+        p = prng.fma(x2, p, c)
+    return p
+
+
+def _tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh as JAX's CPU backend computes it in x's dtype."""
+    if x.dtype != torch.float32:
+        return torch.tanh(x)
+    xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    r = xc * _poly(x2, _TANH_NUM) / _poly(x2, _TANH_DEN)
+    r = torch.where(x.abs() < _TANH_SMALL, x, r)
+    return torch.where(x.abs() >= 20, torch.copysign(torch.ones_like(x), x), r)
+
+
+def _fused(a: torch.Tensor, b, c) -> torch.Tensor:
+    """a * b + c as XLA computes it in a's dtype: one fused rounding in
+    float32 (its CPU backend contracts the pair), two in bfloat16 (the
+    product is rounded before the add)."""
+    return prng.fma(a, b, c) if a.dtype == torch.float32 else a * b + c
+
+
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu(x, approximate=True)`` and its JAX gradient, op by op:
+    the forward 0.5·x·(1 + tanh(c2·(x + c1·x³))) and the backward JAX's
+    transposed JVP, each op in x's dtype with the constants c1 = 0.044715
+    and c2 = sqrt(2/π) rounded to it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * _Gelu.cdf(x)[0]
+
+    @staticmethod
+    def cdf(x):
+        c1, c2 = _Gelu.constants(x.dtype)
+        xx = x * x
+        t = _tanh(_fused(xx * x, c1, x) * c2)
+        return (t + 1.0) * 0.5, t, xx
+
+    @staticmethod
+    def constants(dtype):
+        return _in_dtype(0.044715, dtype), _in_dtype(math.sqrt(2 / math.pi), dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        c1, c2 = _Gelu.constants(x.dtype)
+        cdf, t, xx = _Gelu.cdf(x)
+        p = (x * g) * 0.5 * (1.0 - t)
+        r = _fused(p, t, p)                       # the tanh's JVP, (p + p·t)
+        s = r * c2
+        if x.dtype == torch.float32:
+            # XLA folds c2·c1 into one constant and fuses the two adds.
+            u = r * _in_dtype(c2 * c1, x.dtype)
+            return prng.fma(u, xx * 3.0, prng.fma(g, cdf, s))
+        return (g * cdf + s) + (s * c1) * (xx * 3.0)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, JAX's default), bit for bit
+    in float32 and bfloat16 on the CPU, gradient included."""
+    return _Gelu.apply(x)
 
 
 def cast_floats(tree, dtype: torch.dtype):
@@ -121,10 +241,12 @@ def conv1d_init(in_ch: int, out_ch: int, kernel: int, key: Key = None) -> Dict[s
 def conv1d(params: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
     """(B, L, C_in) → (B, L', C_out) with a WIO weight: the JAX layout at the
-    interface, PyTorch's (B, C, L) and (out, in, k) inside."""
+    interface, PyTorch's (B, C, L) and (out, in, k) inside. The bias is
+    added after the convolution has rounded to x's dtype, as JAX adds it
+    (a bias fused into the convolution rounds once in bfloat16)."""
     w = params["w"].permute(2, 1, 0)
-    return F.conv1d(x.transpose(1, 2), w, params["b"], stride=stride,
-                    padding=padding).transpose(1, 2)
+    out = F.conv1d(x.transpose(1, 2), w, stride=stride, padding=padding).transpose(1, 2)
+    return out + params["b"]
 
 
 def sn_conv1d_init(in_ch: int, out_ch: int, kernel: int, key: Key = None):

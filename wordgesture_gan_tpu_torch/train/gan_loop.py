@@ -29,6 +29,7 @@ from ..configs import (DEFAULT_MODEL_CONFIG, DEFAULT_RUNTIME_CONFIG, DEFAULT_TRA
                        ModelConfig, RuntimeConfig, TrainingConfig)
 from ..data.pipeline import GestureArrays, within_word_diversity
 from ..models.gan import Generator
+from ..models.layers import jax_products
 from ..utils import prng
 from ..utils.chunking import chunk_layout, pad_to_chunks
 from ..parallel.mesh import barrier, create_mesh, is_main_process, replicate
@@ -218,6 +219,7 @@ def _save(state: Dict, writes: Optional[str], epoch: int, mesh) -> None:
     barrier(mesh)
 
 
+@jax_products()
 def generate_gestures(generator: Generator, prototypes: np.ndarray,
                       config: ModelConfig = DEFAULT_MODEL_CONFIG, truncation: float = 1.0,
                       seed: int = 0, batch: int = 512, device="cuda",

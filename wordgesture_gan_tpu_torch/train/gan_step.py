@@ -55,6 +55,7 @@ from ..losses import (diversity_hinge_loss, feature_matching_loss, kl_divergence
                       speed_profile_loss, time_delta_corr_loss, time_delta_loss,
                       wgan_critic_loss, wgan_generator_loss)
 from ..models.gan import disc_apply, encoder_apply, generator_apply
+from ..models.layers import jax_products
 from ..parallel.mesh import Mesh, all_reduce_gradients
 from ..utils import prng
 from ..utils.tree import tree_leaves
@@ -108,6 +109,7 @@ def critic_update(disc: Dict, real: torch.Tensor, fake: torch.Tensor, lr: float,
     return loss.detach() if total is None else total[0]
 
 
+@jax_products()
 def gan_train_step(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
                    model_config: ModelConfig, training_config: TrainingConfig,
                    noise: Optional[Dict[str, torch.Tensor]] = None,

@@ -29,6 +29,7 @@ from ..losses import (feature_matching_loss, kl_divergence_loss, latent_encoding
                       masked_time_delta_loss, wgan_generator_loss)
 from ..models.gan import disc_apply, encoder_apply
 from ..models.generators import transformer_generator_apply
+from ..models.layers import jax_products
 from ..utils.tree import tree_leaves
 from ..parallel.mesh import Mesh, all_reduce_gradients
 from .gan_step import _active, critic_update, keep_in_place, shuffle_batches
@@ -46,6 +47,7 @@ def masked_reconstruction_loss(real: torch.Tensor, fake: torch.Tensor,
     return diff.sum() / torch.clamp(mask.sum() * real.shape[-1], min=1.0)
 
 
+@jax_products()
 def gan_train_step_masked(state: Dict, batch: Dict[str, torch.Tensor], lr: float,
                           model_config: ModelConfig, training_config: TrainingConfig,
                           noise: Optional[Dict[str, torch.Tensor]] = None,
