@@ -13,7 +13,14 @@ resume on any rank reads a whole checkpoint.
 ``RuntimeConfig.scan_epoch`` runs each epoch through the scanned epoch
 (``gan_step.gan_train_epoch``, ``masked_step.gan_train_epoch_masked``): on a
 CUDA device one captured CUDA graph of the step, replayed once per batch and
-kept for the whole run; everything around the epoch is the same."""
+kept for the whole run; everything around the epoch is the same.
+
+Under a profiler the stages of an epoch and of a sampling call are spans
+(``utils/profiling.span``): ``epoch.shuffle``, ``epoch.keys`` and
+``epoch.steps`` (``step_graph.py``), ``step.capture``, ``epoch.losses``,
+``epoch.record``, ``epoch.callback``, ``epoch.checkpoint``; ``sample.call``
+around ``sample.pad``, ``sample.copy_in``, one ``sample.chunk`` a chunk with
+``sample.noise`` inside, ``sample.drain`` and ``sample.copy_out``."""
 
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from ..utils import prng
 from ..utils.chunking import chunk_layout, pad_to_chunks
 from ..parallel.mesh import barrier, create_mesh, is_main_process, replicate
 from ..utils.preemption import PreemptionGuard
-from ..utils.profiling import Throughput
+from ..utils.profiling import Throughput, span
 from .checkpoint import restore_checkpoint, save_checkpoint, save_run_metadata
 from .gan_step import METRIC_KEYS, gan_train_epoch, gan_train_step, shuffle_batches
 from .history import append_history, truncate_history
@@ -47,8 +54,9 @@ from .step_graph import StepGraph
 class TrainResult:
     state: Dict
     history: List[Dict[str, float]] = field(default_factory=list)
-    # Wall seconds of each epoch this run trained (host clock, ending after
-    # the epoch's losses reached the host), and the gestures it trained on.
+    # Wall seconds of each epoch this run trained (host clock, from before
+    # the epoch's shuffle until its losses reached the host), and the
+    # gestures it trained on.
     epoch_seconds: List[float] = field(default_factory=list)
     gestures_per_epoch: int = 0
     # Gestures per second over the run's epochs, and per chip (n_chips: the
@@ -155,58 +163,65 @@ def run_epochs(arrays: Dict[str, np.ndarray], step: Callable, scanned_epoch: Cal
     graph = StepGraph() if runtime_config.scan_epoch else None
     with PreemptionGuard() as preempt:
         for epoch in range(start_epoch, num_epochs):
-            lr = float(cosine_annealing_lr(training_config.learning_rate, epoch, num_epochs,
-                                           training_config.lr_scheduler_eta_min))
-            batches = shuffle_batches(prng.fold_in(prng.PRNGKey(seed ^ 0x5EED), epoch), data, B)
-
             t0 = time.perf_counter()
+            with span("epoch.shuffle"):
+                lr = float(cosine_annealing_lr(training_config.learning_rate, epoch, num_epochs,
+                                               training_config.lr_scheduler_eta_min))
+                batches = shuffle_batches(prng.fold_in(prng.PRNGKey(seed ^ 0x5EED), epoch), data,
+                                          B)
             if graph is not None:
                 _, traces = scanned_epoch(state, batches, lr, mesh, graph)
             else:
                 steps: Dict[str, List[torch.Tensor]] = {k: [] for k in metric_keys}
-                for i in range(n_batches):
-                    _, metrics = step(state, {k: v[i] for k, v in batches.items()}, lr, mesh)
-                    for k in metric_keys:
-                        steps[k].append(metrics[k])
+                with span("epoch.steps"):
+                    for i in range(n_batches):
+                        _, metrics = step(state, {k: v[i] for k, v in batches.items()}, lr, mesh)
+                        for k in metric_keys:
+                            steps[k].append(metrics[k])
                 traces = {k: torch.stack(v) for k, v in steps.items() if v}
-            if n_batches:
-                # One host transfer per epoch; it waits for the device.
-                means = torch.stack([traces[k].mean() for k in metric_keys])
-                losses = dict(zip(metric_keys, means.cpu().tolist()))
-            else:
-                # No batch (fewer samples than batch_size, drop-last): every
-                # loss at 0.0, as in the JAX package, not a non-finite trip.
-                losses = dict.fromkeys(metric_keys, 0.0)
+            with span("epoch.losses"):
+                if n_batches:
+                    # One host transfer per epoch; it waits for the device.
+                    means = torch.stack([traces[k].mean() for k in metric_keys])
+                    losses = dict(zip(metric_keys, means.cpu().tolist()))
+                else:
+                    # No batch (fewer samples than batch_size, drop-last):
+                    # every loss at 0.0, as in the JAX package, not a
+                    # non-finite trip.
+                    losses = dict.fromkeys(metric_keys, 0.0)
             dt = time.perf_counter() - t0
-            state["epoch"] = epoch + 1
-            losses["lr"] = lr
-            bad = [k for k, v in losses.items() if not np.isfinite(v)]
-            if bad:
-                raise FloatingPointError(f"Non-finite losses at epoch {epoch + 1}: {bad}. "
-                                         f"Last good checkpoint is in {checkpoint_dir!r}.")
-            result.history.append(losses)
-            result.epoch_seconds.append(dt)
-            result.throughput.update(result.gestures_per_epoch, dt)
-            append_history(writes, epoch, losses)
-            say(f"Epoch {epoch + 1}/{num_epochs} [{dt:.1f}s, "
-                f"{result.gestures_per_epoch / max(dt, 1e-9):.0f} gestures/s] - "
-                + " ".join(f"{label}:{losses[k]:.3f}" for label, k in log_fields)
-                + f" LR:{lr:.6f}")
+            with span("epoch.record"):
+                state["epoch"] = epoch + 1
+                losses["lr"] = lr
+                bad = [k for k, v in losses.items() if not np.isfinite(v)]
+                if bad:
+                    raise FloatingPointError(f"Non-finite losses at epoch {epoch + 1}: {bad}. "
+                                             f"Last good checkpoint is in {checkpoint_dir!r}.")
+                result.history.append(losses)
+                result.epoch_seconds.append(dt)
+                result.throughput.update(result.gestures_per_epoch, dt)
+                append_history(writes, epoch, losses)
+                say(f"Epoch {epoch + 1}/{num_epochs} [{dt:.1f}s, "
+                    f"{result.gestures_per_epoch / max(dt, 1e-9):.0f} gestures/s] - "
+                    + " ".join(f"{label}:{losses[k]:.3f}" for label, k in log_fields)
+                    + f" LR:{lr:.6f}")
             if epoch_callback is not None and mesh.is_main:
-                epoch_callback(epoch, state, losses)
+                with span("epoch.callback"):
+                    epoch_callback(epoch, state, losses)
 
-            saved = False
-            if checkpoint_dir and ((epoch + 1) % training_config.save_every == 0
-                                   or epoch == num_epochs - 1):
-                _save(state, writes, epoch, mesh)
-                say(f"  Checkpoint saved at epoch {epoch + 1}")
-                saved = True
-            if preempt.agreed(mesh):
-                if checkpoint_dir and not saved:
+            with span("epoch.checkpoint"):
+                saved = False
+                if checkpoint_dir and ((epoch + 1) % training_config.save_every == 0
+                                       or epoch == num_epochs - 1):
                     _save(state, writes, epoch, mesh)
-                say(f"Preemption signal received — stopped cleanly after epoch {epoch + 1}; "
-                    f"rerun to resume.")
-                break
+                    say(f"  Checkpoint saved at epoch {epoch + 1}")
+                    saved = True
+                if preempt.agreed(mesh):
+                    if checkpoint_dir and not saved:
+                        _save(state, writes, epoch, mesh)
+                    say(f"Preemption signal received — stopped cleanly after epoch "
+                        f"{epoch + 1}; rerun to resume.")
+                    break
     say(f"Training done: {result.throughput.per_sec:.0f} gestures/s "
         f"({result.throughput.per_sec_per_chip:.0f}/chip over {mesh.world_size} chip(s))")
     return result
@@ -247,28 +262,35 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
         return np.zeros((0, *np.shape(prototypes)[1:]), np.float32)
     if config != generator.config:
         raise ValueError("config differs from the generator's own configuration")
+    if z is not None and np.shape(z) != (n, config.latent_dim):
+        raise ValueError(f"z must be ({n}, {config.latent_dim}), got {np.shape(z)}")
     device = torch.device(device)
     chunk, n_chunks = chunk_layout(n, batch)
-    protos = torch.from_numpy(pad_to_chunks(prototypes, chunk, n_chunks)).to(device)
-    noise = None
-    if z is not None:
-        if np.shape(z) != (n, config.latent_dim):
-            raise ValueError(f"z must be ({n}, {config.latent_dim}), got {np.shape(z)}")
-        noise = torch.from_numpy(pad_to_chunks(z, chunk, n_chunks)).to(device)
-    pad = None
-    if masks is not None:
-        pad = torch.from_numpy(pad_to_chunks(masks, chunk, n_chunks)).to(device)
-    key = prng.PRNGKey(seed)
-    generator = generator.to(device)
-    outs = []
-    with torch.inference_mode():
-        for c in range(n_chunks):
-            rows = slice(c * chunk, (c + 1) * chunk)
-            if noise is None:
-                eps = prng.normal(prng.fold_in(key, c).to(device), (chunk, config.latent_dim))
-            else:
-                eps = noise[rows]
-            mask = None if pad is None else pad[rows]
-            out = generator(protos[rows], eps * truncation, inference=True, pad_mask=mask)
-            outs.append(out if mask is None else out * mask[:, :, None])
-    return torch.cat(outs).float().cpu().numpy()[:n]
+    with span("sample.call", items=n):
+        with span("sample.pad"):
+            padded = [None if a is None else pad_to_chunks(a, chunk, n_chunks)
+                      for a in (prototypes, z, masks)]
+        with span("sample.copy_in"):
+            protos, noise, pad = [None if a is None else torch.from_numpy(a).to(device)
+                                  for a in padded]
+            generator = generator.to(device)
+        key = prng.PRNGKey(seed)
+        outs = []
+        with torch.inference_mode():
+            for c in range(n_chunks):
+                with span("sample.chunk"):
+                    rows = slice(c * chunk, (c + 1) * chunk)
+                    with span("sample.noise"):
+                        eps = noise[rows] if noise is not None else prng.normal(
+                            prng.fold_in(key, c).to(device), (chunk, config.latent_dim))
+                    mask = None if pad is None else pad[rows]
+                    out = generator(protos[rows], eps * truncation, inference=True,
+                                    pad_mask=mask)
+                    outs.append(out if mask is None else out * mask[:, :, None])
+        # The wait for the last chunks, apart from the copy back (which
+        # would wait for them all the same).
+        with span("sample.drain"):
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+        with span("sample.copy_out"):
+            return torch.cat(outs).float().cpu().numpy()[:n]

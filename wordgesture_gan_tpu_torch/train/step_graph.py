@@ -46,6 +46,7 @@ from ..ops.bilstm_train import bilstm_train_bwd, bilstm_train_fwd
 from ..ops.threefry import threefry_draw
 from ..parallel.mesh import Mesh, all_reduce_gradients, require_capturable
 from ..utils import prng
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves
 from .state import ADAM_B1, ADAM_B2, MODELS, inverse_bias_corrections
 
@@ -201,24 +202,26 @@ class StepGraph:
             signature = self._signature(state, first, key)
             if self.graph is None or signature != self.signature:
                 # The warm-up: batch 0 eagerly, on the capture stream.
-                counts = {m: state[m]["opt"]["count"] for m in MODELS}
-                noise = noise_at(0, None)
-                _, metrics = step(state, first, lr, noise)
-                traces[0].copy_(torch.stack([metrics[k].reshape(()) for k in metric_keys]))
-                self._updates = {m: state[m]["opt"]["count"] - counts[m] for m in MODELS}
-                self._capture(step, state, first, noise, metric_keys)
-                self.signature = signature
-                start = 1
-            self._lr.fill_(lr)
-            for m in MODELS:
-                self._counts[m].fill_(state[m]["opt"]["count"])
-            for i in range(start, n):
-                for k, v in self._batch.items():
-                    v.copy_(epoch_batches[k][i])
-                noise_at(i, self._noise)
-                self.graph.replay()
-                traces[i].copy_(self._metrics)
-                _add_launches(self._launches)
+                with span("step.capture"):
+                    counts = {m: state[m]["opt"]["count"] for m in MODELS}
+                    noise = noise_at(0, None)
+                    _, metrics = step(state, first, lr, noise)
+                    traces[0].copy_(torch.stack([metrics[k].reshape(()) for k in metric_keys]))
+                    self._updates = {m: state[m]["opt"]["count"] - counts[m] for m in MODELS}
+                    self._capture(step, state, first, noise, metric_keys)
+                    self.signature = signature
+                    start = 1
+            with span("epoch.steps"):
+                self._lr.fill_(lr)
+                for m in MODELS:
+                    self._counts[m].fill_(state[m]["opt"]["count"])
+                for i in range(start, n):
+                    for k, v in self._batch.items():
+                        v.copy_(epoch_batches[k][i])
+                    noise_at(i, self._noise)
+                    self.graph.replay()
+                    traces[i].copy_(self._metrics)
+                    _add_launches(self._launches)
             for m in MODELS:
                 state[m]["opt"]["count"] += (n - start) * self._updates[m]
             self.replays += n - start
@@ -243,11 +246,12 @@ def run_epoch(step: Callable, state: Dict, epoch_batches: Dict[str, torch.Tensor
     device = next(iter(epoch_batches.values())).device
     traces = torch.zeros((n, len(metric_keys)), dtype=torch.float32, device=device)
     if noise is None and n:
-        keys = []
-        for _ in range(n):
-            state["rng"], k = keys_of(state["rng"])
-            keys.append(k)
-        noise = {"keys": torch.stack(keys).to(device)}
+        with span("epoch.keys"):
+            keys = []
+            for _ in range(n):
+                state["rng"], k = keys_of(state["rng"])
+                keys.append(k)
+            noise = {"keys": torch.stack(keys).to(device)}
 
     def noise_at(i: int, out: Optional[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
         if out is None:
@@ -260,9 +264,10 @@ def run_epoch(step: Callable, state: Dict, epoch_batches: Dict[str, torch.Tensor
         (graph or StepGraph()).run(step, state, epoch_batches, lr, noise_at, traces, metric_keys,
                                    key, mesh)
     else:
-        for i in range(n):
-            _, metrics = step(state, {k: v[i] for k, v in epoch_batches.items()}, lr,
-                              noise_at(i, None))
-            traces[i] = torch.stack([metrics[k].reshape(()) for k in metric_keys])
+        with span("epoch.steps"):
+            for i in range(n):
+                _, metrics = step(state, {k: v[i] for k, v in epoch_batches.items()}, lr,
+                                  noise_at(i, None))
+                traces[i] = torch.stack([metrics[k].reshape(()) for k in metric_keys])
     state["epoch"] += 1
     return state, dict(zip(metric_keys, traces.t().contiguous()))

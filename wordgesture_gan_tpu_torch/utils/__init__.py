@@ -2,4 +2,4 @@
 has no counterpart."""
 
 from .logging import log, seed_everything
-from .profiling import StepTimer, Throughput
+from .profiling import Throughput

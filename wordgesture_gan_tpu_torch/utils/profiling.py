@@ -1,10 +1,11 @@
-"""Throughput counters and the profiler hook (the port of the JAX package's
-``utils/profiling.py``).
+"""Throughput counters, the profiler hook and the program's spans (the port
+of the JAX package's ``utils/profiling.py``, without its ``StepTimer``).
 
-``StepTimer`` times host-clock windows whose ``stop()`` first waits for the
-card, ``Throughput`` accumulates items per second and per chip (the training
-loops report gestures per second through it), and ``trace_profile`` wraps a
-run in ``torch.profiler``, writing a Chrome trace into a directory.
+``Throughput`` accumulates items per second and per chip (the training
+loops report gestures per second through it), ``trace_profile`` wraps a run
+in ``torch.profiler``, writing a Chrome trace into a directory, and ``span``
+names a stretch of the program's host work on the profiler's timeline and
+in an in-memory table (``span_totals``) while a profiler runs.
 """
 
 from __future__ import annotations
@@ -13,52 +14,10 @@ import contextlib
 import os
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
-
-
-def _synchronize(tensors) -> None:
-    """Wait for the devices ``tensors`` live on; with none given, for the
-    current CUDA device if CUDA is in use."""
-    devices = {t.device for t in tensors if torch.is_tensor(t) and t.device.type == "cuda"}
-    if not tensors and torch.cuda.is_available() and torch.cuda.is_initialized():
-        devices = {torch.device("cuda", torch.cuda.current_device())}
-    for d in devices:
-        torch.cuda.synchronize(d)
-
-
-class StepTimer:
-    """Host-clock timings of windows opened by entering the timer: leaving
-    it records the window as is; ``stop(*tensors)`` waits for the card first
-    (for the devices of ``tensors``, or the current CUDA device), so queued
-    work is counted."""
-
-    def __init__(self):
-        self.times: List[float] = []
-        self._start: Optional[float] = None
-
-    def __enter__(self):
-        self._start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._start)
-        return False
-
-    def stop(self, *sync_tensors) -> float:
-        _synchronize(sync_tensors)
-        dt = time.perf_counter() - self._start
-        self.times.append(dt)
-        return dt
-
-    @property
-    def last(self) -> float:
-        return self.times[-1] if self.times else float("nan")
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / len(self.times) if self.times else float("nan")
+from torch._C._autograd import _profiler_enabled
 
 
 def _world_size() -> int:
@@ -115,3 +74,61 @@ def trace_profile(log_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / f"trace_rank{rank}_{os.getpid()}.json"))
+
+
+# {name: [count, host seconds, items]} of the spans entered while a
+# profiler ran, since the last ``reset_spans``.
+_SPANS: Dict[str, list] = {}
+
+
+# What ``span`` returns with no profiler running: one shared object whose
+# entering and leaving do nothing.
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "items", "_range", "_start")
+
+    def __init__(self, name: str, items: int):
+        self.name, self.items = name, items
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        seconds = time.perf_counter() - self._start
+        # Also when the profiler stopped inside the span: the range closes
+        # on no profiler, and the table keeps the span.
+        self._range.__exit__(*exc)
+        row = _SPANS.setdefault(self.name, [0, 0.0, 0])
+        row[0] += 1
+        row[1] += seconds
+        row[2] += self.items
+        return False
+
+
+def span(name: str, items: int = 0):
+    """A context manager naming the host work inside it. With a profiler
+    running (``torch.profiler.profile``, ``trace_profile``) it is a
+    ``record_function`` range on the profiler's timeline, and leaving it adds
+    one to the span's count, its host seconds (``time.perf_counter``) and
+    ``items`` to the table ``span_totals`` reads. With none it is one shared
+    object that does nothing: a check of the profiler's state, well under a
+    microsecond, where a ``record_function`` costs several."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return _Span(name, items)
+
+
+def span_totals() -> Dict[str, Dict[str, float]]:
+    """{name: {"count", "seconds", "items"}} of the spans entered while a
+    profiler ran, since the last ``reset_spans``; a copy."""
+    return {name: {"count": c, "seconds": s, "items": i} for name, (c, s, i) in _SPANS.items()}
+
+
+def reset_spans() -> None:
+    """Empty the table ``span_totals`` reads."""
+    _SPANS.clear()
