@@ -89,8 +89,18 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    untraced, beside eager, with one threefry launch a replay;
 5i. ``models/layers.py``'s ``gelu`` and ``leaky_relu`` (JAX's arithmetic:
    each op rounded in the array's dtype, the constants rounded to it) on
-   the card against the CPU, forward and gradient, bit for bit, on all
-   65,536 bfloat16 inputs and 2^20 float32 ones;
+   the card, through the kernels of ``csrc/activations.cu`` (and
+   ``F.leaky_relu`` for leaky_relu's forward), against the CPU's plain
+   chain and against the plain chain on the card, forward and gradient, bit
+   for bit, on all 65,536 bfloat16 inputs and 2^20 float32 ones; each
+   activation and direction timed at the transformer's critic-loop call
+   (1024, 128, 256) bfloat16 beside the plain chain and its bound;
+5l. three graphed steps each of the ``flag`` and ``varlen2`` recipes (bf16,
+   B=512) from one state, once as shipped and once with the activations
+   patched to the plain functions: losses and every state tensor
+   bit-equal; the shipped steps call the kernels on every activation (no
+   plain call), the masked step (n_critic + 2) x layers gelu forwards and
+   2 x layers backwards a step;
 5j. one bfloat16 step of the flagship recipe and one masked bfloat16 step
    (the transformer, lambda_speed 2) on the card against the CPU (B=32, full
    width), each model's gradient distance and each loss within
@@ -213,6 +223,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -223,6 +234,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -245,9 +257,11 @@ from wordgesture_gan_tpu_torch.metrics.suite import evaluate_all_metrics
 from wordgesture_gan_tpu_torch.models.contrastive import (contrastive_encoder_apply,
                                                           contrastive_encoder_init)
 from wordgesture_gan_tpu_torch.models.gan import generator_init
+from wordgesture_gan_tpu_torch.models import gan as gan_models, generators, layers
 from wordgesture_gan_tpu_torch.models.layers import gelu, leaky_relu
 from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance, sinkhorn_matching_cost
-from wordgesture_gan_tpu_torch.ops import build as kernel_build
+from wordgesture_gan_tpu_torch.ops import activations, build as kernel_build
+from wordgesture_gan_tpu_torch.ops.activations import activation_launches
 from wordgesture_gan_tpu_torch.ops import bilstm_fused, bilstm_train
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         fused_kernel_info, sample_tile)
@@ -1414,34 +1428,189 @@ def _mismatches(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((~same).sum())
 
 
+def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| over elements whose bits differ: 0.0 where they
+    are all equal (NaN to NaN counts as equal), inf where a NaN or an
+    infinity meets another value."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    differ = (a != b) & ~(torch.isnan(a) & torch.isnan(b))
+    if not differ.any():
+        return 0.0
+    err = (a[differ] - b[differ]).abs()
+    return float(torch.where(torch.isnan(err), torch.inf, err).max())
+
+
+def _forward_backward(fn, x: torch.Tensor, g: torch.Tensor) -> tuple:
+    xx = x.detach().clone().requires_grad_()
+    y = fn(xx)
+    y.backward(g)
+    return y, xx.grad
+
+
 def check_activations(device) -> dict:
-    """Phase 5i: ``layers.gelu`` and ``layers.leaky_relu`` on the card and on
-    the CPU, forward and gradient, bit for bit: all 65,536 bfloat16 inputs,
-    and 2^20 float32 inputs from N(0, 3^2) with zeros, infinities, NaN and
-    the extremes, each against a cotangent drawn in numpy."""
+    """Phase 5i: ``layers.gelu`` and ``layers.leaky_relu`` on the card (the
+    kernels) against the CPU (the plain chain) and against the plain chain
+    on the card, forward and gradient, bit for bit: all 65,536 bfloat16
+    inputs, and 2^20 float32 inputs from N(0, 3^2) with zeros, infinities,
+    NaN and the extremes, each against a cotangent drawn in numpy. Every
+    card call of the dispatchers must have taken the kernels. The line's
+    ``max_abs_err`` holds each kernel's largest error against either plain
+    chain, over both dtypes."""
     every = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
     rng = np.random.default_rng(13)
     special = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-38, -1e-38, 1e-45, 3.4e38, -3.4e38]
     f32 = torch.from_numpy(np.concatenate([rng.normal(0, 3, ACT_F32_N), special]).astype(np.float32))
+    plain = {"gelu": layers.plain_gelu, "leaky_relu": layers.plain_leaky_relu}
     out = {}
+    errs = dict.fromkeys(activations.OPS, 0.0)
+    reset_launches(activation_launches)
     for x in (every, f32):
         g = torch.from_numpy(rng.normal(size=x.shape[0]).astype(np.float32)).to(x.dtype)
         for name, fn in (("gelu", gelu), ("leaky_relu", leaky_relu)):
-            res = []
-            for dev in (torch.device("cpu"), device):
-                xx = x.to(dev).detach().clone().requires_grad_()
-                y = fn(xx)
-                y.backward(g.to(dev))
-                res.append((y, xx.grad))
+            cpu = _forward_backward(fn, x, g)
+            card = _forward_backward(fn, x.to(device), g.to(device))
+            card_plain = _forward_backward(plain[name], x.to(device), g.to(device))
             out[f"{name}_{str(x.dtype).split('.')[-1]}"] = {
-                "inputs": x.shape[0], "forward_mismatches": _mismatches(res[0][0], res[1][0]),
-                "gradient_mismatches": _mismatches(res[0][1], res[1][1])}
-    line = {"check": "gelu and leaky_relu on the card vs CPU, bit for bit", **out}
+                "inputs": x.shape[0], "forward_mismatches": _mismatches(cpu[0], card[0]),
+                "gradient_mismatches": _mismatches(cpu[1], card[1]),
+                "kernel_vs_plain_on_card_forward_mismatches": _mismatches(card_plain[0], card[0]),
+                "kernel_vs_plain_on_card_gradient_mismatches": _mismatches(card_plain[1], card[1])}
+            op = "gelu" if name == "gelu" else "leaky"
+            for i, direction in enumerate(("fwd", "bwd")):
+                errs[f"{op}_{direction}"] = max(errs[f"{op}_{direction}"],
+                                                _max_abs_err(cpu[i], card[i]),
+                                                _max_abs_err(card_plain[i], card[i]))
+    calls = {f"{op}/{path}": n for (op, path), n in activation_launches.launches_by_path.items()}
+    line = {"check": "gelu and leaky_relu: kernels on the card vs plain on the CPU and on the "
+                     "card, bit for bit", **out, "calls": calls, "max_abs_err": errs}
     print(json.dumps(line), flush=True)
-    bad = [k for k, v in out.items() if v["forward_mismatches"] or v["gradient_mismatches"]]
+    bad = [k for k, v in out.items() if any(v[m] for m in v if m.endswith("mismatches"))]
     if bad:
         raise AssertionError(f"activations differ on the card: {bad}")
+    want = {f"{op}/{path}": 2 for op in activations.OPS for path in activations.PATHS}
+    if device.type == "cuda" and calls != want:
+        raise AssertionError(f"activation calls {calls}, expected {want}")
     return line
+
+
+# The activation kernels' timings: the transformer's critic-loop call, both
+# fakes (2B = 1024 rows, L = 128, 4 x d_model = 256), bfloat16. The bound is
+# the bytes: the tensors each kernel reads and writes once.
+ACT_TIME_SHAPE = (2 * TIME_BATCH, SEQ, 256)
+ACT_TENSORS_MOVED = {"gelu_fwd": 2, "gelu_bwd": 3, "leaky_fwd": 2, "leaky_bwd": 3}
+
+
+def time_activations(device, shape=ACT_TIME_SHAPE, iters: int = 50) -> list:
+    """The card's path of each activation and direction (``ops/activations.py``:
+    a kernel of ``csrc/activations.cu``, or ``F.leaky_relu`` for leaky_relu's
+    forward) at ``shape`` in bfloat16, against the plain chain doing the same
+    work (its backward through autograd, as a step runs it) and the bound in
+    bytes."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    x = (torch.randn(shape, generator=gen, device=device) * 2).to(torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    xg = x.detach().requires_grad_()
+    plain_out = {"gelu": layers.plain_gelu(xg), "leaky": layers.plain_leaky_relu(xg)}
+    slope = layers._in_dtype(0.2, torch.bfloat16)
+    n = x.numel()
+    lines = []
+    for op in activations.OPS:
+        act = op.split("_")[0]
+        if op.endswith("fwd"):
+            fn = layers.plain_gelu if act == "gelu" else layers.plain_leaky_relu
+            with torch.no_grad():
+                plain_ms = time_ms(lambda: fn(x), iters)
+        else:
+            plain_ms = time_ms(lambda: torch.autograd.grad(plain_out[act], xg, g,
+                                                           retain_graph=True), iters)
+        if op in activations.KERNEL_OPS:
+            route = "cuda"
+            card = lambda op=op: activations._launch(op, x, None if op == "gelu_fwd" else g, slope)
+        else:
+            route = "F.leaky_relu"
+            card = lambda: F.leaky_relu(x, slope)
+        with torch.no_grad():
+            ms = time_ms(card, iters)
+        bound = ACT_TENSORS_MOVED[op] * n * x.element_size() / PEAK_BYTES_PER_S * 1e3
+        line = {"timing": f"activation {op}", "route": route, "dtype": "bfloat16",
+                "shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes", "ms_over_bound": ms / bound}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    return lines
+
+
+class plain_activations:
+    """Inside: every module of the port that bound ``layers.gelu`` or
+    ``layers.leaky_relu`` calls the plain functions instead (phase 5l's
+    control, for the smoke only)."""
+
+    PATCHED = {"gelu": layers.plain_gelu, "leaky_relu": layers.plain_leaky_relu}
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name)) for mod in (layers, gan_models, generators)
+                      for name in self.PATCHED if hasattr(mod, name)]
+        for mod, name, _ in self.saved:
+            setattr(mod, name, self.PATCHED[name])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> list:
+    """Phase 5l: for the ``flag`` recipe (``kind`` "bfloat16") and ``varlen2``
+    (the masked step with lambda_speed 2), GRAPH_CHECK_BATCHES graphed
+    steps from one state (``init_gan_state(0)``), once as shipped and once
+    with the activations patched to the plain functions: the traces (every
+    loss) and every state tensor must be bit-equal. The shipped steps must
+    call the kernels on every activation, and the masked step must make
+    (n_critic + 2) x layers gelu forwards and 2 x layers gelu backwards a
+    step (the critic loop's generator calls and the joint step's two)."""
+    lines = []
+    for kind, recipe in (("bfloat16", "flag"), ("masked", "varlen2")):
+        mcfg, tcfg, batches, epoch_fn, _ = _graph_check_inputs(device, kind, batch, model)
+        if recipe == "varlen2":
+            tcfg = dataclasses.replace(tcfg, lambda_speed=2.0)
+        runs = {}
+        for path in ("kernels", "plain"):
+            state = init_gan_state(0, mcfg, device)
+            reset_launches(activation_launches)
+            if path == "plain":
+                with plain_activations():
+                    _, traces = epoch_fn(state, batches, GRAPH_CHECK_LR, mcfg, tcfg,
+                                         graph=StepGraph())
+            else:
+                _, traces = epoch_fn(state, batches, GRAPH_CHECK_LR, mcfg, tcfg,
+                                     graph=StepGraph())
+            _sync(device)
+            runs[path] = (state, traces, {f"{op}/{p}": n / GRAPH_CHECK_BATCHES for (op, p), n
+                                          in activation_launches.launches_by_path.items() if n})
+        (a, ta, calls), (b, tb, plain_calls) = runs["kernels"], runs["plain"]
+        loss_diff = max((ta[k] - tb[k]).abs().max().item() for k in ta)
+        line = {"check": "graphed steps with the activation kernels vs the plain chain",
+                "recipe": recipe, "batch": batch, "steps": GRAPH_CHECK_BATCHES,
+                "max_abs_loss_diff": loss_diff, "max_abs_state_diff": _state_diff(a, b),
+                "calls_per_step": calls, "plain_run_calls_per_step": plain_calls}
+        line["bit_equal"] = line["max_abs_loss_diff"] == 0.0 == line["max_abs_state_diff"]
+        print(json.dumps(line), flush=True)
+        if not line["bit_equal"]:
+            raise AssertionError(f"the activation kernels change the {recipe} steps: {line}")
+        if plain_calls:
+            raise AssertionError(f"the patched {recipe} steps still called the dispatchers: {line}")
+        if device.type == "cuda":
+            if any(k.endswith("/plain") for k in calls):
+                raise AssertionError(f"a plain activation call in the {recipe} steps: {line}")
+            if kind == "masked":
+                layers_n = mcfg.tfm_num_layers
+                want = {"gelu_fwd/cuda": (tcfg.n_critic + 2) * layers_n,
+                        "gelu_bwd/cuda": 2 * layers_n}
+                got = {k: calls.get(k) for k in want}
+                if got != want:
+                    raise AssertionError(f"gelu calls a masked step {got}, expected {want}")
+        lines.append(line)
+    return lines
 
 
 def _nudge(state: dict, seed: int) -> dict:
@@ -2909,11 +3078,11 @@ def main() -> int:
                       "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}), flush=True)
 
     t0 = time.perf_counter()
-    logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw", "threefry"])
+    logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw", "threefry", "activations"])
     for name, log in logs.items():
         kernel = ""
         for line in log.splitlines():
-            entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw|threefry)_\w+?kernel)"
+            entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw|threefry|activation)_\w+?kernel)"
                               r"(?:ILi(\d)E(?:Li(\d)E)?|I(f|13__nv_bfloat16))?", line)
             if entry:   # the mangled name: kernel, then its H/16 (and tile) or type arguments
                 kernel = entry.group(1) + "".join(f"<{g.replace('13__nv_', '')}>"
@@ -2961,7 +3130,9 @@ def main() -> int:
     eager_determinism(device)
     draw_check = check_threefry(device)
     draws_card_vs_cpu(device)
-    check_activations(device)
+    activation_check = check_activations(device)
+    activation_times = time_activations(device)
+    activation_steps = activation_paths_bit_equal(device)
     for kind in ("flagship", "masked"):
         bf16_step_vs_cpu(device, kind)
     precision_flags(device)
@@ -3138,7 +3309,21 @@ def main() -> int:
         "bound_ms": draw_check["timing"]["step"]["bound_ms"],
         "bound_by": draw_check["timing"]["step"]["bound_by"], "library_ms": None,
         "ms_5x512x32": draw_check["timing"]["5x512x32"]["ms"],
-    }]
+    }] + [{
+        # gelu's two directions and leaky_relu's backward, one pass each (no
+        # pl.pallas_call: XLA fuses them into their neighbours); timed at the
+        # transformer's critic-loop call in bfloat16; calls a graphed step of
+        # the flag and varlen2 recipes; the error: phase 5i's against either
+        # plain chain, and phase 5l's largest loss and state differences.
+        "name": t["timing"].split()[-1], "route": "cuda",
+        "source": "wordgesture_gan_tpu_torch/csrc/activations.cu", "replaces": None,
+        "calls_per_graphed_step": {line["recipe"]: line["calls_per_step"].get(
+            t["timing"].split()[-1] + "/cuda", 0) for line in activation_steps},
+        "max_abs_err": max([activation_check["max_abs_err"][t["timing"].split()[-1]]]
+                           + [line[k] for line in activation_steps
+                              for k in ("max_abs_loss_diff", "max_abs_state_diff")]),
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+    } for t in activation_times if t["route"] == "cuda"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

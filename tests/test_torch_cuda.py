@@ -20,7 +20,8 @@ the tensor-core kernel for bfloat16 and a float32 cluster kernel (tiles of 4
 or 8 samples) at those H, the general CUDA-core kernel elsewhere; all are
 covered below. Kernel 4
 (DTW, float32 only) is held to 1e-4 of each distance: it adds costs along the
-path where the plain version subtracts prefix sums.
+path where the plain version subtracts prefix sums. The activation kernels
+(gelu, leaky_relu) equal their plain op-by-op chains bit for bit.
 """
 
 import numpy as np
@@ -29,7 +30,9 @@ import torch
 
 from wordgesture_gan_tpu_torch.configs import ModelConfig
 from wordgesture_gan_tpu_torch.models.gan import Generator
+from wordgesture_gan_tpu_torch.models import layers
 from wordgesture_gan_tpu_torch.models.layers import BiLSTM
+from wordgesture_gan_tpu_torch.ops.activations import activation_launches
 from wordgesture_gan_tpu_torch.ops import bilstm_fused
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         sample_tile)
@@ -561,3 +564,168 @@ def test_graphed_epoch_refuses_a_gloo_group(cuda_device, tmp_path):
     finally:
         dist.destroy_process_group()
     assert state["epoch"] == 0 and all(state[m]["opt"]["count"] == 0 for m in ("g", "d1"))
+
+
+# -- the activation kernels (ops/activations.py) against the plain op-by-op chain ------------
+
+ACTIVATIONS = {"gelu": (layers.gelu, layers.plain_gelu, "gelu"),
+               "leaky_relu": (layers.leaky_relu, layers.plain_leaky_relu, "leaky")}
+ACTIVATION_F32_N = 1 << 20
+
+
+def _activation_inputs(dtype, device, seed: int = 13):
+    """(x, g): every bfloat16 value, or 2^20 float32 inputs from N(0, 3^2)
+    with both zeros, both infinities, NaN, tanh's clamp (±7.99881), its
+    saturation (±20) and small-argument (|x| < 4e-4) branches, the extremes;
+    each against a cotangent from N(0, 1) that starts with ±0, ±inf, NaN."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.bfloat16:
+        x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    else:
+        special = [0.0, -0.0, np.inf, -np.inf, np.nan, 7.99881172180175781, -7.99881172180175781,
+                   20.0, -20.0, 19.999998, 4e-4, -4e-4, 3.9999998e-4, 1e-38, -1e-38, 1e-45,
+                   3.4e38, -3.4e38]
+        small = rng.uniform(-4e-4, 4e-4, 4096)
+        x = torch.from_numpy(np.concatenate([special, small, rng.normal(
+            0, 3, ACTIVATION_F32_N - len(special) - len(small))]).astype(np.float32))
+    g = rng.normal(size=x.shape[0]).astype(np.float32)
+    g[:5] = [0.0, -0.0, np.inf, -np.inf, np.nan]
+    return x.to(device), torch.from_numpy(g).to(dtype).to(device)
+
+
+def _every_bf16_cotangent(x: torch.Tensor) -> torch.Tensor:
+    """Every bfloat16 value once, in a fixed shuffled order, against ``x``:
+    the backward's second operand in its subnormals, zeros, infinities and
+    NaNs too."""
+    perm = torch.from_numpy(np.random.default_rng(29).permutation(x.shape[0]))
+    every = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    return every[perm].to(x.device)
+
+
+def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements whose bits differ (NaN counts as equal to NaN)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    return int((~same).sum())
+
+
+def _act_forward_backward(fn, x: torch.Tensor, g: torch.Tensor):
+    x = x.detach().requires_grad_()     # x's own storage, offset and strides
+    y = fn(x)
+    y.backward(g)
+    return y, x.grad
+
+
+def _assert_act_equal(got, want):
+    assert got[0].dtype == want[0].dtype and got[1].dtype == want[1].dtype
+    assert (_bits_differ(got[0], want[0]), _bits_differ(got[1], want[1])) == (0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(ACTIVATIONS))
+def test_activation_kernels_equal_the_plain_chain(cuda_device, name, dtype):
+    """Forward and gradient bit-equal to the plain function on the card,
+    over every bfloat16 input and the float32 sample: one kernel launch
+    each way, no plain call. In bfloat16 the backward is held again
+    against cotangents that take every bfloat16 value."""
+    fn, plain, op = ACTIVATIONS[name]
+    x, g = _activation_inputs(dtype, cuda_device)
+    before = dict(activation_launches.launches_by_path)
+    got = _act_forward_backward(fn, x, g)
+    moved = {k: v - before[k] for k, v in activation_launches.launches_by_path.items()
+             if v != before[k]}
+    assert moved == {(f"{op}_fwd", "cuda"): 1, (f"{op}_bwd", "cuda"): 1}
+    _assert_act_equal(got, _act_forward_backward(plain, x, g))
+    if dtype == torch.bfloat16:
+        g = _every_bf16_cotangent(x)
+        _assert_act_equal(_act_forward_backward(fn, x, g), _act_forward_backward(plain, x, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(ACTIVATIONS))
+def test_activation_kernels_keep_a_strided_dense_layout(cuda_device, name, dtype):
+    """The temporal critic's operand: a conv output (B, C, L) transposed to
+    (B, L, C) plus a bias, dense but not contiguous. The output keeps its
+    strides; the cotangent comes in another layout (contiguous, and
+    expanded from a sum). A slice that is not dense is made contiguous; a
+    dense view one element off 16-byte alignment is copied to an aligned
+    one."""
+    fn, plain, _ = ACTIVATIONS[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    conv = torch.randn(7, 33, 129, generator=gen, device=cuda_device).to(dtype)
+    x = conv.transpose(1, 2) + torch.randn(33, generator=gen, device=cuda_device).to(dtype)
+    assert not x.is_contiguous()
+    y = fn(x)
+    assert y.stride() == x.stride()
+    g = torch.randn(x.shape, generator=gen, device=cuda_device).to(dtype)
+    _assert_act_equal(_act_forward_backward(fn, x, g), _act_forward_backward(plain, x, g))
+    ones = torch.ones((), dtype=dtype, device=cuda_device).expand(x.shape)
+    _assert_act_equal(_act_forward_backward(fn, x, ones), _act_forward_backward(plain, x, ones))
+    sliced = x[:, 1:, 3:]
+    _assert_act_equal(_act_forward_backward(fn, sliced, g[:, 1:, 3:]),
+                      _act_forward_backward(plain, sliced, g[:, 1:, 3:]))
+    shifted, g_shifted = conv.reshape(-1)[1:], g.reshape(-1)[1:]
+    assert shifted.data_ptr() % 16 != 0
+    _assert_act_equal(_act_forward_backward(fn, shifted, g_shifted),
+                      _act_forward_backward(plain, shifted, g_shifted))
+
+
+@pytest.mark.parametrize("shape", [(0,), (0, 5), (1,), (), (3,), (9,), (4, 1, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(ACTIVATIONS))
+def test_activation_kernels_on_empty_and_small_tensors(cuda_device, name, dtype, shape):
+    """Empty tensors launch nothing; one element and sizes below a 16-byte
+    pack run through the tail."""
+    fn, plain, _ = ACTIVATIONS[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 3).to(dtype)
+    g = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    got = _act_forward_backward(fn, x, g)
+    assert got[0].shape == x.shape and got[1].shape == x.shape
+    _assert_act_equal(got, _act_forward_backward(plain, x, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(ACTIVATIONS))
+def test_activation_kernels_inside_a_captured_graph(cuda_device, name, dtype):
+    """Forward and backward captured as one CUDA graph, replayed twice on new
+    inputs written into its static buffers: each replay bit-equal to the
+    plain chain on those inputs."""
+    fn, plain, _ = ACTIVATIONS[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    static_x = torch.randn(1024, 256, generator=gen, device=cuda_device).to(dtype)
+    static_g = torch.randn(1024, 256, generator=gen, device=cuda_device).to(dtype)
+
+    def step():
+        x = static_x.detach().requires_grad_()
+        y = fn(x)
+        (dx,) = torch.autograd.grad(y, x, static_g)
+        return y, dx
+
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for scale in (3.0, 0.25):
+        static_x.copy_(torch.randn(static_x.shape, generator=gen, device=cuda_device) * scale)
+        static_g.copy_(torch.randn(static_g.shape, generator=gen, device=cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_act_equal(out, _act_forward_backward(plain, static_x, static_g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+@pytest.mark.parametrize("name", list(ACTIVATIONS))
+def test_other_dtypes_raise_on_the_card(cuda_device, name, dtype):
+    """A card tensor of a dtype the kernels do not take raises, and counts
+    nothing: the plain chain runs on the CPU only."""
+    fn, _, _ = ACTIVATIONS[name]
+    x = torch.linspace(-3, 3, 11, dtype=dtype, device=cuda_device)
+    before = dict(activation_launches.launches_by_path), activation_launches.launches
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fn(x)
+    assert (dict(activation_launches.launches_by_path), activation_launches.launches) == before

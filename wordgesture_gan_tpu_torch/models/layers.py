@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import activations
 from ..utils import prng
 
 Key = Optional[torch.Tensor]
@@ -57,9 +58,13 @@ def jax_products():
 # first rounded to that dtype (0.2 is 0.2001953125 in bfloat16), and XLA's
 # CPU backend rounds after every op of a bfloat16 expression. PyTorch
 # multiplies a bfloat16 tensor by a Python float in float32 and rounds once,
-# and its fused activations round once at the end. The activations below
-# are written op by op with the constants in x's dtype, so each op rounds
-# where JAX's does.
+# and its fused activations round once at the end. The plain activations
+# below (``plain_gelu``, ``plain_leaky_relu``) are written op by op with the
+# constants in x's dtype, so each op rounds where JAX's does. They are what
+# the CPU runs and the reference of the CUDA kernels (``ops/activations.py``),
+# which compute the same chain in one pass and equal them bit for bit;
+# ``gelu`` and ``leaky_relu`` take the kernels for a CUDA tensor (bfloat16 or
+# float32) and the plain functions for a CPU tensor.
 
 
 def _in_dtype(c: float, dtype: torch.dtype) -> float:
@@ -68,10 +73,16 @@ def _in_dtype(c: float, dtype: torch.dtype) -> float:
     return torch.tensor(c, dtype=dtype).item()
 
 
-def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
-    """``jax.nn.leaky_relu``: x where x >= 0, else x times the slope in x's
-    dtype; its gradient at 0 is 1, as JAX's is."""
+def plain_leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """``jax.nn.leaky_relu`` op by op: x where x >= 0, else x times the
+    slope in x's dtype; its gradient at 0 is 1, as JAX's is."""
     return torch.where(x >= 0, x, x * _in_dtype(slope, x.dtype))
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: ``plain_leaky_relu``'s bits, through the CUDA
+    kernels where they take ``x``."""
+    return activations.leaky_relu(x, _in_dtype(slope, x.dtype), plain_leaky_relu)
 
 
 # XLA's CPU tanh for float32 (the rational approximation its LLVM backend
@@ -150,10 +161,16 @@ class _Gelu(torch.autograd.Function):
         return (g * cdf + s) + (s * c1) * (xx * 3.0)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (the tanh approximation, JAX's default), bit for bit
-    in float32 and bfloat16 on the CPU, gradient included."""
+def plain_gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, JAX's default) op by op, bit
+    for bit in float32 and bfloat16 on the CPU, gradient included."""
     return _Gelu.apply(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``: ``plain_gelu``'s bits, through the CUDA kernels where
+    they take ``x``."""
+    return activations.gelu(x, plain_gelu)
 
 
 def cast_floats(tree, dtype: torch.dtype):

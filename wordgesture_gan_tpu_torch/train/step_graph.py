@@ -23,10 +23,10 @@ it recorded, so:
   * the first batch of the first epoch runs eagerly on the capture stream as
     the warm-up: a real step, after which cuBLAS and cuDNN workspaces, NCCL's
     communicator and the kernels' attributes exist before the capture;
-  * the launch counters of kernels 1-3, of the threefry draws and of the
-    gradient all-reduces are bumped in Python where a wrapper launches,
-    which a replay does not do: each replay adds the launches its capture
-    counted.
+  * the launch counters of kernels 1-3, of the threefry draws, of the
+    activations and of the gradient all-reduces are bumped in Python where
+    a wrapper launches, which a replay does not do: each replay adds the
+    launches its capture counted.
 
 A ``StepGraph`` captures again only when the state's tensors, the batch's
 shapes or the step's configuration change. There is no eager fallback: a
@@ -41,6 +41,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..ops.activations import activation_launches
 from ..ops.bilstm_fused import fused_bilstm_fwd
 from ..ops.bilstm_train import bilstm_train_bwd, bilstm_train_fwd
 from ..ops.threefry import threefry_draw
@@ -50,10 +51,10 @@ from ..utils.profiling import span
 from ..utils.tree import tree_leaves
 from .state import ADAM_B1, ADAM_B2, MODELS, inverse_bias_corrections
 
-# The launch counters a replay must advance: kernels 1-3, the draws and the
-# collectives.
+# The launch counters a replay must advance: kernels 1-3, the draws, the
+# activations and the collectives.
 COUNTED = (fused_bilstm_fwd, bilstm_train_fwd, bilstm_train_bwd, threefry_draw,
-           all_reduce_gradients)
+           activation_launches, all_reduce_gradients)
 
 NOISE_NAMES = ("z_rand", "eps_enc", "z1", "eps_rec", "eps2", "z_ms")
 
