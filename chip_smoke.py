@@ -100,7 +100,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    patched to the plain functions: losses and every state tensor
    bit-equal; the shipped steps call the kernels on every activation (no
    plain call), the masked step (n_critic + 2) x layers gelu forwards and
-   2 x layers backwards a step;
+   2 x layers backwards a step, and as many attention calls each way, all
+   through ``csrc/attention.cu``;
+5m. the transformer's attention core (``ops/attention.py``, the kernels of
+   ``csrc/attention.cu``) against the plain chain on the card, forward and
+   dq, dk, dv, at the masked step's calls (B = 1024 and 512, L = 128, four
+   heads of 16, the cell's masks), at head 8, in float32 and at lengths and
+   heads around the kernels' tiles (L from 1 to 256, h from 8 to 64), with
+   two float8 controls that must fail; two backward launches bit-equal;
+   each direction timed at the step's calls beside its bound, the plain
+   chain and ``F.scaled_dot_product_attention``;
 5j. one bfloat16 step of the flagship recipe and one masked bfloat16 step
    (the transformer, lambda_speed 2) on the card against the CPU (B=32, full
    width), each model's gradient distance and each loss within
@@ -225,6 +234,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -262,6 +272,8 @@ from wordgesture_gan_tpu_torch.models.layers import gelu, leaky_relu
 from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance, sinkhorn_matching_cost
 from wordgesture_gan_tpu_torch.ops import activations, build as kernel_build
 from wordgesture_gan_tpu_torch.ops.activations import activation_launches
+from wordgesture_gan_tpu_torch.ops import attention as attention_ops
+from wordgesture_gan_tpu_torch.ops.attention import attention_launches
 from wordgesture_gan_tpu_torch.ops import bilstm_fused, bilstm_train
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         fused_kernel_info, sample_tile)
@@ -1559,6 +1571,203 @@ class plain_activations:
             setattr(mod, name, fn)
 
 
+# -- the attention core (csrc/attention.cu) against the plain chain ----------------------
+#
+# Phase 5m. The kernels sum the chain's products and its softmax in another
+# order, so a value may differ from the chain's in its last bit, and a bf16
+# rounding of P, dP or a result that flips there moves by one bf16 step.
+# Each result (the forward's output, dq, dk, dv) is held to the plain chain
+# on the card (``generators.plain_attention`` under ``jax_products()``, its
+# backward by autograd) as ||kernel - chain|| / ||chain|| over the tensor,
+# within ATTN_LIMIT of the dtype: in bfloat16 2e-3, what a one-step flip
+# (2^-8) in a quarter of the elements reads (read on an H100: 3.5e-5 to
+# 6.1e-5 at L = 128, up to 1.9e-4 at other shapes, where a few flips are a
+# larger share of fewer elements); in float32 1e-5 (read: up to 4.6e-7, the
+# sums' order). Two controls run the chain with one rounding more, of P
+# (both ways) or of the logits to float8 (e4m3): each must land beyond the
+# limit in every result (read: 2.6e-2 and more).
+# Inputs: q, k, v from N(0, 1.5^2); masks of the cell's length mix (83.6% of
+# rows at full length, the rest 12 to L - 1), a row of padding keys only
+# where the batch has three rows or more.
+ATTN_LIMIT = {"bfloat16": 2e-3, "float32": 1e-5}
+# (B, L, H, h, dtype, masked): the critic loop's call and the joint step's,
+# head 8, float32; then lengths and heads around the kernels' tiles.
+ATTN_CHECKS = ((1024, 128, 4, 16, "bfloat16", True), (512, 128, 4, 16, "bfloat16", True),
+               (512, 128, 8, 8, "bfloat16", True), (512, 128, 4, 16, "bfloat16", False),
+               (512, 128, 4, 16, "float32", True), (512, 128, 8, 8, "float32", True),
+               (3, 12, 2, 8, "bfloat16", True), (7, 33, 2, 16, "bfloat16", True),
+               (9, 65, 4, 24, "bfloat16", True), (4, 64, 2, 32, "bfloat16", True),
+               (3, 100, 2, 48, "bfloat16", True), (2, 129, 2, 56, "bfloat16", True),
+               (5, 200, 3, 40, "bfloat16", True), (3, 256, 1, 64, "bfloat16", True),
+               (1, 1, 1, 8, "bfloat16", False), (3, 12, 2, 8, "float32", True),
+               (7, 33, 2, 24, "float32", True), (3, 256, 1, 64, "float32", True))
+ATTN_TIME_SHAPES = ((2 * TIME_BATCH, SEQ, 4, 16), (TIME_BATCH, SEQ, 4, 16))
+
+
+def attention_inputs(device, batch: int, seq: int, heads: int, head: int, dtype: torch.dtype,
+                     masked: bool = True, seed: int = 0) -> tuple:
+    """(qkv, mask or None, the output's cotangent) for phase 5m, drawn on
+    ``device`` from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = (torch.randn(batch, seq, 3, heads, head, generator=gen, device=device) * 1.5).to(dtype)
+    g = torch.randn(batch, seq, heads * head, generator=gen, device=device).to(dtype)
+    if not masked:
+        return qkv, None, g
+    full = torch.rand(batch, generator=gen, device=device) < 0.836
+    short = torch.randint(min(12, seq), seq + 1, (batch,), generator=gen, device=device)
+    lengths = torch.where(full, seq, short)
+    if batch >= 3:
+        lengths[2] = 0
+    mask = (torch.arange(seq, device=device)[None, :] < lengths[:, None]).to(torch.float32)
+    return qkv, mask, g
+
+
+def _to_float8(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to float8 e4m3, its gradient passed straight through."""
+    return x + (x.to(torch.float8_e4m3fn).to(x.dtype) - x).detach()
+
+
+class _Float8Softmax(torch.autograd.Function):
+    """softmax rounded to float8 e4m3, forward and backward: the gradient
+    P (g - sum P g) of the rounded P, as a kernel that rounds P would give."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        p = torch.softmax(logits, dim=-1).to(torch.float8_e4m3fn).to(logits.dtype)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        return p * (g - (p * g).sum(dim=-1, keepdim=True))
+
+
+def attention_control(qkv: torch.Tensor, mask, rounded: str) -> torch.Tensor:
+    """``generators.plain_attention`` with P ("P") or the logits ("logits")
+    rounded to float8: phase 5m's controls."""
+    B, L, _, H, h = qkv.shape
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    logits = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) / math.sqrt(h)
+    if rounded == "logits":
+        logits = _to_float8(logits)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :] > 0, logits, -1e30)
+    attn = _Float8Softmax.apply(logits) if rounded == "P" else torch.softmax(logits, dim=-1)
+    return (attn.to(v.dtype) @ v).transpose(1, 2).reshape(B, L, H * h)
+
+
+def _attention_results(fn, qkv: torch.Tensor, mask, g: torch.Tensor) -> dict:
+    """{"out", "dq", "dk", "dv"} of ``fn(qkv, mask)`` against cotangent ``g``."""
+    x = qkv.detach().requires_grad_()
+    with layers.jax_products():
+        out = fn(x, mask)
+        (dqkv,) = torch.autograd.grad(out, x, g)
+    return {"out": out.detach(), "dq": dqkv[:, :, 0], "dk": dqkv[:, :, 1], "dv": dqkv[:, :, 2]}
+
+
+def attention_case(device, batch: int, seq: int, heads: int, head: int, dtype_name: str,
+                   masked: bool = True, seed: int = 0) -> dict:
+    """One case of phase 5m: the dispatcher (the kernels on the card) and the
+    controls against the plain chain, each result's relative distance; two
+    backward launches bit-equal; the launches counted."""
+    dtype = getattr(torch, dtype_name)
+    qkv, mask, g = attention_inputs(device, batch, seq, heads, head, dtype, masked, seed)
+    want = _attention_results(generators.plain_attention, qkv, mask, g)
+    dispatched = lambda x, m: attention_ops.attention(x, m, generators.plain_attention)
+    reset_launches(attention_launches)
+    got = _attention_results(dispatched, qkv, mask, g)
+    calls = {f"{op}/{p}": n for (op, p), n in attention_launches.launches_by_path.items() if n}
+    again = _attention_results(dispatched, qkv, mask, g)
+    line = {"check": "attention kernels vs the plain chain on the card",
+            "shape": [batch, seq, heads, head], "dtype": dtype_name, "masked": masked,
+            "limit": ATTN_LIMIT[dtype_name], "calls": calls,
+            "rel_l2": {k: _rel_l2([got[k].double()], [want[k].double()]) for k in want},
+            "max_abs_err": {k: float((got[k].double() - want[k].double()).abs().max())
+                            for k in want},
+            "finite": all(bool(torch.isfinite(t).all()) for t in got.values()),
+            "deterministic": all(torch.equal(got[k], again[k]) for k in got)}
+    for rounded in ("P", "logits"):
+        control = _attention_results(lambda x, m: attention_control(x, m, rounded), qkv, mask, g)
+        line[f"control_{rounded}_rel_l2"] = {
+            k: _rel_l2([control[k].double()], [want[k].double()]) for k in want}
+    return line
+
+
+def check_attention(device, cases=ATTN_CHECKS, strict: bool = True) -> list:
+    """Phase 5m: every case of ``cases`` (``attention_case``); each result
+    within the limit, finite and bit-equal across two launches, each control
+    beyond it wherever the case is large enough to show it (L >= 64), one
+    kernel launch each way a call and no plain call."""
+    lines = []
+    for case in cases:
+        line = attention_case(device, *case)
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        limit = line["limit"]
+        bad = [k for k, v in line["rel_l2"].items() if not v <= limit]
+        if case[1] >= 64:
+            bad += [f"control_{r}:{k}" for r in ("P", "logits")
+                    for k, v in line[f"control_{r}_rel_l2"].items() if not v > limit]
+        if not (line["finite"] and line["deterministic"]):
+            bad.append("finite/deterministic")
+        if device.type == "cuda" and line["calls"] != {"attention_fwd/cuda": 1,
+                                                       "attention_bwd/cuda": 1}:
+            bad.append(f"calls {line['calls']}")
+        if bad and strict:
+            raise AssertionError(f"attention {case}: {bad}")
+    return lines
+
+
+def time_attention(device, shapes=ATTN_TIME_SHAPES, iters: int = 50) -> list:
+    """The attention kernels at the masked step's calls, in bfloat16 with the
+    cell's masks: each direction's ms (CUDA events) beside its bound
+    (``portbench.attention_bounds``), the plain chain doing the same work
+    (its backward through autograd, as a step runs it) and
+    ``F.scaled_dot_product_attention`` with a boolean mask, the one-call
+    library yardstick (not bit-compatible: the port never calls it)."""
+    from portbench.attention_bounds import attention_bounds_ms
+
+    lines = []
+    for batch, seq, heads, head in shapes:
+        qkv, mask, g = attention_inputs(device, batch, seq, heads, head, torch.bfloat16, seed=3)
+        mask[2] = 1.0     # SDPA gives NaN for a row of padding keys only
+        qkv = qkv.contiguous()
+        bounds = attention_bounds_ms(batch, seq, heads, head, "bfloat16")
+        xg = qkv.detach().requires_grad_()
+        with layers.jax_products():
+            plain_out = generators.plain_attention(xg, mask)
+        q, k, v = (xg[:, :, i].transpose(1, 2) for i in range(3))
+        keep = (mask > 0)[:, None, None, :]
+        sdpa_out = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        g4 = g.reshape(batch, seq, heads, head).transpose(1, 2)
+        with torch.no_grad(), layers.jax_products():
+            runs = {
+                "fwd": (lambda: attention_ops._launch("attention_fwd", qkv, mask),
+                        lambda: generators.plain_attention(qkv, mask),
+                        lambda: F.scaled_dot_product_attention(q.detach(), k.detach(),
+                                                               v.detach(), attn_mask=keep)),
+                "bwd": (lambda: attention_ops._launch("attention_bwd", qkv, mask, g),
+                        None, None)}
+            times = {d: [time_ms(fn, iters) if fn else None for fn in fns]
+                     for d, fns in runs.items()}
+        with layers.jax_products():
+            times["bwd"][1] = time_ms(lambda: torch.autograd.grad(
+                plain_out, xg, g, retain_graph=True), iters)
+            times["bwd"][2] = time_ms(lambda: torch.autograd.grad(
+                sdpa_out, xg, g4, retain_graph=True), iters)
+        for direction, (ms, plain_ms, library_ms) in times.items():
+            bound, by = bounds[direction]
+            line = {"timing": f"attention {direction}", "route": "cuda", "dtype": "bfloat16",
+                    "shape": [batch, seq, heads, head], "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+                    "ms_over_bound": ms / bound}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+    return lines
+
+
+
 def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> list:
     """Phase 5l: for the ``flag`` recipe (``kind`` "bfloat16") and ``varlen2``
     (the masked step with lambda_speed 2), GRAPH_CHECK_BATCHES graphed
@@ -1567,7 +1776,9 @@ def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> 
     loss) and every state tensor must be bit-equal. The shipped steps must
     call the kernels on every activation, and the masked step must make
     (n_critic + 2) x layers gelu forwards and 2 x layers gelu backwards a
-    step (the critic loop's generator calls and the joint step's two)."""
+    step (the critic loop's generator calls and the joint step's two), and
+    as many attention forwards and backwards, all through the attention
+    kernels (which run on both sides)."""
     lines = []
     for kind, recipe in (("bfloat16", "flag"), ("masked", "varlen2")):
         mcfg, tcfg, batches, epoch_fn, _ = _graph_check_inputs(device, kind, batch, model)
@@ -1576,7 +1787,7 @@ def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> 
         runs = {}
         for path in ("kernels", "plain"):
             state = init_gan_state(0, mcfg, device)
-            reset_launches(activation_launches)
+            reset_launches(activation_launches, attention_launches)
             if path == "plain":
                 with plain_activations():
                     _, traces = epoch_fn(state, batches, GRAPH_CHECK_LR, mcfg, tcfg,
@@ -1586,13 +1797,16 @@ def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> 
                                      graph=StepGraph())
             _sync(device)
             runs[path] = (state, traces, {f"{op}/{p}": n / GRAPH_CHECK_BATCHES for (op, p), n
-                                          in activation_launches.launches_by_path.items() if n})
-        (a, ta, calls), (b, tb, plain_calls) = runs["kernels"], runs["plain"]
+                                          in activation_launches.launches_by_path.items() if n},
+                          {f"{op}/{p}": n / GRAPH_CHECK_BATCHES for (op, p), n
+                           in attention_launches.launches_by_path.items() if n})
+        (a, ta, calls, attention_calls), (b, tb, plain_calls, _) = runs["kernels"], runs["plain"]
         loss_diff = max((ta[k] - tb[k]).abs().max().item() for k in ta)
         line = {"check": "graphed steps with the activation kernels vs the plain chain",
                 "recipe": recipe, "batch": batch, "steps": GRAPH_CHECK_BATCHES,
                 "max_abs_loss_diff": loss_diff, "max_abs_state_diff": _state_diff(a, b),
-                "calls_per_step": calls, "plain_run_calls_per_step": plain_calls}
+                "calls_per_step": calls, "plain_run_calls_per_step": plain_calls,
+                "attention_calls_per_step": attention_calls}
         line["bit_equal"] = line["max_abs_loss_diff"] == 0.0 == line["max_abs_state_diff"]
         print(json.dumps(line), flush=True)
         if not line["bit_equal"]:
@@ -1609,6 +1823,11 @@ def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> 
                 got = {k: calls.get(k) for k in want}
                 if got != want:
                     raise AssertionError(f"gelu calls a masked step {got}, expected {want}")
+                want = {"attention_fwd/cuda": (tcfg.n_critic + 2) * layers_n,
+                        "attention_bwd/cuda": 2 * layers_n}
+                if attention_calls != want:
+                    raise AssertionError(f"attention calls a masked step {attention_calls}, "
+                                         f"expected {want}")
         lines.append(line)
     return lines
 
@@ -2856,7 +3075,9 @@ def serve_family(device, workdir: Path, family: str, n=SERVE_N, batch=SERVE_BATC
     full width (seeded PyTorch-default weights written as a JAX-layout npz),
     bfloat16, monotone time head: the gestures' shape, range and clock, then
     a small request with injected noise against the CPU. These families run
-    no hand-written kernel; the first run's kernel-1 launches must be 0."""
+    no BiLSTM kernel: the first run's kernel-1 launches must be 0; the
+    transformer's attention takes ``csrc/attention.cu``, one forward a layer
+    a chunk, no plain call."""
     config = ModelConfig(generator_type=family, time_head="monotone", compute_dtype="bfloat16")
     tree = generator_init(config, prng.PRNGKey(0))
     weights = workdir / f"{family}.npz"
@@ -2868,10 +3089,16 @@ def serve_family(device, workdir: Path, family: str, n=SERVE_N, batch=SERVE_BATC
             "--out", str(out), "--device", device.type]
     stats = []
     for run in range(runs):
-        reset_launches(fused_bilstm_fwd)
+        reset_launches(fused_bilstm_fwd, attention_launches)
         stats.append(generate.main(argv))
         if run == 0 and fused_bilstm_fwd.launches:
             raise AssertionError(f"the {family} generator launched the BiLSTM kernel")
+        attention_calls = {f"{op}/{p}": n for (op, p), n
+                           in attention_launches.launches_by_path.items() if n}
+        layers_n = config.tfm_num_layers if family == "transformer" else 0
+        want = {"attention_fwd/cuda": chunk_layout(n, batch)[1] * layers_n} if layers_n else {}
+        if device.type == "cuda" and run == 0 and attention_calls != want:
+            raise AssertionError(f"{family}: attention calls {attention_calls}, expected {want}")
     with np.load(out) as data:
         check_gestures(data["gestures"], n, SEQ)
 
@@ -2887,6 +3114,7 @@ def serve_family(device, workdir: Path, family: str, n=SERVE_N, batch=SERVE_BATC
             "dtype": "bfloat16", "chunks": chunk_layout(n, batch)[1],
             "gestures_per_s_first_run": stats[0]["gestures_per_s"],
             "gestures_per_s": stats[-1]["gestures_per_s"], "seconds": stats[-1]["seconds"],
+            "attention_calls_last_run": attention_calls,
             "vs_cpu": {"n": len(protos), "max_abs_err": err,
                        "tolerance": TOLERANCE["bfloat16"]}}
     print(json.dumps(line), flush=True)
@@ -3078,13 +3306,15 @@ def main() -> int:
                       "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}), flush=True)
 
     t0 = time.perf_counter()
-    logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw", "threefry", "activations"])
+    logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw", "threefry", "activations",
+                               "attention"])
     for name, log in logs.items():
         kernel = ""
         for line in log.splitlines():
-            entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw|threefry|activation)_\w+?kernel)"
-                              r"(?:ILi(\d)E(?:Li(\d)E)?|I(f|13__nv_bfloat16))?", line)
-            if entry:   # the mangled name: kernel, then its H/16 (and tile) or type arguments
+            entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw|threefry|"
+                              r"activation|attn)_\w+?kernel)"
+                              r"(?:ILi(\d+)E(?:Li(\d)E)?|I(f|13__nv_bfloat16))?", line)
+            if entry:   # the mangled name: kernel, then its template arguments
                 kernel = entry.group(1) + "".join(f"<{g.replace('13__nv_', '')}>"
                                                   for g in entry.groups()[1:] if g)
             if "registers" in line or "spill" in line:
@@ -3133,6 +3363,8 @@ def main() -> int:
     activation_check = check_activations(device)
     activation_times = time_activations(device)
     activation_steps = activation_paths_bit_equal(device)
+    attention_checks = check_attention(device)
+    attention_times = time_attention(device)
     for kind in ("flagship", "masked"):
         bf16_step_vs_cpu(device, kind)
     precision_flags(device)
@@ -3323,7 +3555,21 @@ def main() -> int:
                            + [line[k] for line in activation_steps
                               for k in ("max_abs_loss_diff", "max_abs_state_diff")]),
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
-    } for t in activation_times if t["route"] == "cuda"]
+    } for t in activation_times if t["route"] == "cuda"] + [{
+        # The transformer's attention core, one launch each way (no
+        # pl.pallas_call: XLA fuses the JAX package's einsums and softmax);
+        # timed at the masked step's calls in bfloat16, beside
+        # F.scaled_dot_product_attention (the port never calls it); calls a
+        # graphed step of either recipe (phase 5l); the error: phase 5m's
+        # largest relative distance from the plain chain on the card.
+        "name": "attention_" + t["timing"].split()[-1], "route": "cuda",
+        "source": "wordgesture_gan_tpu_torch/csrc/attention.cu", "replaces": None,
+        "shape": t["shape"],
+        "calls_per_graphed_step": {line["recipe"]: line["attention_calls_per_step"].get(
+            "attention_" + t["timing"].split()[-1] + "/cuda", 0) for line in activation_steps},
+        "max_rel_l2": max(max(c["rel_l2"].values()) for c in attention_checks),
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    } for t in attention_times]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,7 +21,10 @@ or 8 samples) at those H, the general CUDA-core kernel elsewhere; all are
 covered below. Kernel 4
 (DTW, float32 only) is held to 1e-4 of each distance: it adds costs along the
 path where the plain version subtracts prefix sums. The activation kernels
-(gelu, leaky_relu) equal their plain op-by-op chains bit for bit.
+(gelu, leaky_relu) equal their plain op-by-op chains bit for bit. The
+attention kernels sum in another order than the plain chain: their results
+are held to it within ``chip_smoke.ATTN_LIMIT`` (its comment gives the
+reasons), against float8 controls that must fail.
 """
 
 import numpy as np
@@ -32,7 +35,10 @@ from wordgesture_gan_tpu_torch.configs import ModelConfig
 from wordgesture_gan_tpu_torch.models.gan import Generator
 from wordgesture_gan_tpu_torch.models import layers
 from wordgesture_gan_tpu_torch.models.layers import BiLSTM
+from wordgesture_gan_tpu_torch.models import generators
+from wordgesture_gan_tpu_torch.ops import attention
 from wordgesture_gan_tpu_torch.ops.activations import activation_launches
+from wordgesture_gan_tpu_torch.ops.attention import attention_launches
 from wordgesture_gan_tpu_torch.ops import bilstm_fused
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         sample_tile)
@@ -729,3 +735,112 @@ def test_other_dtypes_raise_on_the_card(cuda_device, name, dtype):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fn(x)
     assert (dict(activation_launches.launches_by_path), activation_launches.launches) == before
+
+
+# -- the attention kernels (ops/attention.py) against the plain chain ------------------------
+
+# (B, L, H, h, dtype, masked): the masked step's critic-loop call and joint-step call, head 8,
+# no mask (a fixed-length generator), float32; then lengths and heads around the tiles.
+ATTENTION_CASES = [(1024, 128, 4, 16, "bfloat16", True), (512, 128, 4, 16, "bfloat16", True),
+                   (512, 128, 8, 8, "bfloat16", True), (512, 128, 4, 16, "bfloat16", False),
+                   (512, 128, 4, 16, "float32", True), (3, 12, 2, 8, "bfloat16", True),
+                   (7, 33, 2, 16, "bfloat16", True), (2, 129, 2, 56, "bfloat16", True),
+                   (3, 256, 1, 64, "bfloat16", True), (7, 33, 2, 24, "float32", True)]
+
+
+@pytest.mark.parametrize("case", ATTENTION_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_attention_kernels_match_the_plain_chain(cuda_device, case):
+    """The forward's output and dq, dk, dv within ``chip_smoke.ATTN_LIMIT``
+    of the plain chain on the card (relative L2 over each tensor: 2e-3 in
+    bfloat16, a one-step flip in a quarter of the elements; 1e-5 in
+    float32, the sums' order), finite (a row of padding keys only included);
+    the float8 controls (P or the logits rounded) beyond it from L = 64 on;
+    one launch each way, no plain call (``chip_smoke.check_attention``
+    raises otherwise)."""
+    import chip_smoke
+
+    (line,) = chip_smoke.check_attention(cuda_device, cases=(case,))
+    assert line["finite"] and line["deterministic"]
+
+
+def _attention_grad(qkv, mask, g):
+    x = qkv.detach().requires_grad_()
+    out = attention.attention(x, mask, generators.plain_attention)
+    (dqkv,) = torch.autograd.grad(out, x, g)
+    return out, dqkv
+
+
+def test_attention_backward_is_bit_equal_across_launches(cuda_device):
+    """No atomics: two forwards and two backwards from the same inputs give
+    the same bits."""
+    import chip_smoke
+
+    qkv, mask, g = chip_smoke.attention_inputs(cuda_device, 512, 128, 4, 16, torch.bfloat16)
+    first, second = _attention_grad(qkv, mask, g), _attention_grad(qkv, mask, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_attention_kernels_inside_a_captured_graph(cuda_device):
+    """Forward and backward captured as one CUDA graph, replayed on new
+    inputs written into its static buffers: each replay bit-equal to the
+    kernels run eagerly on those inputs."""
+    import chip_smoke
+
+    static_qkv, static_mask, static_g = chip_smoke.attention_inputs(
+        cuda_device, 64, 128, 4, 16, torch.bfloat16, seed=1)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        _attention_grad(static_qkv, static_mask, static_g)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _attention_grad(static_qkv, static_mask, static_g)
+    for seed in (2, 3):
+        qkv, mask, g = chip_smoke.attention_inputs(cuda_device, 64, 128, 4, 16, torch.bfloat16,
+                                                   seed=seed)
+        static_qkv.copy_(qkv)
+        static_mask.copy_(mask)
+        static_g.copy_(g)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _attention_grad(qkv, mask, g)
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def test_masked_step_calls_only_the_attention_kernels(cuda_device):
+    """A graphed masked step (the transformer at full width, n_critic 5,
+    B=64) makes 28 attention forwards (5 critic-loop generator calls and 2
+    joint-step calls, 4 layers each) and 8 backwards, every one a kernel
+    launch, none plain; a replay counts what its capture counted."""
+    import chip_smoke
+    from wordgesture_gan_tpu_torch.train.state import init_gan_state
+    from wordgesture_gan_tpu_torch.train.step_graph import StepGraph
+
+    mcfg, tcfg, batches, epoch_fn, _ = chip_smoke._graph_check_inputs(cuda_device, "masked",
+                                                                      64, None)
+    state = init_gan_state(0, mcfg, cuda_device)
+    before = dict(attention_launches.launches_by_path)
+    epoch_fn(state, batches, 1e-4, mcfg, tcfg, graph=StepGraph())
+    torch.cuda.synchronize()
+    steps = batches["gesture"].shape[0]
+    moved = {k: (v - before[k]) / steps for k, v in attention_launches.launches_by_path.items()
+             if v != before[k]}
+    layers_n = mcfg.tfm_num_layers
+    assert moved == {("attention_fwd", "cuda"): (tcfg.n_critic + 2) * layers_n,
+                     ("attention_bwd", "cuda"): 2 * layers_n} == {
+        ("attention_fwd", "cuda"): 28, ("attention_bwd", "cuda"): 8}
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 12, 3, 2, 8), torch.float16),
+                                         ((2, 12, 3, 2, 12), torch.bfloat16),
+                                         ((2, 300, 3, 2, 16), torch.bfloat16),
+                                         ((2, 12, 3, 1, 80), torch.float32)])
+def test_attention_shapes_off_the_kernels_raise_on_the_card(cuda_device, shape, dtype):
+    """A card tensor the kernels do not take raises ValueError naming it and
+    counts nothing: the plain chain runs on the CPU only."""
+    qkv = torch.zeros(shape, dtype=dtype, device=cuda_device)
+    before = dict(attention_launches.launches_by_path)
+    with pytest.raises(ValueError, match=r"attention kernels take"):
+        attention.attention(qkv, None, generators.plain_attention)
+    assert dict(attention_launches.launches_by_path) == before

@@ -9,10 +9,10 @@ package's ``models/generators.py``).
 Both share the generator contract ``apply(params, prototype (B, L, 3),
 z (B, Z)) → gesture (B, L, 3)`` and are init/apply pairs over trees of
 float32 tensors in the JAX layout, like the rest of ``models/``. None of them
-reaches a hand-written kernel: they are batched matrix products, and the
-attention is written out as explicit products (not
-``scaled_dot_product_attention``) so that its precision and its padding
-rule are the JAX package's.
+reaches a hand-written kernel but the transformer's attention core, which
+on the card runs ``csrc/attention.cu`` (``ops/attention.py``) and on the CPU
+the plain chain of explicit products (not ``scaled_dot_product_attention``),
+so that its precision and its padding rule are the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
+from ..ops.attention import attention
 from ..utils import prng
 from .layers import Key, _key, cast_floats, dense_init, gelu, leaky_relu
 
@@ -117,24 +118,30 @@ def transformer_generator_init(config: ModelConfig = DEFAULT_MODEL_CONFIG,
     }
 
 
-def _attention(block: Dict, x: torch.Tensor, num_heads: int,
-               pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Multi-head self-attention. The logits are exact float32 products of
-    q and k (widened before the product, as JAX's ``preferred_element_type``
-    gives them) over sqrt(head); padding keys get -1e30, so an all-padding
-    row is a uniform softmax and stays finite. The weights are cast to v's
-    dtype, and the second product runs in it."""
-    B, L, D = x.shape
-    head = D // num_heads
-    qkv = _dense(block["qkv"], x).reshape(B, L, 3, num_heads, head)
+def plain_attention(qkv: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The attention core op by op, as the JAX package writes it: (B, L, 3,
+    H, h) projections to (B, L, H * h). The logits are exact float32
+    products of q and k (widened before the product, as JAX's
+    ``preferred_element_type`` gives them) over sqrt(head); padding keys get
+    -1e30, so an all-padding row is a uniform softmax and stays finite. The
+    weights are cast to v's dtype, and the second product runs in it. The
+    CPU's path and the oracle of the card's kernels (``ops/attention.py``)."""
+    B, L, _, H, head = qkv.shape
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))                 # (B, H, L, h)
     logits = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) / math.sqrt(head)
     if pad_mask is not None:
-        logits = torch.where(pad_mask[:, None, None, :] > 0, logits,
-                             torch.full_like(logits, -1e30))
+        logits = torch.where(pad_mask[:, None, None, :] > 0, logits, -1e30)
     attn = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = (attn @ v).transpose(1, 2).reshape(B, L, D)
-    return _dense(block["attn_out"], out)
+    return (attn @ v).transpose(1, 2).reshape(B, L, H * head)
+
+
+def _attention(block: Dict, x: torch.Tensor, num_heads: int,
+               pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Multi-head self-attention: the projections, the core (the card's
+    kernels or ``plain_attention``), the output projection."""
+    B, L, D = x.shape
+    qkv = _dense(block["qkv"], x).reshape(B, L, 3, num_heads, D // num_heads)
+    return _dense(block["attn_out"], attention(qkv, pad_mask, plain_attention))
 
 
 def transformer_generator_apply(params: Dict, prototype: torch.Tensor, z: torch.Tensor,
