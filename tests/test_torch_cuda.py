@@ -844,3 +844,162 @@ def test_attention_shapes_off_the_kernels_raise_on_the_card(cuda_device, shape, 
     with pytest.raises(ValueError, match=r"attention kernels take"):
         attention.attention(qkv, None, generators.plain_attention)
     assert dict(attention_launches.launches_by_path) == before
+
+
+# -- the sampling loop: each chunk a replay of a CUDA graph ----------------------------------
+
+
+TRANSFORMER = dict(generator_type="transformer", time_head="monotone", compute_dtype="bfloat16")
+
+
+def _sampling_inputs(config, n, seed=0):
+    """n prototypes and padding masks (lengths 12-L, as the variable-length
+    cell's) and an injected z."""
+    rng = np.random.default_rng(seed)
+    L = config.seq_length
+    protos = rng.uniform(-1, 1, (n, L, 3)).astype(np.float32)
+    masks = (np.arange(L)[None] < rng.integers(12, L + 1, n)[:, None]).astype(np.float32)
+    z = rng.normal(size=(n, config.latent_dim)).astype(np.float32)
+    return protos, masks, z
+
+
+def _eager_chunks(generator, protos, seed=0, truncation=1.0, batch=512, z=None, masks=None):
+    """The chunk loop run eagerly on the card: ``sample_chunk``, the function
+    the sampling graph captures, once a chunk with the chunk's own key."""
+    from wordgesture_gan_tpu_torch.train.sample_graph import chunk_keys, sample_chunk
+    from wordgesture_gan_tpu_torch.utils.chunking import chunk_layout, pad_to_chunks
+
+    n = len(protos)
+    chunk, n_chunks = chunk_layout(n, batch)
+    device = next(generator.parameters()).device
+
+    def rows(a):
+        return torch.from_numpy(pad_to_chunks(a, chunk, n_chunks)).to(device).unflatten(
+            0, (n_chunks, chunk))
+
+    inputs = {"proto": rows(protos)}
+    if masks is not None:
+        inputs["mask"] = rows(masks)
+    if z is not None:
+        inputs["z"] = rows(z)
+    else:
+        inputs["key"] = chunk_keys(seed, n_chunks).to(device)
+    with torch.inference_mode(), layers.jax_products():
+        outs = [sample_chunk(generator, truncation, **{k: v[c] for k, v in inputs.items()})
+                for c in range(n_chunks)]
+    return torch.cat(outs).cpu().numpy()[:n]
+
+
+def _sample(generator, protos, seed=0, truncation=1.0, batch=512, z=None, masks=None):
+    from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures
+
+    return generate_gestures(generator, protos, generator.config, truncation=truncation,
+                             seed=seed, batch=batch, device="cuda", z=z, masks=masks)
+
+
+def _graphs(generator):
+    from wordgesture_gan_tpu_torch.train.sample_graph import SampleGraph
+
+    return SampleGraph.of(generator)
+
+
+@pytest.mark.parametrize("n", [40, 256, 300])
+def test_graphed_sampling_equals_the_eager_chunks(cuda_device, n):
+    """The masked transformer at batch 64: one chunk, four, and five with a
+    ragged last. Two calls, bit-equal to the eager chunk loop on the card:
+    the first warms up and captures, the second replays every chunk."""
+    gen = Generator(ModelConfig(**TRANSFORMER), prng.PRNGKey(5)).to(cuda_device)
+    protos, masks, _ = _sampling_inputs(gen.config, n)
+    want = _eager_chunks(gen, protos, seed=11, batch=64, masks=masks)
+    chunks = -(-n // 64)
+    for call in range(2):
+        got = _sample(gen, protos, seed=11, batch=64, masks=masks)
+        np.testing.assert_array_equal(got, want)
+        assert (_graphs(gen).captures, _graphs(gen).replays) == (1, (call + 1) * chunks - 1)
+    assert np.abs(want).max() > 0 and (want[masks == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_graphed_sampling_of_the_bilstm(cuda_device, dtype):
+    """The flagship generator (kernel 1 on its bf16 or its float32 path) at
+    batch 128, three chunks, no masks: bit-equal to the eager chunks."""
+    gen = Generator(ModelConfig(time_head="monotone", compute_dtype=dtype),
+                    prng.PRNGKey(6)).to(cuda_device)
+    protos, _, _ = _sampling_inputs(gen.config, 300, seed=1)
+    want = _eager_chunks(gen, protos, seed=3, batch=128)
+    for _ in range(2):
+        np.testing.assert_array_equal(_sample(gen, protos, seed=3, batch=128), want)
+    assert (_graphs(gen).captures, _graphs(gen).replays) == (1, 5)
+
+
+@pytest.mark.parametrize("given_z,truncation", [(False, 0.7), (True, 1.0), (True, 0.7)])
+def test_graphed_sampling_with_z_and_truncation(cuda_device, given_z, truncation):
+    """An injected z, and the truncation, each captured as the eager loop
+    runs them; another truncation is another graph."""
+    gen = Generator(ModelConfig(**TRANSFORMER), prng.PRNGKey(7)).to(cuda_device)
+    protos, masks, z = _sampling_inputs(gen.config, 300, seed=2)
+    z = z if given_z else None
+    want = _eager_chunks(gen, protos, seed=4, truncation=truncation, batch=64, z=z, masks=masks)
+    for _ in range(2):
+        got = _sample(gen, protos, seed=4, truncation=truncation, batch=64, z=z, masks=masks)
+        np.testing.assert_array_equal(got, want)
+    other = _sample(gen, protos, seed=4, truncation=0.5, batch=64, z=z, masks=masks)
+    np.testing.assert_array_equal(
+        other, _eager_chunks(gen, protos, seed=4, truncation=0.5, batch=64, z=z, masks=masks))
+    assert _graphs(gen).captures == 2
+
+
+def test_graphed_sampling_draws_each_calls_own_keys(cuda_device):
+    """A second call at another seed replays the first call's graph with its
+    own keys in the static key buffer: that seed's draws, not stale ones."""
+    gen = Generator(ModelConfig(**TRANSFORMER), prng.PRNGKey(8)).to(cuda_device)
+    protos, masks, _ = _sampling_inputs(gen.config, 300, seed=3)
+    first = _sample(gen, protos, seed=21, batch=64, masks=masks)
+    second = _sample(gen, protos, seed=22, batch=64, masks=masks)
+    np.testing.assert_array_equal(first, _eager_chunks(gen, protos, seed=21, batch=64,
+                                                       masks=masks))
+    np.testing.assert_array_equal(second, _eager_chunks(gen, protos, seed=22, batch=64,
+                                                        masks=masks))
+    assert not np.allclose(first, second) and _graphs(gen).captures == 1
+
+
+def test_replaced_parameters_are_captured_again(cuda_device):
+    """A parameter replaced (a new storage) drops the graphs and the next
+    call captures anew; a parameter changed in place keeps the graph, which
+    reads the new values."""
+    gen = Generator(ModelConfig(**TRANSFORMER), prng.PRNGKey(9)).to(cuda_device)
+    protos, masks, _ = _sampling_inputs(gen.config, 300, seed=4)
+    _sample(gen, protos, seed=5, batch=64, masks=masks)
+    gen.out.w = torch.nn.Parameter(gen.out.w * 2)
+    got = _sample(gen, protos, seed=5, batch=64, masks=masks)
+    np.testing.assert_array_equal(got, _eager_chunks(gen, protos, seed=5, batch=64, masks=masks))
+    assert _graphs(gen).captures == 2 and len(_graphs(gen).graphs) == 1
+    with torch.no_grad():
+        gen.out.b.add_(0.25)
+    got = _sample(gen, protos, seed=5, batch=64, masks=masks)
+    np.testing.assert_array_equal(got, _eager_chunks(gen, protos, seed=5, batch=64, masks=masks))
+    assert _graphs(gen).captures == 2
+
+
+@pytest.mark.parametrize("family", ["transformer", "bilstm"])
+def test_graphed_sampling_counts_the_eager_loops_launches(cuda_device, family):
+    """A replay launches from no Python wrapper: each adds what its capture
+    counted, so a call counts the draws, kernel 1, the activations and the
+    attention the eager loop counts, capturing or replaying."""
+    from wordgesture_gan_tpu_torch.ops.threefry import threefry_draw
+    from wordgesture_gan_tpu_torch.train.step_graph import COUNTED, launch_counts
+
+    def launched(fn):
+        before = launch_counts()
+        fn()
+        return [(n1 - n0, {p: k - b0.get(p, 0) for p, k in b1.items()})
+                for (n0, b0), (n1, b1) in zip(before, launch_counts())]
+
+    fields = TRANSFORMER if family == "transformer" else dict(compute_dtype="bfloat16")
+    gen = Generator(ModelConfig(**fields), prng.PRNGKey(10)).to(cuda_device)
+    protos, masks, _ = _sampling_inputs(gen.config, 300, seed=5)
+    masks = masks if family == "transformer" else None
+    eager = launched(lambda: _eager_chunks(gen, protos, batch=64, masks=masks))
+    assert eager[COUNTED.index(threefry_draw)][0] == 5          # one draw a chunk
+    for _ in range(2):
+        assert launched(lambda: _sample(gen, protos, batch=64, masks=masks)) == eager

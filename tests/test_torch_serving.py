@@ -31,6 +31,7 @@ from wordgesture_gan_tpu_torch.models.gan import Generator
 from wordgesture_gan_tpu_torch.train.checkpoint import (load_generator, load_generator_weights,
                                                         load_run_metadata)
 from wordgesture_gan_tpu_torch.train.gan_loop import generate_gestures
+from wordgesture_gan_tpu_torch.train.sample_graph import chunk_keys
 from wordgesture_gan_tpu_torch.utils import chunking
 from wordgesture_gan_tpu_torch.utils import prng
 
@@ -134,6 +135,19 @@ def test_generate_gestures_at_a_seed_draws_jaxs_noise(seed):
     want = jax_generate_gestures({"g": {"params": params}}, protos, JaxModelConfig(**fields),
                                  truncation=0.7, seed=seed, batch=4)
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1, 2**33 + 5])
+def test_chunk_keys_are_each_chunks_fold_in(seed):
+    """A call's key stack, made before its chunk loop: row c is
+    ``fold_in(PRNGKey(seed), c)``, the port's and JAX's."""
+    keys = chunk_keys(seed, 33)
+    assert keys.shape == (33, 2) and keys.dtype == torch.int64
+    for c in range(33):
+        assert torch.equal(keys[c], prng.fold_in(prng.PRNGKey(seed), c))
+    want = jax.random.key_data(jax.vmap(jax.random.fold_in, (None, 0))(
+        jax.random.PRNGKey(seed & 0xFFFFFFFF), jnp.arange(33)))
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(want).astype(np.int64))
 
 
 def test_generate_gestures_rejects_bad_arguments():

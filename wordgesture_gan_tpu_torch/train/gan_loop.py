@@ -20,7 +20,9 @@ Under a profiler the stages of an epoch and of a sampling call are spans
 ``epoch.steps`` (``step_graph.py``), ``step.capture``, ``epoch.losses``,
 ``epoch.record``, ``epoch.callback``, ``epoch.checkpoint``; ``sample.call``
 around ``sample.pad``, ``sample.copy_in``, one ``sample.chunk`` a chunk with
-``sample.noise`` inside, ``sample.drain`` and ``sample.copy_out``."""
+``sample.noise`` inside (on a CUDA device a replay, and ``sample.capture``
+around a new chunk shape's warm-up chunk and capture), ``sample.drain`` and
+``sample.copy_out``."""
 
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from ..utils.profiling import Throughput, span
 from .checkpoint import restore_checkpoint, save_checkpoint, save_run_metadata
 from .gan_step import METRIC_KEYS, gan_train_epoch, gan_train_step, shuffle_batches
 from .history import append_history, truncate_history
+from .sample_graph import SampleGraph, chunk_keys, sample_chunk
 from .schedules import cosine_annealing_lr
 from .state import MODELS, init_gan_state
 from .step_graph import StepGraph
@@ -246,10 +249,11 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
     The prototypes are zero-padded to whole power-of-two chunks of at most
     ``batch`` rows (``utils/chunking.py``, the JAX package's layout) and the
     generator runs once per chunk on ``device``, through the inference
-    kernel. Chunk c draws its noise as the JAX package does,
-    ``normal(fold_in(PRNGKey(seed), c), (chunk, Z))``, on ``device``. ``z``
-    (n, Z), if given, replaces those draws (it is still scaled by
-    ``truncation``).
+    kernel (``sample_graph.sample_chunk``; on a CUDA device a replay of the
+    chunk's CUDA graph, ``sample_graph.SampleGraph``). Chunk c draws its
+    noise as the JAX package does, ``normal(fold_in(PRNGKey(seed), c),
+    (chunk, Z))``, on ``device``. ``z`` (n, Z), if given, replaces those
+    draws (it is still scaled by ``truncation``).
 
     ``masks`` (n, L), 1 = valid, if given, reach the generator as its
     padding mask (the transformer's), and the output is zeroed where a mask
@@ -268,29 +272,32 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
     chunk, n_chunks = chunk_layout(n, batch)
     with span("sample.call", items=n):
         with span("sample.pad"):
-            padded = [None if a is None else pad_to_chunks(a, chunk, n_chunks)
-                      for a in (prototypes, z, masks)]
+            padded = {k: pad_to_chunks(a, chunk, n_chunks)
+                      for k, a in (("proto", prototypes), ("z", z), ("mask", masks))
+                      if a is not None}
         with span("sample.copy_in"):
-            protos, noise, pad = [None if a is None else torch.from_numpy(a).to(device)
-                                  for a in padded]
+            # Every input as (n_chunks, ...): a row a chunk.
+            inputs = {k: torch.from_numpy(a).to(device).unflatten(0, (n_chunks, chunk))
+                      for k, a in padded.items()}
+            if z is None:
+                keys = chunk_keys(seed, n_chunks)
+                inputs["key"] = keys.pin_memory().to(device, non_blocking=True) \
+                    if device.type == "cuda" else keys.to(device)
             generator = generator.to(device)
-        key = prng.PRNGKey(seed)
-        outs = []
+        out = torch.empty((n_chunks, chunk, np.shape(prototypes)[1], config.input_dim),
+                          dtype=torch.float32, device=device)
         with torch.inference_mode():
-            for c in range(n_chunks):
-                with span("sample.chunk"):
-                    rows = slice(c * chunk, (c + 1) * chunk)
-                    with span("sample.noise"):
-                        eps = noise[rows] if noise is not None else prng.normal(
-                            prng.fold_in(key, c).to(device), (chunk, config.latent_dim))
-                    mask = None if pad is None else pad[rows]
-                    out = generator(protos[rows], eps * truncation, inference=True,
-                                    pad_mask=mask)
-                    outs.append(out if mask is None else out * mask[:, :, None])
+            if device.type == "cuda":
+                SampleGraph.of(generator).run(generator, truncation, inputs, out)
+            else:
+                for c in range(n_chunks):
+                    with span("sample.chunk"):
+                        out[c] = sample_chunk(generator, truncation,
+                                              **{k: v[c] for k, v in inputs.items()})
         # The wait for the last chunks, apart from the copy back (which
         # would wait for them all the same).
         with span("sample.drain"):
             if device.type == "cuda":
                 torch.cuda.current_stream(device).synchronize()
         with span("sample.copy_out"):
-            return torch.cat(outs).float().cpu().numpy()[:n]
+            return out.flatten(0, 1).cpu().numpy()[:n]

@@ -112,18 +112,25 @@ def step_draws(noise: Optional[Dict[str, torch.Tensor]], state: Dict, batch: int
     return step_noise(keys, batch, latent, n_critic)
 
 
-def _launch_counts() -> list:
+def launch_counts() -> list:
+    """The counters of ``COUNTED`` as they stand."""
     return [(c.launches, dict(getattr(c, "launches_by_path", {}))) for c in COUNTED]
 
 
-def _set_launch_counts(counts: list) -> None:
-    for c, (n, by_path) in zip(COUNTED, counts):
+def take_back_launches(before: list) -> list:
+    """What was counted since ``before`` (``launch_counts()``), set back out
+    of the counters: a capture launches nothing, and each replay adds what
+    it recorded (``add_launches``)."""
+    after = launch_counts()
+    for c, (n, by_path) in zip(COUNTED, before):
         c.launches = n
         if by_path:
             c.launches_by_path.update(by_path)
+    return [(n1 - n0, {p: k - b0.get(p, 0) for p, k in b1.items()})
+            for (n0, b0), (n1, b1) in zip(before, after)]
 
 
-def _add_launches(delta: list) -> None:
+def add_launches(delta: list) -> None:
     for c, (n, by_path) in zip(COUNTED, delta):
         c.launches += n
         for path, k in by_path.items():
@@ -168,16 +175,12 @@ class StepGraph:
         view = dict(state)
         for m in MODELS:
             view[m] = dict(state[m], opt=dict(state[m]["opt"], count=self._counts[m]))
-        before = _launch_counts()
+        before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=self._stream):
             _, metrics = step(view, self._batch, self._lr, self._noise)
             self._metrics = torch.stack([metrics[k].reshape(()) for k in metric_keys])
-        after = _launch_counts()
-        # The capture launched nothing: each replay adds what it recorded.
-        self._launches = [(n1 - n0, {p: k - b0.get(p, 0) for p, k in b1.items()})
-                          for (n0, b0), (n1, b1) in zip(before, after)]
-        _set_launch_counts(before)
+        self._launches = take_back_launches(before)
         self.captures += 1
 
     def run(self, step: Callable, state: Dict, epoch_batches: Dict[str, torch.Tensor], lr: float,
@@ -223,7 +226,7 @@ class StepGraph:
                     noise_at(i, self._noise)
                     self.graph.replay()
                     traces[i].copy_(self._metrics)
-                    _add_launches(self._launches)
+                    add_launches(self._launches)
             for m in MODELS:
                 state[m]["opt"]["count"] += (n - start) * self._updates[m]
             self.replays += n - start
