@@ -27,6 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
 import numpy as np
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu_torch.configs import ModelConfig, TrainingConfig
 from wordgesture_gan_tpu_torch.utils.tree import tree_leaves
@@ -197,7 +198,6 @@ def main() -> int:
                                                     shutdown_distributed)
 
     mode, out_dir = sys.argv[1], Path(sys.argv[2])
-    torch.set_num_threads(1)
     assert maybe_init_distributed("cpu", verbose=False, timeout=WORKER_TIMEOUT)
     mesh = create_mesh(2, device="cpu")
     rank = mesh.rank

@@ -29,7 +29,7 @@ the BiLSTM generator and the fixed-length step; or ``varlen2``
 masked step and variable-length batches. The data are the synthetic corpus
 the sweeps train on (``--synthetic-users 1338``), written to ``--zip`` when
 it is missing.
-``tests/test_torch_quality_runs.py`` runs this at a small size.
+``tests/test_torch_recipe_trajectory.py`` runs this at a small size.
 """
 
 from __future__ import annotations

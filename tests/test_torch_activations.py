@@ -16,6 +16,7 @@ import re
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu_torch.models import layers
 from wordgesture_gan_tpu_torch.ops import activations

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig
 from wordgesture_gan_tpu.models import gan as jax_gan

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu.configs import ContrastiveConfig as JaxContrastiveConfig
 from wordgesture_gan_tpu.data import contrastive as jax_data
@@ -59,16 +60,6 @@ SEQ = 32
 CONFIG = ContrastiveConfig(batch_words=8, gestures_per_word=2, num_epochs=3)
 JAX_CONFIG = JaxContrastiveConfig(batch_words=8, gestures_per_word=2, num_epochs=3)
 LR = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The small models here gain nothing from torch's thread pool, and beside
-    other test workers its threads only contend for the same cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def by_word(seed: int = 0, seq: int = SEQ, per_word=(2, 5)) -> dict:

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu import losses as jl
 from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig

@@ -30,6 +30,7 @@ reasons), against float8 controls that must fail.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu_torch.configs import ModelConfig
 from wordgesture_gan_tpu_torch.models.gan import Generator

@@ -16,6 +16,7 @@ import zipfile
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu import cli_common as jax_cli_common
 from wordgesture_gan_tpu import configs as jax_configs

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu.ops.dtw import dtw_distance_matrix as jax_dtw_distance_matrix
 from wordgesture_gan_tpu.ops.dtw import dtw_pairs as jax_dtw_pairs

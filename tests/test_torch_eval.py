@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu.configs import EvaluationConfig as JaxEvaluationConfig
 from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig
@@ -36,16 +37,6 @@ NO_AUTOENCODER = ("l2_wasserstein", "dtw_wasserstein", "jerk_real", "jerk_fake",
                   "recall")
 WORDS = ["hello", "world", "gesture", "keyboard", "swipe", "typing", "people", "water"]
 SEQ = 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The tiny models here gain nothing from torch's thread pool, and beside
-    other test workers its threads only contend for the same cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def dataset(seed: int, per_word: int, cls=GestureArrays):

@@ -12,6 +12,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu_torch.models.layers import BiLSTM
 from wordgesture_gan_tpu_torch.ops import bilstm_fused, bilstm_train

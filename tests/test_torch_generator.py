@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig
 from wordgesture_gan_tpu.models.gan import apply_time_head as jax_apply_time_head

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig
 from wordgesture_gan_tpu.metrics import large_scale as jax_ls
@@ -27,16 +28,6 @@ from wordgesture_gan_tpu_torch.ops.stats import knn_precision_recall
 from wordgesture_gan_tpu_torch.utils import prng
 
 SEQ = 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The small arrays here gain nothing from torch's thread pool, and beside
-    other test workers its threads only contend for the same cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def gestures(seed: int, n: int, seq: int = SEQ, drift: float = 0.0) -> np.ndarray:

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 import wordgesture_gan_tpu as jax_pkg
 from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig

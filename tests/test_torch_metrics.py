@@ -21,6 +21,7 @@ import pytest
 import scipy.signal
 import torch
 from scipy.optimize import linear_sum_assignment
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu.configs import EvaluationConfig as JaxEvaluationConfig
 from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig
@@ -43,16 +44,6 @@ from wordgesture_gan_tpu_torch.utils import prng
 SCALARS = ("l2_wasserstein", "dtw_wasserstein", "jerk_real", "jerk_fake", "velocity_corr",
            "acceleration_corr", "speed_profile_corr", "time_delta_corr", "ae_reconstruction_loss",
            "ae_test_loss", "fid", "fid_paper", "fid_positional", "precision", "recall")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The small arrays here gain nothing from torch's thread pool, and beside
-    other test workers its threads only contend for the same cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def gestures(seed: int, n: int, seq: int = 32) -> np.ndarray:

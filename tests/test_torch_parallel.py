@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _torch_parallel_worker as worker  # noqa: E402
@@ -134,7 +135,7 @@ def test_single_process_mesh_launches_nothing(clean_env):
     assert guard.agreed(mesh) is True
 
 
-def test_single_process_training_launches_no_collective(clean_env, tmp_path, one_thread):
+def test_single_process_training_launches_no_collective(clean_env, tmp_path):
     """``train_gan`` without a distributed environment: no process group, no
     gradient all-reduce, and the throughput counts one chip."""
     from wordgesture_gan_tpu_torch.train.gan_loop import train_gan
@@ -213,16 +214,8 @@ def _contrastive_init(path: Path, seed: int = 4) -> dict:
     return js
 
 
-@pytest.fixture(scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.mark.parametrize("mode", ["gan_step", "masked_step", "contrastive_step"])
-def test_two_ranks_match_one_process(mode, tmp_path, one_thread):
+def test_two_ranks_match_one_process(mode, tmp_path):
     """Two gloo ranks, each on its half of the global batch, against the
     single-process step on the whole batch from the same state and noise;
     one gradient all-reduce per gradient computation."""
@@ -243,7 +236,7 @@ def test_two_ranks_match_one_process(mode, tmp_path, one_thread):
         _compare(got[lr], want[lr], lr, adam_steps)
 
 
-def test_two_rank_contrastive_step_matches_jax(tmp_path, one_thread):
+def test_two_rank_contrastive_step_matches_jax(tmp_path):
     """The two-rank SupCon step (a word's gestures split across the ranks)
     against the JAX package's single-device step from the same state: the
     loss, Adam's moments at lr=0, the parameters after a step at lr=1e-3 and

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu.train.gan_step import make_epoch_batches as jax_make_epoch_batches
 from wordgesture_gan_tpu.train.masked_step import (

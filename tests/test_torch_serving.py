@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu import keyboard as jax_keyboard
 from wordgesture_gan_tpu.configs import ModelConfig as JaxModelConfig
@@ -324,3 +325,27 @@ def test_port_runs_with_jax_unimportable():
                             text=True, timeout=120)
     assert result.returncode == 0, result.stderr
     assert result.stdout.strip() == "ok"
+
+
+# -- one torch thread per test worker, set in one place ------------------------------
+
+def test_port_tests_take_their_thread_count_from_one_module():
+    """Every port test module and the two-rank worker import
+    ``tests/torch_threads.py`` at module level, and none sets torch's thread
+    count itself: a new test file cannot bring back a pool of threads per
+    xdist worker. This test runs on the one thread that module sets."""
+    files = sorted((REPO / "tests").glob("test_torch_*.py")) + [
+        REPO / "tests" / "_torch_parallel_worker.py"]
+    missing, setting = [], []
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        if not any(isinstance(node, ast.Import)
+                   and any(alias.name == "torch_threads" for alias in node.names)
+                   for node in tree.body):
+            missing.append(path.name)
+        setting += [f"{path.name}:{node.lineno}" for node in ast.walk(tree)
+                    if isinstance(node, ast.Attribute) and node.attr == "set_num_threads"]
+    assert len(files) > 25
+    assert not missing, missing
+    assert not setting, setting
+    assert torch.get_num_threads() == 1

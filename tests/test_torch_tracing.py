@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  one torch thread per test worker
 from tests.test_torch_train_step import LOOP, MODEL, _dataset
 from wordgesture_gan_tpu_torch.configs import ModelConfig, RuntimeConfig, TrainingConfig
 from wordgesture_gan_tpu_torch.models.gan import Generator
@@ -19,16 +20,6 @@ EPOCH_SPANS = ("epoch.shuffle", "epoch.steps", "epoch.losses", "epoch.record",
                "epoch.callback", "epoch.checkpoint")
 SAMPLE_SPANS = ("sample.call", "sample.pad", "sample.copy_in", "sample.chunk", "sample.noise",
                 "sample.drain", "sample.copy_out")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these steps are a few hundred tiny operations,
-    which a pool of threads only slows when the host's cores are shared."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _event_names(prof) -> set:

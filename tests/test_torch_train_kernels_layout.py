@@ -15,6 +15,7 @@ gradient's largest magnitude, and fed a single bf16 rounding it must not
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  one torch thread per test worker
 
 from wordgesture_gan_tpu_torch.models.layers import BiLSTM
 from wordgesture_gan_tpu_torch.ops import build as kernel_build
