@@ -100,8 +100,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    patched to the plain functions: losses and every state tensor
    bit-equal; the shipped steps call the kernels on every activation (no
    plain call), the masked step (n_critic + 2) x layers gelu forwards and
-   2 x layers backwards a step, and as many attention calls each way, all
-   through ``csrc/attention.cu``;
+   2 x layers backwards a step, as many attention calls each way, all
+   through ``csrc/attention.cu``, and 2 x layers + 1 times as many layer
+   norm calls each way (63 forwards, 18 backwards), all through
+   ``csrc/layernorm.cu``;
 5m. the transformer's attention core (``ops/attention.py``, the kernels of
    ``csrc/attention.cu``) against the plain chain on the card, forward and
    dq, dk, dv, at the masked step's calls (B = 1024 and 512, L = 128, four
@@ -110,6 +112,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    two float8 controls that must fail; two backward launches bit-equal;
    each direction timed at the step's calls beside its bound, the plain
    chain and ``F.scaled_dot_product_attention``;
+5n. the transformer's layer norm (``ops/layernorm.py``, the kernels of
+   ``csrc/layernorm.cu``) against the plain chain on the card, the output,
+   dx, dscale and dbias, at the masked step's calls (131,072 and 65,536
+   rows of D = 64 in bfloat16 and float32) and at odd and wide D (1 to
+   1024), with a float8 control that must fail; two launches bit-equal; a
+   float16 tensor refused; each call timed beside its bound in bytes, the
+   plain chain and ``F.layer_norm``;
 5j. one bfloat16 step of the flagship recipe and one masked bfloat16 step
    (the transformer, lambda_speed 2) on the card against the CPU (B=32, full
    width), each model's gradient distance and each loss within
@@ -233,6 +242,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -274,6 +284,8 @@ from wordgesture_gan_tpu_torch.ops import activations, build as kernel_build
 from wordgesture_gan_tpu_torch.ops.activations import activation_launches
 from wordgesture_gan_tpu_torch.ops import attention as attention_ops
 from wordgesture_gan_tpu_torch.ops.attention import attention_launches
+from wordgesture_gan_tpu_torch.ops import layernorm as layernorm_ops
+from wordgesture_gan_tpu_torch.ops.layernorm import layernorm_launches
 from wordgesture_gan_tpu_torch.ops import bilstm_fused, bilstm_train
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         fused_kernel_info, sample_tile)
@@ -1767,6 +1779,212 @@ def time_attention(device, shapes=ATTN_TIME_SHAPES, iters: int = 50) -> list:
     return lines
 
 
+# -- the layer norm (csrc/layernorm.cu) against the plain chain --------------------------
+#
+# Phase 5n. The kernels take the row's moments and the column sums of the
+# backward in another order than the chain's reductions, so a value may
+# differ from the chain's in its last bit, and a bf16 rounding that flips
+# there moves by one bf16 step. Each result (the output, dx, dscale, dbias)
+# is held to the plain chain on the card (``ops.layernorm.plain_layernorm``,
+# its backward by autograd) as ||kernel - chain|| / ||chain|| over the
+# tensor, within LN_LIMIT of the dtype: the attention's limits (ATTN_LIMIT)
+# and reasons. The control runs the chain with two roundings more: the
+# normalized value to float8 (e4m3, its gradient passed through) and the
+# cotangent to float8; it must land beyond the limit in every result.
+# Inputs: x from N(0.5, 2^2), the scale from N(1, 0.1^2), the bias from
+# N(0, 0.1^2), the cotangent from N(0, 1), drawn on the card from a seed.
+LN_LIMIT = ATTN_LIMIT
+# (rows, D, dtype): the critic loop's call (2B x L rows) and the joint
+# step's (B x L) at d_model 64 in bfloat16, the final norm's in float32;
+# then odd and wide D, a row or a few.
+LN_CHECKS = ((131072, 64, "bfloat16"), (65536, 64, "bfloat16"), (131072, 64, "float32"),
+             (65536, 64, "float32"), (1000, 37, "bfloat16"), (1000, 37, "float32"),
+             (999, 100, "bfloat16"), (333, 1024, "bfloat16"), (333, 1024, "float32"),
+             (7, 48, "bfloat16"), (5, 6, "float32"), (3, 1, "bfloat16"), (1, 64, "bfloat16"))
+# (rows, D, dtype, direction, saves statistics): the masked step's calls.
+LN_TIME_CASES = ((131072, 64, "bfloat16", "fwd", False), (65536, 64, "bfloat16", "fwd", True),
+                 (65536, 64, "bfloat16", "bwd", True), (131072, 64, "float32", "fwd", False),
+                 (65536, 64, "float32", "bwd", True))
+L2_BYTES = 50e6
+
+
+def layernorm_inputs(device, rows: int, d: int, dtype: torch.dtype, seed: int = 0) -> tuple:
+    """(x, scale, bias, the output's cotangent) for phase 5n, drawn on
+    ``device`` from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(rows, d, generator=gen, device=device) * 2 + 0.5).to(dtype)
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(dtype)
+    bias = (0.1 * torch.randn(d, generator=gen, device=device)).to(dtype)
+    g = torch.randn(rows, d, generator=gen, device=device).to(dtype)
+    return x, scale, bias, g
+
+
+def layernorm_control(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """``plain_layernorm`` with the normalized value rounded to float8:
+    phase 5n's control (its caller rounds the cotangent too)."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    out = _to_float8((xf - mean) * torch.rsqrt(var + eps))
+    return out.to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def _layernorm_results(fn, x, scale, bias, g) -> dict:
+    """{"out", "dx", "dscale", "dbias"} of ``fn(x, scale, bias)`` against
+    cotangent ``g``."""
+    leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    return {"out": out.detach(), **dict(zip(("dx", "dscale", "dbias"), grads))}
+
+
+def layernorm_case(device, rows: int, d: int, dtype_name: str, seed: int = 0) -> dict:
+    """One case of phase 5n: the dispatcher (the kernels on the card) and the
+    control against the plain chain, each result's relative distance; two
+    launches bit-equal; the calls counted."""
+    x, scale, bias, g = layernorm_inputs(device, rows, d, getattr(torch, dtype_name), seed)
+    want = _layernorm_results(layernorm_ops.plain_layernorm, x, scale, bias, g)
+    reset_launches(layernorm_launches)
+    got = _layernorm_results(layernorm_ops.layernorm, x, scale, bias, g)
+    calls = {f"{op}/{p}": n for (op, p), n in layernorm_launches.launches_by_path.items() if n}
+    again = _layernorm_results(layernorm_ops.layernorm, x, scale, bias, g)
+    g8 = g.to(torch.float8_e4m3fn).to(g.dtype)
+    control = _layernorm_results(layernorm_control, x, scale, bias, g8)
+    rel = lambda a, b: _rel_l2([a.double()], [b.double()])
+    return {"check": "layer norm kernels vs the plain chain on the card", "shape": [rows, d],
+            "dtype": dtype_name, "limit": LN_LIMIT[dtype_name], "calls": calls,
+            "rel_l2": {k: rel(got[k], want[k]) for k in want},
+            "max_abs_err": {k: float((got[k].double() - want[k].double()).abs().max())
+                            for k in want},
+            "control_rel_l2": {k: rel(control[k], want[k]) for k in want},
+            "finite": all(bool(torch.isfinite(t).all()) for t in got.values()),
+            "deterministic": all(torch.equal(got[k], again[k]) for k in got)}
+
+
+def check_layernorm(device, cases=LN_CHECKS, strict: bool = True) -> list:
+    """Phase 5n: every case of ``cases`` (``layernorm_case``); each result
+    within the limit, finite and bit-equal across two launches, the control
+    beyond it in every result wherever the case has rows enough to show it
+    (64 or more), one call each way and no plain call; a float16 tensor on
+    the card raises ValueError."""
+    lines = []
+    for case in cases:
+        line = layernorm_case(device, *case)
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        limit = line["limit"]
+        bad = [k for k, v in line["rel_l2"].items() if not v <= limit]
+        if case[0] >= 64:
+            bad += [f"control:{k}" for k, v in line["control_rel_l2"].items() if not v > limit]
+        if not (line["finite"] and line["deterministic"]):
+            bad.append("finite/deterministic")
+        if device.type == "cuda" and line["calls"] != {"layernorm_fwd/cuda": 1,
+                                                       "layernorm_bwd/cuda": 1}:
+            bad.append(f"calls {line['calls']}")
+        if bad and strict:
+            raise AssertionError(f"layer norm {case}: {bad}")
+    if device.type == "cuda":
+        try:
+            layernorm_ops.layernorm(torch.zeros(4, 64, dtype=torch.float16, device=device),
+                                    torch.ones(64, device=device), torch.zeros(64, device=device))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("a float16 tensor took the layer norm kernels")
+    return lines
+
+
+def layernorm_bound_ms(rows: int, d: int, dtype_name: str, direction: str,
+                       stats: bool) -> float:
+    """Least time for the call's bytes: each input read once, each output
+    written once (the forward's statistics with ``stats``; the backward reads
+    x, g and them, writes dx, dscale, dbias)."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    tensor = rows * d * item
+    if direction == "fwd":
+        nbytes = 2 * tensor + 2 * d * item + (8 * rows if stats else 0)
+    else:
+        nbytes = 3 * tensor + 8 * rows + 3 * d * item
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def graphed_ms(calls: list, replays: int = 5) -> float:
+    """Mean ms per call of ``calls`` (thunks on the card), captured in order
+    as one CUDA graph and replayed (CUDA events): device time with the
+    gaps of a replayed graph, none of the host's launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for call in calls:
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * len(calls))
+
+
+def time_layernorm(device, cases=LN_TIME_CASES, calls: int = 24) -> list:
+    """The layer norm kernels at the masked step's calls: each call's ms
+    (``graphed_ms`` over ``calls`` calls whose inputs rotate over copies
+    that exceed the L2 cache, so each launch reads them from device memory;
+    ``warm_ms`` on one copy) beside its bound in bytes, the plain chain
+    doing the same work (its backward through autograd, as a step runs it)
+    and ``F.layer_norm``, the one-call library yardstick (another
+    arithmetic: the port never calls it), these two launched eagerly
+    (``time_ms``) on the rotated inputs: their kernels outlast the host's
+    launches."""
+    eps = 1e-5
+    lines = []
+    for rows, d, dtype_name, direction, stats in cases:
+        dtype = getattr(torch, dtype_name)
+        per_call = (3 if direction == "bwd" else 2) * rows * d * (2 if dtype == torch.bfloat16
+                                                                   else 4)
+        copies = max(2, math.ceil(2 * L2_BYTES / per_call))
+        inputs = [layernorm_inputs(device, rows, d, dtype, seed=i) for i in range(copies)]
+        leaves = [[t.detach().requires_grad_() for t in inp[:3]] for inp in inputs]
+        if direction == "fwd":
+            kernel = lambda i: layernorm_ops._forward(*inputs[i][:3], eps, stats)
+            plain = lambda i: layernorm_ops.plain_layernorm(*inputs[i][:3], eps)
+            library = lambda i: F.layer_norm(inputs[i][0], (d,), *inputs[i][1:3], eps)
+        else:
+            saved = [layernorm_ops._forward(*inp[:3], eps, True) for inp in inputs]
+            plain_out = [layernorm_ops.plain_layernorm(*lv, eps) for lv in leaves]
+            lib_out = [F.layer_norm(lv[0], (d,), lv[1], lv[2], eps) for lv in leaves]
+            kernel = lambda i: layernorm_ops._backward(inputs[i][0], inputs[i][1], inputs[i][3],
+                                                       *saved[i][1:])
+            plain = lambda i: torch.autograd.grad(plain_out[i], leaves[i], inputs[i][3],
+                                                  retain_graph=True)
+            library = lambda i: torch.autograd.grad(lib_out[i], leaves[i], inputs[i][3],
+                                                    retain_graph=True)
+        turn = itertools.count()
+        cycled = lambda fn: lambda: fn(next(turn) % copies)
+        with torch.no_grad():
+            ms = graphed_ms([lambda i=i: kernel(i % copies) for i in range(calls)])
+            warm_ms = graphed_ms([lambda: kernel(0)] * calls)
+        with torch.set_grad_enabled(direction == "bwd"):
+            plain_ms = time_ms(cycled(plain), calls)
+            library_ms = time_ms(cycled(library), calls)
+        bound = layernorm_bound_ms(rows, d, dtype_name, direction, stats)
+        line = {"timing": f"layernorm {direction}", "route": "cuda", "dtype": dtype_name,
+                "shape": [rows, d], "statistics": stats, "ms": ms, "warm_ms": warm_ms,
+                "input_copies": copies, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound, "bound_by": "bytes", "ms_over_bound": ms / bound}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    return lines
+
 
 def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> list:
     """Phase 5l: for the ``flag`` recipe (``kind`` "bfloat16") and ``varlen2``
@@ -1776,9 +1994,10 @@ def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> 
     loss) and every state tensor must be bit-equal. The shipped steps must
     call the kernels on every activation, and the masked step must make
     (n_critic + 2) x layers gelu forwards and 2 x layers gelu backwards a
-    step (the critic loop's generator calls and the joint step's two), and
-    as many attention forwards and backwards, all through the attention
-    kernels (which run on both sides)."""
+    step (the critic loop's generator calls and the joint step's two), as
+    many attention forwards and backwards, all through the attention
+    kernels, and (2 x layers + 1) times as many layer norms, all through
+    the layer norm kernels (both run on both sides)."""
     lines = []
     for kind, recipe in (("bfloat16", "flag"), ("masked", "varlen2")):
         mcfg, tcfg, batches, epoch_fn, _ = _graph_check_inputs(device, kind, batch, model)
@@ -1787,7 +2006,7 @@ def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> 
         runs = {}
         for path in ("kernels", "plain"):
             state = init_gan_state(0, mcfg, device)
-            reset_launches(activation_launches, attention_launches)
+            reset_launches(activation_launches, attention_launches, layernorm_launches)
             if path == "plain":
                 with plain_activations():
                     _, traces = epoch_fn(state, batches, GRAPH_CHECK_LR, mcfg, tcfg,
@@ -1799,14 +2018,18 @@ def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> 
             runs[path] = (state, traces, {f"{op}/{p}": n / GRAPH_CHECK_BATCHES for (op, p), n
                                           in activation_launches.launches_by_path.items() if n},
                           {f"{op}/{p}": n / GRAPH_CHECK_BATCHES for (op, p), n
-                           in attention_launches.launches_by_path.items() if n})
-        (a, ta, calls, attention_calls), (b, tb, plain_calls, _) = runs["kernels"], runs["plain"]
+                           in attention_launches.launches_by_path.items() if n},
+                          {f"{op}/{p}": n / GRAPH_CHECK_BATCHES for (op, p), n
+                           in layernorm_launches.launches_by_path.items() if n})
+        (a, ta, calls, attention_calls, layernorm_calls), (b, tb, plain_calls, _, _) = (
+            runs["kernels"], runs["plain"])
         loss_diff = max((ta[k] - tb[k]).abs().max().item() for k in ta)
         line = {"check": "graphed steps with the activation kernels vs the plain chain",
                 "recipe": recipe, "batch": batch, "steps": GRAPH_CHECK_BATCHES,
                 "max_abs_loss_diff": loss_diff, "max_abs_state_diff": _state_diff(a, b),
                 "calls_per_step": calls, "plain_run_calls_per_step": plain_calls,
-                "attention_calls_per_step": attention_calls}
+                "attention_calls_per_step": attention_calls,
+                "layernorm_calls_per_step": layernorm_calls}
         line["bit_equal"] = line["max_abs_loss_diff"] == 0.0 == line["max_abs_state_diff"]
         print(json.dumps(line), flush=True)
         if not line["bit_equal"]:
@@ -1827,6 +2050,12 @@ def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> 
                         "attention_bwd/cuda": 2 * layers_n}
                 if attention_calls != want:
                     raise AssertionError(f"attention calls a masked step {attention_calls}, "
+                                         f"expected {want}")
+                norms = 2 * layers_n + 1
+                want = {"layernorm_fwd/cuda": (tcfg.n_critic + 2) * norms,
+                        "layernorm_bwd/cuda": 2 * norms}
+                if layernorm_calls != want:
+                    raise AssertionError(f"layer norm calls a masked step {layernorm_calls}, "
                                          f"expected {want}")
         lines.append(line)
     return lines
@@ -3307,12 +3536,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw", "threefry", "activations",
-                               "attention"])
+                               "attention", "layernorm"])
     for name, log in logs.items():
         kernel = ""
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw|threefry|"
-                              r"activation|attn)_\w+?kernel)"
+                              r"activation|attn|layernorm)_\w+?kernel)"
                               r"(?:ILi(\d+)E(?:Li(\d)E)?|I(f|13__nv_bfloat16))?", line)
             if entry:   # the mangled name: kernel, then its template arguments
                 kernel = entry.group(1) + "".join(f"<{g.replace('13__nv_', '')}>"
@@ -3365,6 +3594,8 @@ def main() -> int:
     activation_steps = activation_paths_bit_equal(device)
     attention_checks = check_attention(device)
     attention_times = time_attention(device)
+    layernorm_checks = check_layernorm(device)
+    layernorm_times = time_layernorm(device)
     for kind in ("flagship", "masked"):
         bf16_step_vs_cpu(device, kind)
     precision_flags(device)
@@ -3569,7 +3800,21 @@ def main() -> int:
             "attention_" + t["timing"].split()[-1] + "/cuda", 0) for line in activation_steps},
         "max_rel_l2": max(max(c["rel_l2"].values()) for c in attention_checks),
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    } for t in attention_times]
+    } for t in attention_times] + [{
+        # The transformer's layer norm, one launch forward and two backward
+        # (no pl.pallas_call: XLA fuses the JAX package's jnp ops); timed at
+        # the masked step's calls beside F.layer_norm (the port never calls
+        # it); calls a graphed varlen2 step (phase 5l); the error: phase
+        # 5n's largest relative distance from the plain chain on the card.
+        "name": "layernorm_" + t["timing"].split()[-1], "route": "cuda",
+        "source": "wordgesture_gan_tpu_torch/csrc/layernorm.cu", "replaces": None,
+        "shape": t["shape"], "dtype": t["dtype"],
+        "calls_per_graphed_step": {line["recipe"]: line["layernorm_calls_per_step"].get(
+            "layernorm_" + t["timing"].split()[-1] + "/cuda", 0) for line in activation_steps},
+        "max_rel_l2": max(max(c["rel_l2"].values()) for c in layernorm_checks
+                          if c["dtype"] == t["dtype"]),
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    } for t in layernorm_times]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

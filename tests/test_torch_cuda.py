@@ -24,7 +24,9 @@ path where the plain version subtracts prefix sums. The activation kernels
 (gelu, leaky_relu) equal their plain op-by-op chains bit for bit. The
 attention kernels sum in another order than the plain chain: their results
 are held to it within ``chip_smoke.ATTN_LIMIT`` (its comment gives the
-reasons), against float8 controls that must fail.
+reasons), against float8 controls that must fail; so are the layer norm
+kernels' (``chip_smoke.LN_LIMIT``, the same limits, against a float8
+control).
 """
 
 import numpy as np
@@ -40,6 +42,8 @@ from wordgesture_gan_tpu_torch.models import generators
 from wordgesture_gan_tpu_torch.ops import attention
 from wordgesture_gan_tpu_torch.ops.activations import activation_launches
 from wordgesture_gan_tpu_torch.ops.attention import attention_launches
+from wordgesture_gan_tpu_torch.ops import layernorm as layernorm_ops
+from wordgesture_gan_tpu_torch.ops.layernorm import layernorm_launches
 from wordgesture_gan_tpu_torch.ops import bilstm_fused
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         sample_tile)
@@ -847,6 +851,101 @@ def test_attention_shapes_off_the_kernels_raise_on_the_card(cuda_device, shape, 
     assert dict(attention_launches.launches_by_path) == before
 
 
+# -- the layer norm kernels (ops/layernorm.py) against the plain chain -----------------------
+
+
+# (rows, D, dtype): the masked step's calls at d_model 64 (2B and B rows of
+# L = 128 in bfloat16, the final norm in float32), then odd and wide D.
+LAYERNORM_CASES = [(131072, 64, "bfloat16"), (65536, 64, "bfloat16"), (131072, 64, "float32"),
+                   (65536, 64, "float32"), (1000, 37, "bfloat16"), (1000, 37, "float32"),
+                   (999, 100, "bfloat16"), (333, 1024, "bfloat16"), (333, 1024, "float32"),
+                   (7, 48, "bfloat16"), (5, 6, "float32"), (3, 1, "bfloat16"), (1, 64, "bfloat16")]
+
+
+@pytest.mark.parametrize("case", LAYERNORM_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_layernorm_kernels_match_the_plain_chain(cuda_device, case):
+    """The output, dx, dscale and dbias within ``chip_smoke.LN_LIMIT`` of the
+    plain chain on the card (relative L2 over each tensor: 2e-3 in
+    bfloat16, 1e-5 in float32, the sums' order); the float8 control beyond
+    it in every result from 64 rows on; two launches bit-equal; one call
+    each way, no plain call (``chip_smoke.check_layernorm`` raises
+    otherwise, and for a float16 tensor that does not raise)."""
+    import chip_smoke
+
+    (line,) = chip_smoke.check_layernorm(cuda_device, cases=(case,))
+    assert line["finite"] and line["deterministic"]
+
+
+def _layernorm_grads(x, scale, bias, g):
+    leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+    out = layernorm_ops.layernorm(*leaves)
+    return (out, *torch.autograd.grad(out, leaves, g))
+
+
+def test_layernorm_kernels_inside_a_captured_graph(cuda_device):
+    """Forward and backward through the dispatcher captured as one CUDA
+    graph, replayed on new inputs written into its static buffers: each
+    replay bit-equal to the kernels run eagerly on those inputs."""
+    import chip_smoke
+
+    static = chip_smoke.layernorm_inputs(cuda_device, 4096, 64, torch.bfloat16, seed=1)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        _layernorm_grads(*static)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _layernorm_grads(*static)
+    for seed in (2, 3):
+        fresh = chip_smoke.layernorm_inputs(cuda_device, 4096, 64, torch.bfloat16, seed=seed)
+        for s, f in zip(static, fresh):
+            s.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _layernorm_grads(*fresh)
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def test_masked_step_calls_only_the_layernorm_kernels(cuda_device):
+    """A graphed masked step (the transformer at full width, n_critic 5,
+    B=64) makes 63 layer norm forwards (5 critic-loop generator calls and 2
+    joint-step calls, 9 norms each: 4 blocks x 2 and the final one) and 18
+    backwards, every one on the kernels, none plain; a replay counts what
+    its capture counted."""
+    import chip_smoke
+    from wordgesture_gan_tpu_torch.train.state import init_gan_state
+    from wordgesture_gan_tpu_torch.train.step_graph import StepGraph
+
+    mcfg, tcfg, batches, epoch_fn, _ = chip_smoke._graph_check_inputs(cuda_device, "masked",
+                                                                      64, None)
+    state = init_gan_state(0, mcfg, cuda_device)
+    before = dict(layernorm_launches.launches_by_path)
+    epoch_fn(state, batches, 1e-4, mcfg, tcfg, graph=StepGraph())
+    torch.cuda.synchronize()
+    steps = batches["gesture"].shape[0]
+    moved = {k: (v - before[k]) / steps for k, v in layernorm_launches.launches_by_path.items()
+             if v != before[k]}
+    norms = 2 * mcfg.tfm_num_layers + 1
+    assert moved == {("layernorm_fwd", "cuda"): (tcfg.n_critic + 2) * norms,
+                     ("layernorm_bwd", "cuda"): 2 * norms} == {
+        ("layernorm_fwd", "cuda"): 63, ("layernorm_bwd", "cuda"): 18}
+
+
+@pytest.mark.parametrize("shape,dtype", [((4, 64), torch.float16), ((4, 64), torch.float64),
+                                         ((2, 3, 1025), torch.bfloat16), ((4, 0), torch.float32)])
+def test_layernorm_shapes_off_the_kernels_raise_on_the_card(cuda_device, shape, dtype):
+    """A card tensor the kernels do not take raises ValueError naming it and
+    counts nothing: the plain chain runs on the CPU only."""
+    x = torch.zeros(shape, dtype=dtype, device=cuda_device)
+    d = shape[-1]
+    before = dict(layernorm_launches.launches_by_path)
+    with pytest.raises(ValueError, match=r"layer norm kernels take"):
+        layernorm_ops.layernorm(x, torch.ones(d, device=cuda_device),
+                                torch.zeros(d, device=cuda_device))
+    assert dict(layernorm_launches.launches_by_path) == before
+
+
 # -- the sampling loop: each chunk a replay of a CUDA graph ----------------------------------
 
 
@@ -1002,5 +1101,8 @@ def test_graphed_sampling_counts_the_eager_loops_launches(cuda_device, family):
     masks = masks if family == "transformer" else None
     eager = launched(lambda: _eager_chunks(gen, protos, batch=64, masks=masks))
     assert eager[COUNTED.index(threefry_draw)][0] == 5          # one draw a chunk
+    norms = 2 * gen.config.tfm_num_layers + 1 if family == "transformer" else 0
+    assert eager[COUNTED.index(layernorm_launches)][1][("layernorm_fwd", "cuda")] == 5 * norms
+    assert norms in (0, 9)                                      # 9 forwards a chunk
     for _ in range(2):
         assert launched(lambda: _sample(gen, protos, batch=64, masks=masks)) == eager

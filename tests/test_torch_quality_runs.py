@@ -220,6 +220,14 @@ def test_runner_end_to_end_on_cpu(tmp_path, capsys):
     assert other["seed_range"]["seeds"] == [42, 43]
     assert other["seed_range"]["metrics"]["l2_wasserstein"] == [value, value]
     shutil.rmtree(tmp_path / "out" / "flag_seed43")
+    # A run kept from before a rerun is shown beside it, its metrics only.
+    kept = tmp_path / "out" / runner.EARLIER / "flag" / "before"
+    kept.mkdir(parents=True)
+    shutil.copy(run_dir / "eval.log", kept / "eval.log")
+    beside = runner.report(tmp_path / "out")["runs"]["flag"]["earlier"]
+    assert beside["before"]["l2_wasserstein"] == flag["metrics"]["l2_wasserstein"]["port"]
+    assert "| earlier: before |" in (tmp_path / "out" / "results.md").read_text()
+    shutil.rmtree(tmp_path / "out" / runner.EARLIER)
     # A trained and scored run is neither trained nor scored again.
     capsys.readouterr()
     again = runner.main(argv)["runs"]["flag"]["runner"]

@@ -26,7 +26,8 @@ checkpoints, ``history.jsonl`` and ``run_meta.json``, whose ``"runner"``
 entry records each call's argv, wall seconds, the kernels' launches and the
 card. A run resumes from its checkpoint, so one run can span several
 processes; a finished run is not trained again, and a scored one is not
-scored again.
+scored again. A run replaced by a rerun is kept under
+``<out>/earlier/<run>/<label>/`` and scored beside it in the report.
 
 The port draws the JAX package's random streams (``utils/prng.py``), so
 ``--seed 42`` trains the JAX package's seed-42 run up to float rounding;
@@ -185,6 +186,11 @@ COUNTERS = {"bilstm_fused": fused_bilstm_fwd, "bilstm_train_fwd": bilstm_train_f
 # package's key tree (threefry2x32). Runs recorded without it drew from
 # torch.Generator (Philox on the card), before the port drew JAX's streams.
 STREAM = "jax-threefry2x32"
+# A GAN run replaced by a rerun of the same recipe and seed is kept under
+# <out>/earlier/<run dir>/<label>/ (its logs, history and run_meta.json as they
+# were): the report shows its metrics beside the new run's, in a column
+# "earlier: <label>".
+EARLIER = "earlier"
 
 # -- one parser for both packages' output -------------------------------------
 
@@ -504,6 +510,9 @@ def report(out: Path, repo: Path = REPO) -> dict:
                                                              pair_means[1].get(key, []))] or None}
                        for key in sorted(set(port_means) | set(jax_means))}}
         if spec["kind"] == "gan":
+            entry["earlier"] = {
+                path.parent.name: parse_log(path.read_text())["tables"].get("gan", {})
+                for path in sorted((out / EARLIER / run_dir.name).glob("*/eval.log"))}
             port_tables, jax_tables = logs["eval"]["tables"], jax["eval_log"]["tables"]
             # The JAX package scored min-jerk once, beside r5_base.
             jax_minjerk = jax_logs["base"]["eval_log"]["tables"]["minjerk"]
@@ -602,11 +611,14 @@ def markdown(results: dict) -> str:
         train_s = sum(c["seconds"] for c in runner.get("train_calls", []))
         eval_s = sum(c["seconds"] for c in runner.get("eval_calls", [])[-1:])
         span = entry["seed_range"]
+        earlier = entry.get("earlier", {})
         lines += ["", f"## {name} ({entry['source']}; seed {entry['seed']}, stream "
                       f"{entry['stream']}, {entry['epochs']} epochs; train {train_s:.1f} s, "
                       f"eval {eval_s:.1f} s, {runner.get('card')})", "",
                   "| metric | port | JAX | band (seed 42) or port seeds "
-                  f"{', '.join(map(str, span['seeds']))} | |", "|---|---|---|---|---|"]
+                  f"{', '.join(map(str, span['seeds']))} | |"
+                  + "".join(f" earlier: {label} |" for label in earlier),
+                  "|---|---|---|---|---|" + "---|" * len(earlier)]
         for table in ("metrics", "minjerk", "centroids"):
             for key, row in entry.get(table, {}).items():
                 label = key if table == "metrics" else f"{table}: {key}"
@@ -615,7 +627,9 @@ def markdown(results: dict) -> str:
                 if row["lo"] is None and seeds and entry["seed"] != JAX_SEED:
                     band = f"seeds {_fmt(seeds[0])} – {_fmt(seeds[1])}"
                 lines.append(f"| {label} | {_fmt(row['port'])} | {_fmt(row['jax'])} | {band} | "
-                             f"{'OUT' if row['outside'] else ''} |")
+                             f"{'OUT' if row['outside'] else ''} |"
+                             + "".join(f" {_fmt(run.get(key)) if table == 'metrics' else ''} |"
+                                       for run in earlier.values()))
         if "wins_vs_own_minjerk" in entry:
             w = entry["wins_vs_own_minjerk"]
             lines += ["", f"Wins against its own min-jerk column (of 9): port {w['port']}, "

@@ -9,10 +9,12 @@ package's ``models/generators.py``).
 Both share the generator contract ``apply(params, prototype (B, L, 3),
 z (B, Z)) → gesture (B, L, 3)`` and are init/apply pairs over trees of
 float32 tensors in the JAX layout, like the rest of ``models/``. None of them
-reaches a hand-written kernel but the transformer's attention core, which
-on the card runs ``csrc/attention.cu`` (``ops/attention.py``) and on the CPU
-the plain chain of explicit products (not ``scaled_dot_product_attention``),
-so that its precision and its padding rule are the JAX package's.
+reaches a hand-written kernel but the transformer's attention core and its
+layer norms, which on the card run ``csrc/attention.cu``
+(``ops/attention.py``) and ``csrc/layernorm.cu`` (``ops/layernorm.py``)
+and on the CPU the plain chains (explicit products, not
+``scaled_dot_product_attention``; the norm op by op), so that their
+precision and the padding rule are the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
 from ..ops.attention import attention
+from ..ops.layernorm import layernorm
 from ..utils import prng
 from .layers import Key, _key, cast_floats, dense_init, gelu, leaky_relu
 
@@ -82,12 +85,9 @@ def _layernorm_init(dim: int) -> Dict[str, torch.Tensor]:
 
 def _layernorm(params: Dict[str, torch.Tensor], x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Moments in float32 (population variance), the normalized value cast
-    back to x's dtype before the scale and bias, which apply in that dtype."""
-    xf = x.to(torch.float32)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps)
-    return out.to(x.dtype) * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+    back to x's dtype before the scale and bias, which apply in that dtype:
+    the card's kernels or ``plain_layernorm`` (``ops/layernorm.py``)."""
+    return layernorm(x, params["scale"], params["bias"], eps)
 
 
 def _block_init(d_model: int, mlp_dim: int, key: torch.Tensor) -> Dict:
