@@ -1106,3 +1106,112 @@ def test_graphed_sampling_counts_the_eager_loops_launches(cuda_device, family):
     assert norms in (0, 9)                                      # 9 forwards a chunk
     for _ in range(2):
         assert launched(lambda: _sample(gen, protos, batch=64, masks=masks)) == eager
+
+
+# -- the sampling loop's staging: pinned host buffers and card buffers kept across calls --------
+
+
+def _family(family, seed):
+    """The transformer with padding masks, or the BiLSTM at fixed length,
+    on the card; returns the generator and whether it takes masks."""
+    fields = TRANSFORMER if family == "transformer" else dict(time_head="monotone",
+                                                              compute_dtype="bfloat16")
+    gen = Generator(ModelConfig(**fields), prng.PRNGKey(seed)).to("cuda")
+    return gen, family == "transformer"
+
+
+def _staged_rows(generator):
+    """The card buffers of the row arguments, as the last call left them."""
+    return {k: card for k, (_, card) in _graphs(generator)._buffers.items() if k != "out"}
+
+
+@pytest.mark.parametrize("given_z", [False, True], ids=["keys", "z"])
+@pytest.mark.parametrize("n", [1, 63, 64, 197])
+@pytest.mark.parametrize("family", ["transformer", "bilstm"])
+def test_staged_sampling_equals_the_eager_chunks(cuda_device, family, n, given_z):
+    """At batch 64: one row, a chunk less one, a chunk, and three chunks and
+    five rows; drawn from the keys or from a given z. Two calls, each
+    bit-equal to the eager chunk loop on the card, each a new array of n
+    rows that owns its memory."""
+    gen, masked = _family(family, 20)
+    protos, masks, z = _sampling_inputs(gen.config, n, seed=6)
+    masks, z = masks if masked else None, z if given_z else None
+    want = _eager_chunks(gen, protos, seed=13, batch=64, z=z, masks=masks)
+    got = [_sample(gen, protos, seed=13, batch=64, z=z, masks=masks) for _ in range(2)]
+    for out in got:
+        np.testing.assert_array_equal(out, want)
+        assert out.shape == (n, gen.config.seq_length, 3) and out.flags.owndata
+    assert not np.shares_memory(*got)
+
+
+@pytest.mark.parametrize("family", ["transformer", "bilstm"])
+def test_back_to_back_calls_return_their_own_arrays(cuda_device, family):
+    """Calls of 16,384, 300 and 16,384 rows at batch 512, each on its own
+    prototypes and seed, reuse the buffers the first one grew: each returns
+    its own array, bit-equal to the eager chunks, and no later call changes
+    an earlier result."""
+    gen, masked = _family(family, 21)
+    got, kept = [], []
+    for i, n in enumerate((16384, 300, 16384)):
+        protos, masks, _ = _sampling_inputs(gen.config, n, seed=30 + i)
+        masks = masks if masked else None
+        out = _sample(gen, protos, seed=40 + i, masks=masks)
+        np.testing.assert_array_equal(out, _eager_chunks(gen, protos, seed=40 + i, masks=masks))
+        got.append(out)
+        kept.append(out.copy())
+    for out, copy in zip(got, kept):
+        np.testing.assert_array_equal(out, copy)
+        assert out.flags.owndata
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(got) for b in got[i + 1:])
+    assert _graphs(gen).captures == 1     # 300 rows are one chunk of 512 too
+
+
+@pytest.mark.parametrize("family", ["transformer", "bilstm"])
+def test_padding_rows_stay_out_of_the_result(cuda_device, family):
+    """A ragged call after a whole one: the last chunk's padding rows are
+    zero on the card (not the earlier call's rows), and the result holds the
+    n real rows alone, bit-equal to the eager chunks, which pad with zeros."""
+    gen, masked = _family(family, 22)
+    protos, masks, z = _sampling_inputs(gen.config, 256, seed=7)
+    masks = masks if masked else None
+    for given_z in (None, z):
+        _sample(gen, protos, seed=8, batch=64, z=given_z, masks=masks)
+        assert all(card.abs().amax() > 0 for card in _staged_rows(gen).values())
+        got = _sample(gen, protos[:197], seed=8, batch=64,
+                      z=None if given_z is None else given_z[:197],
+                      masks=None if masks is None else masks[:197])
+        assert got.shape[0] == 197
+        np.testing.assert_array_equal(got, _eager_chunks(
+            gen, protos[:197], seed=8, batch=64, z=None if given_z is None else given_z[:197],
+            masks=None if masks is None else masks[:197]))
+        staged = _staged_rows(gen)
+        assert set(staged) == {"proto"} | ({"mask"} if masked else set()) \
+            | (set() if given_z is None else {"z"})
+        for card in staged.values():
+            assert card.shape[0] >= 256 and not card[197:256].any()
+
+
+@pytest.mark.parametrize("family", ["transformer", "bilstm"])
+def test_staged_sampling_after_the_generator_moves(cuda_device, family):
+    """After ``generator.to`` away and back, or a parameter replaced, the
+    graphs and the staging buffers are dropped, the next call captures and
+    stages anew, and its result is still the eager chunks'."""
+    gen, masked = _family(family, 23)
+    protos, masks, _ = _sampling_inputs(gen.config, 300, seed=9)
+    masks = masks if masked else None
+
+    def check(captures):
+        np.testing.assert_array_equal(_sample(gen, protos, seed=10, batch=64, masks=masks),
+                                      _eager_chunks(gen, protos, seed=10, batch=64, masks=masks))
+        assert _graphs(gen).captures == captures
+
+    check(1)
+    buffers = dict(_graphs(gen)._buffers)
+    gen.to("cpu").to(cuda_device)
+    check(2)
+    assert all(_graphs(gen)._buffers[k] is not v for k, v in buffers.items())
+    buffers = dict(_graphs(gen)._buffers)
+    gen.out.w = torch.nn.Parameter(gen.out.w * 2)
+    check(3)
+    assert all(_graphs(gen)._buffers[k] is not v for k, v in buffers.items())
+    check(3)

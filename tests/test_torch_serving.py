@@ -117,6 +117,17 @@ def test_generate_gestures_seeded_noise():
     assert empty.shape == (0, SMALL["seq_length"], 3)
 
 
+@pytest.mark.parametrize("n", [1, 4, 9])
+def test_generate_gestures_returns_an_array_of_its_own(n):
+    """Exactly n rows (the last chunk's padding cropped) in a new array that
+    owns its memory, whatever the chunks: no view of a padded buffer."""
+    model = Generator(ModelConfig(**SMALL), prng.PRNGKey(0))
+    protos = np.random.default_rng(4).uniform(-1, 1, (n, SMALL["seq_length"], 3))
+    out = generate_gestures(model, protos, model.config, seed=5, batch=4, device="cpu")
+    assert out.shape == (n, SMALL["seq_length"], 3) and out.dtype == np.float32
+    assert out.flags.owndata and out.base is None and out.flags.c_contiguous
+
+
 @pytest.mark.parametrize("seed", [0, 42])
 def test_generate_gestures_at_a_seed_draws_jaxs_noise(seed):
     """Without injected z both packages draw chunk c's noise as

@@ -18,8 +18,9 @@ EPOCHS, N_SAMPLES, SAMPLE_BATCH = 2, 11, 4      # 11 rows: 3 chunks of 4
 GESTURES = 16                                    # 2 steps an epoch
 EPOCH_SPANS = ("epoch.shuffle", "epoch.steps", "epoch.losses", "epoch.record",
                "epoch.callback", "epoch.checkpoint")
+# Off the card nothing waits for a device: no sample.drain.
 SAMPLE_SPANS = ("sample.call", "sample.pad", "sample.copy_in", "sample.chunk", "sample.noise",
-                "sample.drain", "sample.copy_out")
+                "sample.copy_out")
 
 
 def _event_names(prof) -> set:

@@ -18,11 +18,25 @@ kept for the whole run; everything around the epoch is the same.
 Under a profiler the stages of an epoch and of a sampling call are spans
 (``utils/profiling.span``): ``epoch.shuffle``, ``epoch.keys`` and
 ``epoch.steps`` (``step_graph.py``), ``step.capture``, ``epoch.losses``,
-``epoch.record``, ``epoch.callback``, ``epoch.checkpoint``; ``sample.call``
-around ``sample.pad``, ``sample.copy_in``, one ``sample.chunk`` a chunk with
-``sample.noise`` inside (on a CUDA device a replay, and ``sample.capture``
-around a new chunk shape's warm-up chunk and capture), ``sample.drain`` and
-``sample.copy_out``."""
+``epoch.record``, ``epoch.callback``, ``epoch.checkpoint``; and
+``sample.call`` around a sampling call's. The host's staging is in three,
+disjoint from the chunk loop's ``sample.chunk`` (one a chunk, with
+``sample.noise`` inside on the CPU):
+
+  * ``sample.copy_in``: the generator moved (where it is not on the device
+    already) and the chunks' keys; on a CUDA device also the buffers and the
+    keys' copy once a call, and a chunk's copies to the card enqueued, once
+    a chunk;
+  * ``sample.pad``: off the card, the rows zero-padded to whole chunks once
+    a call; on a CUDA device a chunk's rows written into pinned buffers,
+    once a chunk;
+  * ``sample.copy_out``: off the card, the result cropped once a call; on a
+    CUDA device a chunk's copy back enqueued, and its rows copied into the
+    result once they are back, each once a chunk.
+
+On a CUDA device ``sample.chunk`` is a replay, ``sample.capture`` a new chunk
+shape's warm-up chunk and capture (with ``sample.noise`` inside), and
+``sample.drain`` the wait for a chunk's copy back, once a chunk."""
 
 from __future__ import annotations
 
@@ -244,13 +258,14 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
                       z: Optional[np.ndarray] = None,
                       masks: Optional[np.ndarray] = None) -> np.ndarray:
     """Sample one gesture per prototype: (n, L, 3) prototypes → (n, L, 3)
-    float32, with z ~ N(0, 1)·truncation.
+    float32, with z ~ N(0, 1)·truncation; a new array each call.
 
-    The prototypes are zero-padded to whole power-of-two chunks of at most
-    ``batch`` rows (``utils/chunking.py``, the JAX package's layout) and the
-    generator runs once per chunk on ``device``, through the inference
-    kernel (``sample_graph.sample_chunk``; on a CUDA device a replay of the
-    chunk's CUDA graph, ``sample_graph.SampleGraph``). Chunk c draws its
+    The prototypes are cut into power-of-two chunks of at most ``batch`` rows
+    (``utils/chunking.py``, the JAX package's layout), the last one
+    zero-padded, and the generator runs once per chunk on ``device``, through
+    the inference kernel (``sample_graph.sample_chunk``; on a CUDA device a
+    replay of the chunk's CUDA graph, with the rows staged through buffers
+    kept across calls: ``sample_graph.SampleGraph``). Chunk c draws its
     noise as the JAX package does, ``normal(fold_in(PRNGKey(seed), c),
     (chunk, Z))``, on ``device``. ``z`` (n, Z), if given, replaces those
     draws (it is still scaled by ``truncation``).
@@ -269,35 +284,39 @@ def generate_gestures(generator: Generator, prototypes: np.ndarray,
     if z is not None and np.shape(z) != (n, config.latent_dim):
         raise ValueError(f"z must be ({n}, {config.latent_dim}), got {np.shape(z)}")
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     chunk, n_chunks = chunk_layout(n, batch)
+    # sample_chunk's row arguments, (n, ...) on the host.
+    rows = {k: np.asarray(a, np.float32)
+            for k, a in (("proto", prototypes), ("z", z), ("mask", masks)) if a is not None}
     with span("sample.call", items=n):
-        with span("sample.pad"):
-            padded = {k: pad_to_chunks(a, chunk, n_chunks)
-                      for k, a in (("proto", prototypes), ("z", z), ("mask", masks))
-                      if a is not None}
         with span("sample.copy_in"):
-            # Every input as (n_chunks, ...): a row a chunk.
-            inputs = {k: torch.from_numpy(a).to(device).unflatten(0, (n_chunks, chunk))
-                      for k, a in padded.items()}
-            if z is None:
-                keys = chunk_keys(seed, n_chunks)
-                inputs["key"] = keys.pin_memory().to(device, non_blocking=True) \
-                    if device.type == "cuda" else keys.to(device)
-            generator = generator.to(device)
-        out = torch.empty((n_chunks, chunk, np.shape(prototypes)[1], config.input_dim),
-                          dtype=torch.float32, device=device)
+            # A generator already on the device is left as it is: ``.to``
+            # walks every parameter, a fixed cost of each call.
+            if any(p.device != device for p in generator.parameters()):
+                generator = generator.to(device)
+            keys = chunk_keys(seed, n_chunks) if z is None else None
         with torch.inference_mode():
             if device.type == "cuda":
-                SampleGraph.of(generator).run(generator, truncation, inputs, out)
-            else:
-                for c in range(n_chunks):
-                    with span("sample.chunk"):
-                        out[c] = sample_chunk(generator, truncation,
-                                              **{k: v[c] for k, v in inputs.items()})
-        # The wait for the last chunks, apart from the copy back (which
-        # would wait for them all the same).
-        with span("sample.drain"):
-            if device.type == "cuda":
-                torch.cuda.current_stream(device).synchronize()
-        with span("sample.copy_out"):
-            return out.flatten(0, 1).cpu().numpy()[:n]
+                return SampleGraph.of(generator).run(generator, truncation, rows, keys, chunk)
+            return _sample_eagerly(generator, truncation, rows, keys, chunk, n_chunks, device)
+
+
+def _sample_eagerly(generator: Generator, truncation: float, rows: Dict[str, np.ndarray],
+                    keys: Optional[torch.Tensor], chunk: int, n_chunks: int,
+                    device: torch.device) -> np.ndarray:
+    """``generate_gestures`` off the card: the rows zero-padded to whole
+    chunks, and each chunk run eagerly."""
+    with span("sample.pad"):
+        # Every input as (n_chunks, ...): a row a chunk.
+        inputs = {k: torch.from_numpy(pad_to_chunks(a, chunk, n_chunks)).to(device)
+                  .unflatten(0, (n_chunks, chunk)) for k, a in rows.items()}
+        if keys is not None:
+            inputs["key"] = keys.to(device)
+    out = []
+    for c in range(n_chunks):
+        with span("sample.chunk"):
+            out.append(sample_chunk(generator, truncation, **{k: v[c] for k, v in inputs.items()}))
+    with span("sample.copy_out"):
+        return torch.cat(out)[:len(rows["proto"])].cpu().numpy().copy()
