@@ -48,8 +48,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    and one sampling call is profiled;
 4b. serve the MLP and the transformer generators the same way
    (``generate.main --generator mlp|transformer``, full width, bf16, 8192
-   gestures, batch 512): shape, range and clock checked, no kernel launched
-   (their layers are matrix products), a small batch with injected noise
+   gestures, batch 512): shape, range and clock checked, no BiLSTM kernel
+   launched (their layers are matrix products and the bias kernel), a small
+   batch with injected noise
    against the CPU, one sampling call profiled;
 5. train through ``train.gan_loop.train_gan(..., device="cuda")``: the
    flagship recipe (bf16, batch 512, n_critic 5, λ_speed 2, λ_div 0.3,
@@ -119,6 +120,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    1024), with a float8 control that must fail; two launches bit-equal; a
    float16 tensor refused; each call timed beside its bound in bytes, the
    plain chain and ``F.layer_norm``;
+5o. the models' bias adds (``ops/bias.py``, the kernel of ``csrc/bias.cu``)
+   against the plain chain of adds on the card, bit for bit: the output and
+   its layout, dy, db and the residual's cotangent, at the masked step's
+   calls (65,536 and 131,072 tokens of 64, 192 and 256 features in
+   bfloat16, the float32 (T, 3) output head, the critics' channel-first
+   conv outputs, the (L, D) positions, the residual adds) and at unaligned,
+   small, odd and empty shapes; two launches bit-equal; a float16 tensor and
+   a b of another dtype refused; each call timed beside its bound in bytes
+   and the plain chain; three graphed steps of the flag and varlen2 recipes
+   with the kernel and with the chain patched in, bit-equal, every add of a
+   step on the kernel (the masked step 239 bias adds and 56 residual adds);
 5j. one bfloat16 step of the flagship recipe and one masked bfloat16 step
    (the transformer, lambda_speed 2) on the card against the CPU (B=32, full
    width), each model's gradient distance and each loss within
@@ -241,6 +253,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -277,6 +290,7 @@ from wordgesture_gan_tpu_torch.metrics.suite import evaluate_all_metrics
 from wordgesture_gan_tpu_torch.models.contrastive import (contrastive_encoder_apply,
                                                           contrastive_encoder_init)
 from wordgesture_gan_tpu_torch.models.gan import generator_init
+from wordgesture_gan_tpu_torch.models import contrastive as contrastive_models
 from wordgesture_gan_tpu_torch.models import gan as gan_models, generators, layers
 from wordgesture_gan_tpu_torch.models.layers import gelu, leaky_relu
 from wordgesture_gan_tpu_torch.ops.assignment import matched_mean_distance, sinkhorn_matching_cost
@@ -286,6 +300,8 @@ from wordgesture_gan_tpu_torch.ops import attention as attention_ops
 from wordgesture_gan_tpu_torch.ops.attention import attention_launches
 from wordgesture_gan_tpu_torch.ops import layernorm as layernorm_ops
 from wordgesture_gan_tpu_torch.ops.layernorm import layernorm_launches
+from wordgesture_gan_tpu_torch.ops import bias as bias_ops
+from wordgesture_gan_tpu_torch.ops.bias import bias_launches
 from wordgesture_gan_tpu_torch.ops import bilstm_fused, bilstm_train
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         fused_kernel_info, sample_tile)
@@ -1986,6 +2002,237 @@ def time_layernorm(device, cases=LN_TIME_CASES, calls: int = 24) -> list:
     return lines
 
 
+# -- the bias adds (csrc/bias.cu) against the plain chain --------------------------------
+#
+# Phase 5o. The kernel rounds where the chain rounds (each add float32, then
+# the dtype), so every result equals the chain's bit for bit: the output
+# and its layout, dy, db (the chain's own reduction) and the residual's
+# cotangent, compared with torch.equal on the card. Inputs from N(0, 1)
+# drawn on the card from a seed, rounded to the dtype.
+#
+# (layout, shape, dtype, b's dimensions, residual): "rows" a row-major y;
+# "ncl" a convolution's (B, C, L) output read as its (B, L, C) view, b (C,);
+# "unaligned" a row-major y starting one element into its allocation. The
+# masked step's calls at d_model 64 (2B and B tokens of L = 128 through the
+# embedding and attn_out (64), qkv (192), mlp1 (256); the float32 output
+# head (3); the critics' conv outputs; the positions (L, D); the residual
+# adds), then the small, odd and empty.
+BIAS_CHECKS = (("rows", (65536, 64), "bfloat16", 1, False),
+               ("rows", (65536, 192), "bfloat16", 1, False),
+               ("rows", (65536, 256), "bfloat16", 1, False),
+               ("rows", (131072, 64), "bfloat16", 1, False),
+               ("rows", (131072, 192), "bfloat16", 1, False),
+               ("rows", (131072, 256), "bfloat16", 1, False),
+               ("rows", (65536, 3), "float32", 1, False),
+               ("rows", (131072, 3), "float32", 1, False),
+               ("ncl", (512, 64, 128), "bfloat16", 1, False),
+               ("ncl", (512, 32, 128), "bfloat16", 1, False),
+               ("rows", (512, 128, 64), "bfloat16", 2, False),
+               ("rows", (65536, 64), "bfloat16", 1, True),
+               ("rows", (131072, 64), "bfloat16", 1, True),
+               ("rows", (65536, 64), "float32", 1, True),
+               ("unaligned", (1000, 64), "bfloat16", 1, False),
+               ("unaligned", (1000, 64), "bfloat16", 1, True),
+               ("rows", (512, 1), "bfloat16", 1, False),
+               ("rows", (7, 5), "float32", 1, False),
+               ("ncl", (3, 5, 7), "bfloat16", 1, False),
+               ("rows", (0, 64), "bfloat16", 1, False))
+# The masked step's calls (the first fourteen checks), timed.
+BIAS_TIME_CASES = BIAS_CHECKS[:14]
+# The adds of one graphed step of each recipe at n_critic 5: the varlen2
+# transformer makes 11 bias adds and 8 residual adds a forward (embedding,
+# positions, each block's qkv and mlp1 and, with the residual, attn_out and
+# mlp2, the output head) in 7 forwards a step; the rest are the critics'
+# and the encoder's layers.
+BIAS_CALLS_PER_STEP = {"flag": {"bias/cuda": 170},
+                       "varlen2": {"bias/cuda": 239, "bias_residual/cuda": 56}}
+
+
+def bias_inputs(device, layout: str, shape: tuple, dtype: torch.dtype, b_dims: int,
+                residual: bool, seed: int = 0) -> tuple:
+    """(y, b, residual or None, the output's cotangent) for phase 5o, drawn
+    on ``device`` from ``seed``; y (and the residual) in ``layout``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*size):
+        if layout == "unaligned":
+            return torch.randn(math.prod(size) + 1, generator=gen, device=device).to(
+                dtype)[1:].view(size)
+        t = torch.randn(*size, generator=gen, device=device).to(dtype)
+        return t.transpose(1, 2) if layout == "ncl" else t
+
+    y = draw(*shape)
+    b = torch.randn(y.shape[y.dim() - b_dims:], generator=gen, device=device).to(dtype)
+    r = draw(*shape) if residual else None
+    g = torch.randn(y.shape, generator=gen, device=device).to(dtype)
+    return y, b, r, g
+
+
+def _bias_results(fn, y, b, r, g) -> dict:
+    """{"out", "dy", "db"[, "dres"]} of ``fn(y, b, r)`` against cotangent ``g``."""
+    leaves = [t.detach().requires_grad_() for t in (y, b) + (() if r is None else (r,))]
+    out = fn(*leaves[:2], leaves[2] if r is not None else None)
+    grads = torch.autograd.grad(out, leaves, g)
+    return {"out": out.detach(), **dict(zip(("dy", "db", "dres"), grads))}
+
+
+def bias_case(device, layout: str, shape: tuple, dtype_name: str, b_dims: int, residual: bool,
+              seed: int = 0) -> dict:
+    """One case of phase 5o: the dispatcher (the kernel on the card) against
+    the plain chain, bit for bit, the output's layout too; two launches
+    bit-equal; the kernel's path; the calls counted."""
+    y, b, r, g = bias_inputs(device, layout, shape, getattr(torch, dtype_name), b_dims, residual,
+                             seed)
+    want = _bias_results(bias_ops.plain_add_bias, y, b, r, g)
+    reset_launches(bias_launches)
+    got = _bias_results(bias_ops.add_bias, y, b, r, g)
+    calls = {f"{op}/{p}": n for (op, p), n in bias_launches.launches_by_path.items() if n}
+    again = _bias_results(bias_ops.add_bias, y, b, r, g)
+    return {"check": "bias kernel vs the plain chain on the card", "layout": layout,
+            "shape": list(shape), "dtype": dtype_name, "b_shape": list(b.shape),
+            "residual": residual, "calls": calls,
+            "path": bias_ops.path_of(y, b, r) if device.type == "cuda" else "plain",
+            "bits_differ": {k: _mismatches(got[k], want[k]) for k in want},
+            "same_layout": activations.same_layout(got["out"], want["out"]),
+            "deterministic": all(torch.equal(got[k], again[k]) for k in got)}
+
+
+def check_bias(device, cases=BIAS_CHECKS, strict: bool = True) -> list:
+    """Phase 5o: every case of ``cases`` (``bias_case``) bit-equal to the
+    chain in every result, the output in the chain's layout, two launches
+    bit-equal, one call (none for an empty tensor) and no plain call; a
+    float16 tensor, or a b of another dtype, on the card raises ValueError."""
+    lines = []
+    for case in cases:
+        line = bias_case(device, *case)
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        bad = [k for k, v in line["bits_differ"].items() if v]
+        if not (line["same_layout"] and line["deterministic"]):
+            bad.append("layout/deterministic")
+        op = "bias_residual" if case[4] else "bias"
+        if device.type == "cuda" and line["calls"] != ({f"{op}/cuda": 1} if math.prod(case[1])
+                                                       else {}):
+            bad.append(f"calls {line['calls']}")
+        if bad and strict:
+            raise AssertionError(f"bias {case}: {bad}")
+    if device.type == "cuda":
+        for y, b in ((torch.zeros(4, 64, dtype=torch.float16, device=device),
+                      torch.zeros(64, dtype=torch.float16, device=device)),
+                     (torch.zeros(4, 64, dtype=torch.bfloat16, device=device),
+                      torch.zeros(64, device=device))):
+            try:
+                bias_ops.add_bias(y, b)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"a {y.dtype} y with a {b.dtype} b took the bias kernel")
+    return lines
+
+
+def bias_bound_ms(shape: tuple, dtype_name: str, b_dims: int, residual: bool) -> float:
+    """Least time for the call's bytes: y (and the residual) read once, the
+    output written once, b read once."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    n = math.prod(shape)
+    return ((2 + residual) * n + math.prod(shape[len(shape) - b_dims:])) * item \
+        / PEAK_BYTES_PER_S * 1e3
+
+
+def time_bias(device, cases=BIAS_TIME_CASES, calls: int = 24) -> list:
+    """The bias kernel at the masked step's calls: each call's ms
+    (``graphed_ms`` over ``calls`` calls whose inputs rotate over copies
+    that exceed the L2 cache, so each launch reads them from device memory;
+    ``warm_ms`` on one copy) beside its bound in bytes and the plain chain
+    (``y + b``, then the residual's add: the kernels PyTorch picks),
+    replayed alike."""
+    lines = []
+    for layout, shape, dtype_name, b_dims, residual in cases:
+        dtype = getattr(torch, dtype_name)
+        per_call = (2 + residual) * math.prod(shape) * (2 if dtype == torch.bfloat16 else 4)
+        copies = max(2, math.ceil(2 * L2_BYTES / per_call))
+        inputs = [bias_inputs(device, layout, shape, dtype, b_dims, residual, seed=i)[:3]
+                  for i in range(copies)]
+        with torch.no_grad():
+            ms = graphed_ms([lambda i=i: bias_ops.add_bias(*inputs[i % copies])
+                             for i in range(calls)])
+            warm_ms = graphed_ms([lambda: bias_ops.add_bias(*inputs[0])] * calls)
+            plain_ms = graphed_ms([lambda i=i: bias_ops.plain_add_bias(*inputs[i % copies])
+                                   for i in range(calls)])
+        bound = bias_bound_ms(shape, dtype_name, b_dims, residual)
+        line = {"timing": "bias" + ("_residual" if residual else ""), "route": "cuda",
+                "path": bias_ops.path_of(*inputs[0]), "layout": layout, "dtype": dtype_name,
+                "shape": list(shape), "b_shape": list(inputs[0][1].shape), "ms": ms,
+                "warm_ms": warm_ms, "input_copies": copies, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": "bytes", "ms_over_bound": ms / bound,
+                "plain_over_bound": plain_ms / bound}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    return lines
+
+
+class plain_bias:
+    """Inside: every module of the port that bound ``add_bias`` runs the
+    plain chain instead, on the card too (phase 5o's control, for the smoke
+    only)."""
+
+    MODULES = (layers, gan_models, generators, contrastive_models)
+
+    def __enter__(self):
+        self.saved = [(mod, mod.add_bias) for mod in self.MODULES]
+        for mod, _ in self.saved:
+            mod.add_bias = lambda y, b, residual=None: bias_ops.plain_add_bias(y, b, residual)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self.saved:
+            mod.add_bias = fn
+
+
+def bias_paths_bit_equal(device, batch: int = 512, model: dict = None) -> list:
+    """Phase 5o, whole steps: for the ``flag`` recipe (``kind`` "bfloat16")
+    and ``varlen2`` (``kind`` "masked"), GRAPH_CHECK_BATCHES graphed steps
+    from one state with the bias kernel and again with the plain chain
+    patched in (``plain_bias``): every loss and every state tensor
+    bit-equal. On the card every add of a step goes through the kernel,
+    none plain, as many as ``BIAS_CALLS_PER_STEP`` names."""
+    lines = []
+    for kind, recipe in (("bfloat16", "flag"), ("masked", "varlen2")):
+        mcfg, tcfg, batches, epoch_fn, _ = _graph_check_inputs(device, kind, batch, model)
+        if recipe == "varlen2":
+            tcfg = dataclasses.replace(tcfg, lambda_speed=2.0)
+        runs = {}
+        for path in ("kernel", "plain"):
+            state = init_gan_state(0, mcfg, device)
+            reset_launches(bias_launches)
+            with plain_bias() if path == "plain" else contextlib.nullcontext():
+                _, traces = epoch_fn(state, batches, GRAPH_CHECK_LR, mcfg, tcfg,
+                                     graph=StepGraph())
+            _sync(device)
+            runs[path] = (state, traces, {f"{op}/{p}": n / GRAPH_CHECK_BATCHES for (op, p), n
+                                          in bias_launches.launches_by_path.items() if n})
+        (a, ta, calls), (b, tb, plain_calls) = runs["kernel"], runs["plain"]
+        line = {"check": "graphed steps with the bias kernel vs the plain chain",
+                "recipe": recipe, "batch": batch, "steps": GRAPH_CHECK_BATCHES,
+                "max_abs_loss_diff": max((ta[k] - tb[k]).abs().max().item() for k in ta),
+                "max_abs_state_diff": _state_diff(a, b), "calls_per_step": calls,
+                "plain_run_calls_per_step": plain_calls}
+        line["bit_equal"] = line["max_abs_loss_diff"] == 0.0 == line["max_abs_state_diff"]
+        print(json.dumps(line), flush=True)
+        if not line["bit_equal"]:
+            raise AssertionError(f"the bias kernel changes the {recipe} steps: {line}")
+        if plain_calls:
+            raise AssertionError(f"the patched {recipe} steps still called the dispatcher: {line}")
+        if device.type == "cuda":
+            if any(k.endswith("/plain") for k in calls):
+                raise AssertionError(f"a plain bias add in the {recipe} steps: {line}")
+            if calls != BIAS_CALLS_PER_STEP[recipe]:
+                raise AssertionError(f"bias adds a {recipe} step {calls}, expected "
+                                     f"{BIAS_CALLS_PER_STEP[recipe]}")
+        lines.append(line)
+    return lines
+
+
 def activation_paths_bit_equal(device, batch: int = 512, model: dict = None) -> list:
     """Phase 5l: for the ``flag`` recipe (``kind`` "bfloat16") and ``varlen2``
     (the masked step with lambda_speed 2), GRAPH_CHECK_BATCHES graphed
@@ -3536,12 +3783,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = kernel_build.build(["bilstm_fused", "bilstm_train", "dtw", "threefry", "activations",
-                               "attention", "layernorm"])
+                               "attention", "layernorm", "bias"])
     for name, log in logs.items():
         kernel = ""
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '\w*?\d+((?:train|bilstm|dtw|threefry|"
-                              r"activation|attn|layernorm)_\w+?kernel)"
+                              r"activation|attn|layernorm|bias)_?\w*?kernel)"
                               r"(?:ILi(\d+)E(?:Li(\d)E)?|I(f|13__nv_bfloat16))?", line)
             if entry:   # the mangled name: kernel, then its template arguments
                 kernel = entry.group(1) + "".join(f"<{g.replace('13__nv_', '')}>"
@@ -3596,6 +3843,9 @@ def main() -> int:
     attention_times = time_attention(device)
     layernorm_checks = check_layernorm(device)
     layernorm_times = time_layernorm(device)
+    bias_checks = check_bias(device)
+    bias_times = time_bias(device)
+    bias_steps = bias_paths_bit_equal(device)
     for kind in ("flagship", "masked"):
         bf16_step_vs_cpu(device, kind)
     precision_flags(device)
@@ -3814,7 +4064,20 @@ def main() -> int:
         "max_rel_l2": max(max(c["rel_l2"].values()) for c in layernorm_checks
                           if c["dtype"] == t["dtype"]),
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    } for t in layernorm_times]
+    } for t in layernorm_times] + [{
+        # The models' bias adds, a transformer block's residual add folded
+        # in, one launch (no pl.pallas_call: XLA fuses the JAX package's
+        # adds); timed at the masked step's calls beside the plain chain;
+        # calls a graphed step of either recipe (phase 5o); the error: bits
+        # that differ from the chain in phase 5o's checks and steps.
+        "name": t["timing"], "route": "cuda", "path": t["path"],
+        "source": "wordgesture_gan_tpu_torch/csrc/bias.cu", "replaces": None,
+        "shape": t["shape"], "dtype": t["dtype"], "layout": t["layout"],
+        "calls_per_graphed_step": {line["recipe"]: line["calls_per_step"].get(
+            t["timing"] + "/cuda", 0) for line in bias_steps},
+        "bits_differ": sum(sum(c["bits_differ"].values()) for c in bias_checks),
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+    } for t in bias_times]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

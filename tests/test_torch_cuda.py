@@ -26,7 +26,8 @@ attention kernels sum in another order than the plain chain: their results
 are held to it within ``chip_smoke.ATTN_LIMIT`` (its comment gives the
 reasons), against float8 controls that must fail; so are the layer norm
 kernels' (``chip_smoke.LN_LIMIT``, the same limits, against a float8
-control).
+control). The bias kernel equals the chain of adds bit for bit, backward
+and whole graphed steps included.
 """
 
 import numpy as np
@@ -44,6 +45,8 @@ from wordgesture_gan_tpu_torch.ops.activations import activation_launches
 from wordgesture_gan_tpu_torch.ops.attention import attention_launches
 from wordgesture_gan_tpu_torch.ops import layernorm as layernorm_ops
 from wordgesture_gan_tpu_torch.ops.layernorm import layernorm_launches
+from wordgesture_gan_tpu_torch.ops import bias as bias_ops
+from wordgesture_gan_tpu_torch.ops.bias import bias_launches
 from wordgesture_gan_tpu_torch.ops import bilstm_fused
 from wordgesture_gan_tpu_torch.ops.bilstm_fused import (fused_bilstm_fwd, fused_bilstm_fwd_plain,
                                                         sample_tile)
@@ -946,6 +949,105 @@ def test_layernorm_shapes_off_the_kernels_raise_on_the_card(cuda_device, shape, 
     assert dict(layernorm_launches.launches_by_path) == before
 
 
+# -- the bias kernel (ops/bias.py) against the plain chain -----------------------------------
+
+
+def _bias_cases():
+    """chip_smoke's phase 5o checks with the loop each takes: 16-byte vectors
+    for every aligned call of the models (rows, the float32 (T, 3) heads,
+    the conv's channel-first views, the positions, a single bias), one
+    element at a time for unaligned views and lengths no vector divides."""
+    import chip_smoke
+
+    paths = ["vector"] * 14 + ["scalar"] * 2 + ["vector", "scalar", "scalar", None]
+    return list(zip(chip_smoke.BIAS_CHECKS, paths))
+
+
+@pytest.mark.parametrize("case,path", _bias_cases(), ids=lambda c: "-".join(map(str, c))
+                         if isinstance(c, tuple) else str(c))
+def test_bias_kernel_equals_the_plain_chain(cuda_device, case, path):
+    """The output (bits and layout), dy, db and the residual's cotangent
+    equal to the chain's (``torch.equal``: no bit differs); two launches
+    bit-equal; one call on the kernel's path, none plain
+    (``chip_smoke.check_bias`` raises otherwise, and for a float16 tensor
+    or a b of another dtype that does not raise)."""
+    import chip_smoke
+
+    (line,) = chip_smoke.check_bias(cuda_device, cases=(case,))
+    assert not any(line["bits_differ"].values()) and line["same_layout"]
+    if path is not None:
+        assert line["path"] == path
+
+
+def _bias_grads(y, b, r, g):
+    leaves = [t.detach().requires_grad_() for t in (y, b, r)]
+    out = bias_ops.add_bias(*leaves)
+    return (out, *torch.autograd.grad(out, leaves, g))
+
+
+def test_bias_kernel_inside_a_captured_graph(cuda_device):
+    """The residual add forward and backward through the dispatcher captured
+    as one CUDA graph, replayed on new inputs written into its static
+    buffers: each replay bit-equal to the kernel run eagerly on them."""
+    import chip_smoke
+
+    def inputs(seed):
+        return chip_smoke.bias_inputs(cuda_device, "rows", (4096, 64), torch.bfloat16, 1, True,
+                                      seed=seed)
+
+    static = inputs(1)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        _bias_grads(*static)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _bias_grads(*static)
+    for seed in (2, 3):
+        fresh = inputs(seed)
+        for s, f in zip(static, fresh):
+            s.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _bias_grads(*fresh)
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def test_graphed_steps_take_the_bias_kernel_with_the_chains_bits(cuda_device):
+    """Three graphed steps of the flag and varlen2 recipes (B=64) with the
+    kernel and again with the plain chain patched into the models: every
+    loss and state tensor bit-equal; a replayed step counts each add on the
+    kernel, none plain: the masked step 239 bias adds and 56 residual adds
+    (8 a transformer forward, 7 forwards), the flagship step 170
+    (``chip_smoke.bias_paths_bit_equal`` raises otherwise)."""
+    import chip_smoke
+
+    lines = chip_smoke.bias_paths_bit_equal(cuda_device, batch=64)
+    assert {line["recipe"]: line["calls_per_step"] for line in lines} == {
+        "flag": {"bias/cuda": 170}, "varlen2": {"bias/cuda": 239, "bias_residual/cuda": 56}}
+    assert all(line["bit_equal"] for line in lines)
+
+
+@pytest.mark.parametrize("y_dtype,b_dtype,b_shape,residual_shape", [
+    (torch.float16, torch.float16, (64,), None), (torch.float64, torch.float64, (64,), None),
+    (torch.bfloat16, torch.float32, (64,), None), (torch.bfloat16, torch.bfloat16, (1, 64), None),
+    (torch.bfloat16, torch.bfloat16, (4,), None), (torch.float32, torch.float32, (64,), (1, 64))])
+def test_bias_operands_off_the_kernel_raise_on_the_card(cuda_device, y_dtype, b_dtype, b_shape,
+                                                        residual_shape):
+    """Card tensors the kernel does not take raise ValueError naming it and
+    count nothing: the plain chain runs on the CPU only."""
+    y = torch.zeros(4, 64, dtype=y_dtype, device=cuda_device)
+    b = torch.zeros(b_shape, dtype=b_dtype, device=cuda_device)
+    r = None if residual_shape is None else torch.zeros(residual_shape, dtype=y_dtype,
+                                                        device=cuda_device)
+    before = dict(bias_launches.launches_by_path)
+    with pytest.raises(ValueError, match=r"bias kernel takes"):
+        bias_ops.add_bias(y, b, r)
+    assert dict(bias_launches.launches_by_path) == before
+
+
+
 # -- the sampling loop: each chunk a replay of a CUDA graph ----------------------------------
 
 
@@ -1084,8 +1186,9 @@ def test_replaced_parameters_are_captured_again(cuda_device):
 @pytest.mark.parametrize("family", ["transformer", "bilstm"])
 def test_graphed_sampling_counts_the_eager_loops_launches(cuda_device, family):
     """A replay launches from no Python wrapper: each adds what its capture
-    counted, so a call counts the draws, kernel 1, the activations and the
-    attention the eager loop counts, capturing or replaying."""
+    counted, so a call counts the draws, kernel 1, the activations, the
+    attention, the layer norms and the bias adds the eager loop counts,
+    capturing or replaying."""
     from wordgesture_gan_tpu_torch.ops.threefry import threefry_draw
     from wordgesture_gan_tpu_torch.train.step_graph import COUNTED, launch_counts
 
@@ -1104,6 +1207,10 @@ def test_graphed_sampling_counts_the_eager_loops_launches(cuda_device, family):
     norms = 2 * gen.config.tfm_num_layers + 1 if family == "transformer" else 0
     assert eager[COUNTED.index(layernorm_launches)][1][("layernorm_fwd", "cuda")] == 5 * norms
     assert norms in (0, 9)                                      # 9 forwards a chunk
+    adds = ({("bias", "cuda"): 11, ("bias_residual", "cuda"): 8} if family == "transformer"
+            else {("bias", "cuda"): 1})                         # a forward's, one a chunk
+    assert {k: n for k, n in eager[COUNTED.index(bias_launches)][1].items() if n} == {
+        k: 5 * n for k, n in adds.items()}
     for _ in range(2):
         assert launched(lambda: _sample(gen, protos, batch=64, masks=masks)) == eager
 

@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..configs import DEFAULT_CONTRASTIVE_CONFIG, ContrastiveConfig
+from ..ops.bias import add_bias
 from ..utils import prng
 from .layers import Key, _key, batchnorm, batchnorm_init, conv1d, conv1d_init, dense_init
 
@@ -56,8 +57,8 @@ def contrastive_encoder_apply(params: Dict, state: Dict, x: torch.Tensor, train:
         new_bn_states.append(bn_s_new)
 
     h = h.mean(dim=1)                        # global average pool over time
-    h = torch.relu(h @ params["proj"][0]["w"] + params["proj"][0]["b"])
-    h = h @ params["proj"][1]["w"] + params["proj"][1]["b"]
+    h = torch.relu(add_bias(h @ params["proj"][0]["w"], params["proj"][0]["b"]))
+    h = add_bias(h @ params["proj"][1]["w"], params["proj"][1]["b"])
     if normalize:
         h = h / (torch.linalg.vector_norm(h, dim=-1, keepdim=True) + 1e-12)
     return h, {"bns": new_bn_states}

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
+from ..ops.bias import add_bias
 from ..ops.bilstm_fused import fused_bilstm_fwd
 from ..ops.bilstm_train import bilstm_train_apply
 from .generators import (mlp_generator_apply, mlp_generator_init, transformer_generator_apply,
@@ -116,7 +117,7 @@ def generator_apply(params: Dict, prototype: torch.Tensor, z: torch.Tensor,
         h = bilstm_apply(cast_floats(layers, dtype), proto.to(dtype), config.gen_hidden_dim,
                          static=z.to(dtype))
     out = params["out"]
-    return apply_time_head(h.to(torch.float32) @ out["w"] + out["b"], config.time_head)
+    return apply_time_head(add_bias(h.to(torch.float32) @ out["w"], out["b"]), config.time_head)
 
 
 def _register_tree(module: nn.Module, tree: Dict) -> None:
@@ -202,7 +203,7 @@ class Generator(nn.Module):
 
 
 def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"] + p["b"]
+    return add_bias(x @ p["w"], p["b"])
 
 
 def encoder_init(config: ModelConfig = DEFAULT_MODEL_CONFIG, key: Key = None) -> Dict:
@@ -262,9 +263,9 @@ def mlp_disc_apply(params: Dict, state: Dict, x: torch.Tensor, update_stats: boo
     h = x.reshape(x.shape[0], -1).to(dtype)
     features = []
     for p, w in zip(layer_ps[:-1], ws[:-1]):
-        h = leaky_relu(h @ w.to(dtype) + p["b"].to(dtype))
+        h = leaky_relu(add_bias(h @ w.to(dtype), p["b"].to(dtype)))
         features.append(h)
-    out = h @ ws[-1].to(dtype) + layer_ps[-1]["b"].to(dtype)
+    out = add_bias(h @ ws[-1].to(dtype), layer_ps[-1]["b"].to(dtype))
     return out.to(torch.float32), features, {"layers": new_us[:-1], "out": new_us[-1]}
 
 
@@ -317,9 +318,9 @@ def temporal_disc_apply(params: Dict, state: Dict, x: torch.Tensor, update_stats
     pooled = h.reshape(B, _POOL_BINS, L // _POOL_BINS, C).mean(dim=2)           # (B, 8, C)
     h2 = pooled.transpose(1, 2).reshape(B, -1)                                  # channel-major
     for p, w in zip(mlp_ps, ws[n_conv:-1]):
-        h2 = leaky_relu(h2 @ w.to(dtype) + p["b"].to(dtype))
+        h2 = leaky_relu(add_bias(h2 @ w.to(dtype), p["b"].to(dtype)))
         features.append(h2)
-    out = h2 @ ws[-1].to(dtype) + params["out"]["b"].to(dtype)
+    out = add_bias(h2 @ ws[-1].to(dtype), params["out"]["b"].to(dtype))
     return out.to(torch.float32), features, {"convs": new_us[:n_conv],
                                               "mlp": new_us[n_conv:-1], "out": new_us[-1]}
 

@@ -8,12 +8,13 @@ package's ``models/generators.py``).
 
 Both share the generator contract ``apply(params, prototype (B, L, 3),
 z (B, Z)) → gesture (B, L, 3)`` and are init/apply pairs over trees of
-float32 tensors in the JAX layout, like the rest of ``models/``. None of them
-reaches a hand-written kernel but the transformer's attention core and its
-layer norms, which on the card run ``csrc/attention.cu``
-(``ops/attention.py``) and ``csrc/layernorm.cu`` (``ops/layernorm.py``)
-and on the CPU the plain chains (explicit products, not
-``scaled_dot_product_attention``; the norm op by op), so that their
+float32 tensors in the JAX layout, like the rest of ``models/``. Their bias
+adds run ``csrc/bias.cu`` on the card (``ops/bias.py``, the transformer's
+residual adds folded into them); the other hand-written kernels they reach
+are the transformer's attention core and its layer norms, which on the card
+run ``csrc/attention.cu`` (``ops/attention.py``) and ``csrc/layernorm.cu``
+(``ops/layernorm.py``) and on the CPU the plain chains (explicit products,
+not ``scaled_dot_product_attention``; the norm op by op), so that their
 precision and the padding rule are the JAX package's.
 """
 
@@ -26,6 +27,7 @@ import torch
 
 from ..configs import DEFAULT_MODEL_CONFIG, ModelConfig
 from ..ops.attention import attention
+from ..ops.bias import add_bias
 from ..ops.layernorm import layernorm
 from ..utils import prng
 from .layers import Key, _key, cast_floats, dense_init, gelu, leaky_relu
@@ -35,8 +37,11 @@ def _proto_dim(config: ModelConfig) -> int:
     return config.input_dim if config.prototype_has_time else 2
 
 
-def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"] + p["b"]
+def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w + b``, and with ``residual`` ``residual + (x @ w + b)``, the
+    adds in one pass on the card (``ops/bias.py``)."""
+    return add_bias(x @ p["w"], p["b"], residual)
 
 
 def _compute_dtype(config: ModelConfig) -> torch.dtype:
@@ -135,13 +140,14 @@ def plain_attention(qkv: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torc
     return (attn @ v).transpose(1, 2).reshape(B, L, H * head)
 
 
-def _attention(block: Dict, x: torch.Tensor, num_heads: int,
-               pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _attention(block: Dict, x: torch.Tensor, num_heads: int, pad_mask: Optional[torch.Tensor],
+               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head self-attention: the projections, the core (the card's
-    kernels or ``plain_attention``), the output projection."""
+    kernels or ``plain_attention``), the output projection; ``residual``,
+    when given, is added in the output projection's bias add."""
     B, L, D = x.shape
     qkv = _dense(block["qkv"], x).reshape(B, L, 3, num_heads, D // num_heads)
-    return _dense(block["attn_out"], attention(qkv, pad_mask, plain_attention))
+    return _dense(block["attn_out"], attention(qkv, pad_mask, plain_attention), residual)
 
 
 def transformer_generator_apply(params: Dict, prototype: torch.Tensor, z: torch.Tensor,
@@ -160,10 +166,12 @@ def transformer_generator_apply(params: Dict, prototype: torch.Tensor, z: torch.
     dtype = _compute_dtype(config)
     p = cast_floats({k: params[k] for k in ("embed", "pos", "blocks")}, dtype)
     tokens = torch.cat([proto, z[:, None, :].expand(B, L, z.shape[-1])], dim=-1)
-    h = _dense(p["embed"], tokens.to(dtype)) + p["pos"][None, :L, :]
+    # A tuple index: a slice of the whole table is an alias, whose backward
+    # launches nothing (``pos[:L]`` alone would zero and copy a table).
+    h = add_bias(_dense(p["embed"], tokens.to(dtype)), p["pos"][:L, :])
     for block in p["blocks"]:
-        h = h + _attention(block, _layernorm(block["ln1"], h), config.tfm_num_heads, pad_mask)
+        h = _attention(block, _layernorm(block["ln1"], h), config.tfm_num_heads, pad_mask, h)
         m = _dense(block["mlp1"], _layernorm(block["ln2"], h))
-        h = h + _dense(block["mlp2"], gelu(m))
+        h = _dense(block["mlp2"], gelu(m), h)
     h = _layernorm(params["ln_f"], h.to(torch.float32))
     return apply_time_head(_dense(params["out"], h), config.time_head, pad_mask=pad_mask)

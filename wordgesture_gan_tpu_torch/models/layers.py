@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import activations
+from ..ops.bias import add_bias
 from ..utils import prng
 
 Key = Optional[torch.Tensor]
@@ -263,7 +264,7 @@ def conv1d(params: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
     (a bias fused into the convolution rounds once in bfloat16)."""
     w = params["w"].permute(2, 1, 0)
     out = F.conv1d(x.transpose(1, 2), w, stride=stride, padding=padding).transpose(1, 2)
-    return out + params["b"]
+    return add_bias(out, params["b"])
 
 
 def sn_conv1d_init(in_ch: int, out_ch: int, kernel: int, key: Key = None):
@@ -360,7 +361,7 @@ class Dense(nn.Module):
         self.b = nn.Parameter(p["b"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w + self.b
+        return add_bias(x @ self.w, self.b)
 
 
 class LSTMCell(nn.Module):

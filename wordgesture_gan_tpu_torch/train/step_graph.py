@@ -24,9 +24,10 @@ it recorded, so:
     the warm-up: a real step, after which cuBLAS and cuDNN workspaces, NCCL's
     communicator and the kernels' attributes exist before the capture;
   * the launch counters of kernels 1-3, of the threefry draws, of the
-    activations, of the attention, of the layer norms and of the gradient
-    all-reduces are bumped in Python where a wrapper launches, which a
-    replay does not do: each replay adds the launches its capture counted.
+    activations, of the attention, of the layer norms, of the bias adds and
+    of the gradient all-reduces are bumped in Python where a wrapper
+    launches, which a replay does not do: each replay adds the launches its
+    capture counted.
 
 A ``StepGraph`` captures again only when the state's tensors, the batch's
 shapes or the step's configuration change. There is no eager fallback: a
@@ -43,6 +44,7 @@ import torch
 
 from ..ops.activations import activation_launches
 from ..ops.attention import attention_launches
+from ..ops.bias import bias_launches
 from ..ops.bilstm_fused import fused_bilstm_fwd
 from ..ops.bilstm_train import bilstm_train_bwd, bilstm_train_fwd
 from ..ops.layernorm import layernorm_launches
@@ -54,9 +56,11 @@ from ..utils.tree import tree_leaves
 from .state import ADAM_B1, ADAM_B2, MODELS, inverse_bias_corrections
 
 # The launch counters a replay must advance: kernels 1-3, the draws, the
-# activations, the attention, the layer norms and the collectives.
+# activations, the attention, the layer norms, the bias adds and the
+# collectives.
 COUNTED = (fused_bilstm_fwd, bilstm_train_fwd, bilstm_train_bwd, threefry_draw,
-           activation_launches, attention_launches, layernorm_launches, all_reduce_gradients)
+           activation_launches, attention_launches, layernorm_launches, bias_launches,
+           all_reduce_gradients)
 
 NOISE_NAMES = ("z_rand", "eps_enc", "z1", "eps_rec", "eps2", "z_ms")
 
